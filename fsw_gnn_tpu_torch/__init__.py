@@ -8,15 +8,18 @@ kernel is replaced by its plain PyTorch version.  This package imports no
 JAX and nothing of `fsw_gnn_tpu`.
 """
 
-from .bridge import fswconv_from_jax
-from .conv import FSWConv
+from .bridge import fswconv_from_jax, fswgnn_from_jax
+from .conv import FlaxBatchNorm, FSWConv
 from .device import resolve_device
 from .embedding import (FSWConfig, bucket_quadrature, fsw_embed_multi_table,
                         fsw_embed_table, lowclamp)
-from .graph import (Graph, MultiTable, NeighborTable, degree_classes,
-                    from_edge_index, to_multi_table, to_neighbor_table)
+from .graph import (Graph, MultiTable, NeighborTable, auto_layout,
+                    degree_classes, from_edge_index, to_multi_table,
+                    to_neighbor_table)
+from .models import FSWGNN, gnn_layer_conv
 from .modules import FSWEmbedding
 from .params import bias_shape, generate_freqs, generate_proj_vecs
 from .serving import GraphServer, multi_envelope
+from .train import TrainConfig, Trainer
 
-__version__ = '0.1.0'
+__version__ = '0.2.0'

@@ -8,7 +8,10 @@ Counterpart of `FSWConv` in `fsw_gnn_tpu/conv.py`, with the same defaults:
   * the degree encoding is 'homog' iff homog_degree_encoding;
   * the embedding uses freqs_init='spread';
   * MLP layer order Linear -> BatchNorm -> activation -> Dropout, with
-    LeakyReLU(0.2) activations by default.
+    LeakyReLU(0.2) activations by default;
+  * BatchNorm in train mode is flax's (`FlaxBatchNorm`);
+  * Dropout draws its mask from the `generator` the caller passes to
+    `forward` (it cannot match JAX's random stream).
 The convolution consumes a prebuilt NeighborTable or MultiTable.  Train
 and eval mode are torch's (`module.train()` / `.eval()`).
 """
@@ -51,10 +54,52 @@ _MLP_INITS = {
 }
 
 
+class FlaxBatchNorm(nn.BatchNorm1d):
+    """BatchNorm over the batch axis whose train mode is flax
+    `nn.BatchNorm`'s: normalise with the biased batch variance and eps
+    1e-5, and move the running statistics as
+    running = 0.99 * running + 0.01 * batch, with the biased variance for
+    running_var too (torch's BatchNorm1d uses momentum 0.1 and the unbiased
+    variance there).  Eval mode normalises with the running statistics.
+    The state keeps torch's names (weight, bias, running_mean,
+    running_var)."""
+
+    DECAY = 0.99
+
+    def __init__(self, num_features: int, dtype=torch.float32):
+        super().__init__(num_features, eps=1e-5, momentum=1.0 - self.DECAY,
+                         dtype=dtype)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=0)
+        var = x.var(dim=0, unbiased=False)
+        with torch.no_grad():
+            self.running_mean.mul_(self.DECAY).add_(mean, alpha=1 - self.DECAY)
+            self.running_var.mul_(self.DECAY).add_(var, alpha=1 - self.DECAY)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
+            + self.bias
+
+
+def dropout(x, p: float, generator: Optional[torch.Generator] = None):
+    """Inverted dropout as flax applies it: keep each entry with
+    probability 1 - p and scale the kept ones by 1 / (1 - p).  The mask is
+    drawn from `generator` (on x's device; None: torch's default)."""
+    if p <= 0:
+        return x
+    if p >= 1:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
 class _MLPHead(nn.Module):
     """The post-aggregation head: `mlp_layers` Linear layers, each followed
     by optional BatchNorm, activation and Dropout.  Layer i is
-    `dense[i]`; its BatchNorm is `bn[str(i)]`."""
+    `dense[i]`; its BatchNorm is `bn[str(i)]`, its dropout rate
+    `rates[i]`."""
 
     def __init__(self, in_dim: int, out_channels: int, mlp_layers: int,
                  mlp_hidden_dim: int, bias: bool, mlp_init: Optional[str],
@@ -76,10 +121,10 @@ class _MLPHead(nn.Module):
         self.dense = nn.ModuleList()
         self.bn = nn.ModuleDict()
         self.acts = []
-        self.drop = nn.ModuleDict()
+        self.rates = []
         if mlp_layers == 0:
             if batchnorm_final:
-                self.bn['final'] = nn.BatchNorm1d(in_dim, dtype=dtype)
+                self.bn['final'] = FlaxBatchNorm(in_dim, dtype=dtype)
             return
         in_d = in_dim
         for i in range(mlp_layers):
@@ -95,15 +140,13 @@ class _MLPHead(nn.Module):
                         layer.bias.zero_()
             self.dense.append(layer)
             if batchnorm_final if is_final else batchnorm_hidden:
-                self.bn[str(i)] = nn.BatchNorm1d(out_d, dtype=dtype)
+                self.bn[str(i)] = FlaxBatchNorm(out_d, dtype=dtype)
             self.acts.append(activation_final if is_final
                              else activation_hidden)
-            p = dropout_final if is_final else dropout_hidden
-            if p > 0:
-                self.drop[str(i)] = nn.Dropout(p)
+            self.rates.append(dropout_final if is_final else dropout_hidden)
             in_d = out_d
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         if self.mlp_layers == 0:
             return self.bn['final'](x) if 'final' in self.bn else x
         for i, layer in enumerate(self.dense):
@@ -112,8 +155,8 @@ class _MLPHead(nn.Module):
                 x = self.bn[str(i)](x)
             if self.acts[i] is not None:
                 x = self.acts[i](x)
-            if str(i) in self.drop:
-                x = self.drop[str(i)](x)
+            if self.training:
+                x = dropout(x, self.rates[i], generator)
         return x
 
 
@@ -214,10 +257,12 @@ class FSWConv(nn.Module):
         return cls(**kwargs)
 
     def forward(self, vertex_features, graph, *, slice_chunk=None,
-                recipient_features=None, aggregate: str = 'auto'):
+                recipient_features=None, aggregate: str = 'auto',
+                generator: Optional[torch.Generator] = None):
         """vertex_features (N, d_in) sender features; recipient_features
         (R, d_in) the recipients' own features for concat_self (default:
-        vertex_features).  Returns (R, out_channels)."""
+        vertex_features).  `generator` draws the dropout masks in train
+        mode.  Returns (R, out_channels)."""
         # weights_grad=False: the adjacency weights are data, never
         # parameters, which lets the rank kernel use uniform_w
         emb = self.fsw_embed(vertex_features, graph=graph,
@@ -228,4 +273,4 @@ class FSWConv(nn.Module):
                           else recipient_features)
             emb = torch.cat([self.message_weight_vs_self * emb, self_feats],
                             dim=-1)
-        return self.head(emb)
+        return self.head(emb, generator)

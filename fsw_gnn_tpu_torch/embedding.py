@@ -262,8 +262,10 @@ def fsw_embed_table(X, table, projVecs, freqs, cfg: FSWConfig,
     (R, nSlices, nFreqs) in non-collapsed cartesian mode); with
     return_raw=True, (emb before finalize, w_sum).  `slice_chunk` bounds
     the slice width processed at once.  `weights_grad=False` declares the
-    table weights data, not parameters: only then is `table.uniform_w`
-    honoured (the flag is detected once, at build time)."""
+    table weights data, not parameters: the rank route then gives them no
+    gradient (the kernel skips that loop), and only then is
+    `table.uniform_w` honoured (the flag is detected once, at build
+    time)."""
     dt = X.dtype
     S = cfg.nSlices
     s_eff = S if slice_chunk is None else min(slice_chunk, S)
@@ -286,7 +288,7 @@ def fsw_embed_table(X, table, projVecs, freqs, cfg: FSWConfig,
             out = fsw_rank_aggregate_proj(
                 Z32, wn32, pad32, f_block.to(torch.float32).contiguous(),
                 proj_block.t().to(torch.float32).contiguous(),
-                uniform_w=unif)
+                uniform_w=unif, with_dw=weights_grad)
             return out.to(dt)                                  # (R, S_blk)
         Xp = X @ proj_block[:, :cfg.d_in].t()                  # (N, S_blk)
         P = Xp[table.idx]                                      # (R, B, S_blk)

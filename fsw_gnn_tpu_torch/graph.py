@@ -400,3 +400,21 @@ def to_multi_table(graph: Graph, min_bucket: int = 8,
                       in_degrees=np.asarray(graph.in_degrees),
                       num_nodes=graph.num_nodes, num_recipients=R,
                       num_edges=E_real)
+
+
+def auto_layout(graph: Graph, max_bucket: int = 4096):
+    """The layout the single-device path computes on, chosen as the JAX
+    package's `auto_layout` chooses it: the degree-bucketed MultiTable, or
+    one NeighborTable when the graph has a single degree class.  A max
+    degree above `max_bucket` would take the CSR route, which is not
+    ported (item 7 in ROADMAP.md): that raises."""
+    _, deg = _degrees(graph)
+    max_deg = int(deg.max()) if graph.num_recipients > 0 else 0
+    if max_deg > max_bucket:
+        raise NotImplementedError(
+            f'max degree {max_deg} > {max_bucket} takes the CSR route, '
+            f'which is not ported yet (item 7 in ROADMAP.md)')
+    mt = to_multi_table(graph)
+    if len(mt.tables) == 1:
+        return to_neighbor_table(graph)
+    return mt

@@ -12,15 +12,17 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / 'fsw_gnn_tpu_torch').rglob('*.py')) + [
     ROOT / 'chip_smoke.py']
 FORBIDDEN = re.compile(
-    r'^\s*(import\s+(jax|flax|fsw_gnn_tpu)\b'
-    r'|from\s+(jax|flax|fsw_gnn_tpu)(\.|\s))', re.M)
+    r'^\s*(import\s+(jax|flax|optax|orbax|fsw_gnn_tpu)\b'
+    r'|from\s+(jax|flax|optax|orbax|fsw_gnn_tpu)(\.|\s))', re.M)
 
 
 def test_import_pulls_in_no_jax():
     code = ('import sys, fsw_gnn_tpu_torch, fsw_gnn_tpu_torch.serving, '
-            'fsw_gnn_tpu_torch.bridge, fsw_gnn_tpu_torch.kernels; '
+            'fsw_gnn_tpu_torch.bridge, fsw_gnn_tpu_torch.kernels, '
+            'fsw_gnn_tpu_torch.models.gnn, fsw_gnn_tpu_torch.data.datasets, '
+            'fsw_gnn_tpu_torch.train.trainer, fsw_gnn_tpu_torch.cli; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
-            '("jax", "flax", "fsw_gnn_tpu")]; '
+            '("jax", "flax", "optax", "orbax", "fsw_gnn_tpu")]; '
             'assert not bad, bad')
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,
                    timeout=120)
@@ -42,7 +44,8 @@ def test_entry_points_default_to_the_card():
     for build in (lambda: T.FSWConv(4, 4, minimize_slice_coherence=False),
                   lambda: T.FSWConv(4, 4, minimize_slice_coherence=False,
                                     device='cuda'),
-                  lambda: T.resolve_device(None)):
+                  lambda: T.resolve_device(None),
+                  lambda: T.FSWGNN(4, (4,), minimize_slice_coherence=False)):
         with pytest.raises(RuntimeError, match='no CUDA device'):
             build()
     conv = T.FSWConv(4, 4, minimize_slice_coherence=False, device='cpu')
