@@ -45,10 +45,35 @@ Phases (any failure exits non-zero before the last line is printed):
      loss against a CPU forward of the same model, the loss falling, the
      final train accuracy above 0.9, K1f and K1b launched
      (layers x classes x passes) times; then one epoch's parts timed;
-  8. one JSON line listing the kernels with their launches, errors, times
-     and bounds (the launches are those of the three main-path runs, 4, 6
-     and 7, together);
-  9. the last line: {"ok": true, "device": {...}}.
+  8. multisets: the reference demo's FSWEmbedding (d = 20, n = 100, 1000
+     slices, random frequencies, seed 0) on 8 x 16 x 16 = 2048 multisets
+     (X normal, W a softmax of normal values), so K2 sees P of 819 MB.
+     K2f (`fsw_rank_fwd`) and K2b (`fsw_rank_bwd`) against their plain
+     versions on the arguments the route passes (captured) in five
+     variants: W given (with_dw on), W=None with w_mode 'unit' and
+     'uniform' (uniform_w on, with_dw off), a batch of total mass 0.5
+     below the threshold (a phantom mass), ties with an f = 0 slice; each
+     also with with_dw on and random weights.  Then forward and backward
+     through `'auto'` (which must take K2) for the gradients of X and W,
+     K2f and K2b launched once each; the first 128 multisets through the
+     same module on the CPU; K2f, K2b, their plain versions, the sort
+     route and the whole forward and backward timed, and K2 and the sort
+     route forward and backward with weight gradients also at n = 128,
+     the widest multiset `'auto'` sends to K2;
+  9. K2 on the table path: the bench FSWConv on the bench graph with
+     slice_chunk = 64 = d_in, so the fused route does not apply; K2 held
+     against its plain version on every captured (class, chunk) call in
+     four variants; forward and backward, K2f and K2b launched (classes x
+     chunks) times each; output and gradients against the CPU;
+ 10. the width repair: FSWConv(64, 64, mlp_layers=3) on a 2000-node graph
+     whose node 0 has 1024 in-edges (`hub_graph`): no rank call wider than
+     128 (the classes up to 1024 wide take the sort route), K1f and K1b
+     launched once per narrow class, output and gradients against the
+     CPU;
+ 11. one JSON line listing the four kernels with their launches, errors,
+     times and bounds (the launches are those of the main-path runs 4, 6,
+     7, 8, 9 and 10 together; K2's times and bounds at phase 8's shape);
+ 12. the last line: {"ok": true, "device": {...}}.
 
 Tolerances:
   * K1f against its plain version, both on the card in float32:
@@ -72,28 +97,38 @@ Tolerances:
   * the Trainer's first loss against the CPU: relative 1e-4.  A forward
     is continuous in every input, so float32 rounding (about 1e-6 of each
     layer's scale) is all that differs, through three layers.
+  * K2f and K2b against their plain versions: as K1f and K1b.  P is given,
+    so no dyadic rounding is needed for both sides to rank alike.
+  * multisets, table K2 and hub graph against the CPU, output and every
+    gradient: |gpu - cpu| <= 1e-4 * max|cpu| + 1e-4 * |cpu|, with the
+    features and the slice vectors on the dyadic grid, and the multisets'
+    weights on multiples of 2^-20 (see `multiset_setup`).
 
 Bounds: the least time the card could take for a kernel's work, the
 larger of (bytes that must move) / 3.35 TB/s and (float32 operations) /
 67 TFLOP/s, the H100 SXM's published peaks at 700 W.  Bytes: every input
-tensor read once and every output written once.  Operations: what this
-run's data needs.  Zero-weight (padding) entries and rows contribute
-exactly 0, so a row with d real entries needs
-  K1f: S * d * (2 D + 3 d + 20) operations: 2 D for the projection, 3 d
-       for the rank loop (compare, select, add), about 20 for the trig of
-       one entry-slice;
-  K1b: S * d * (6 D + 3 d + 45) operations: 2 D each for the recomputed
-       projection, dZ and dV, 3 d for the rank loop, about 45 for the two
-       sincospi, the dp, phi_f and df terms of one entry-slice (with
-       with_dw, which the training path does not use, the transposed loop
-       adds 3 d more).
-The bound of the padded shapes (every table entry counted) is printed
-beside K1f's.
+tensor read once and every output written once.  Operations: the least
+that this run's data needs.  Zero-weight (padding) entries and rows
+contribute exactly 0, and ranking d entries of one slice needs no more
+than a stable sort and a cumsum, d log2 d + d operations (the kernels'
+B x B rank loop does 3 d^2 instead), so a row with d real entries needs
+  K1f: S * (d (2 D + 20) + d log2 d + d) operations: 2 D an entry for the
+       projection, about 20 for the trig of one entry-slice;
+  K1b: S * (d (6 D + 45) + d log2 d + d) operations: 2 D each for the
+       recomputed projection, dZ and dV, about 45 for the two sincospi,
+       the dp, phi_f and df terms of one entry-slice (with with_dw, which
+       the training path does not use, a reverse cumsum adds d more);
+  K2f: S * (20 d + d log2 d + d) operations: K1f's without the projection;
+  K2b: S * (45 d + d log2 d + d) operations, plus d with with_dw: K1b's
+       without the three products.
+At the multiset shape K2's operations take less time than its bytes.  The
+bound of the padded shapes (every table entry counted) is printed beside
+K1f's.
 
 Device times are medians over 5 windows of back-to-back calls between
 two CUDA events, a sleep kernel queued first so the card never waits for
-the host (`device_ms`); host times are the mean over back-to-back calls
-on the host clock, from a synchronised start to the last call's return.  Latency is reported as the
+the host (`device_ms`); host times are the median of back-to-back calls
+on the host clock, from a synchronised start.  Latency is reported as the
 median and the 90th percentile of the `predict` requests (100 samples).
 """
 import copy
@@ -122,6 +157,12 @@ PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 TRIG_OPS, BWD_TRIG_OPS = 20, 45
 BWD_NAMES = ('dZ', 'dwn', 'dpad', 'df', 'dV')
+BWD2_NAMES = ('dP', 'dwn', 'dpad', 'df')
+HUB_NODES, HUB_IN = 2000, 1024
+MS_LEAD, MS_N, MS_D, MS_S, MS_CPU_SETS = (8, 16, 16), 100, 20, 1000, 128
+TABLE_CHUNK = 64
+KERNEL_NAMES = ('fsw_rank_fwdp', 'fsw_rank_bwdp', 'fsw_rank_fwd',
+                'fsw_rank_bwd')
 
 
 def fail(msg):
@@ -135,6 +176,23 @@ def simple_graph(seed, n, deg=AVG_DEG):
     rng = np.random.default_rng(seed)
     src = rng.integers(0, n, n * deg)
     dst = rng.integers(0, n, n * deg)
+    keep = src != dst
+    pairs = np.unique(src[keep].astype(np.int64) * n + dst[keep])
+    return np.stack([pairs // n, pairs % n]), rng
+
+
+def hub_graph(seed, n=HUB_NODES, hub_in=HUB_IN, deg=4):
+    """A simple random directed graph of about n * deg edges among nodes
+    1 .. n-1, and node 0 receiving `hub_in` edges, from nodes 1 .. hub_in:
+    one degree class wider than the rank kernels take.  At hub_in = 1024
+    the hub's normalized unit weights are 2^-10, so the sort route's
+    cumsum is exact in any order (a parallel scan on the card, a
+    sequential sum on the CPU)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(1, n, n * deg)
+    dst = rng.integers(1, n, n * deg)
+    src = np.concatenate([src, np.arange(1, hub_in + 1)])
+    dst = np.concatenate([dst, np.zeros(hub_in, np.int64)])
     keep = src != dst
     pairs = np.unique(src[keep].astype(np.int64) * n + dst[keep])
     return np.stack([pairs // n, pairs % n]), rng
@@ -200,14 +258,22 @@ def _bound(ops, nbytes):
                                        else 'bytes')
 
 
+def rank_ops(deg):
+    """Operations that rank the real entries of one slice at the least,
+    per row of deg real entries (a float64 tensor): a stable sort's
+    deg log2 deg compares and a cumsum's deg adds."""
+    return deg * deg.clamp(min=1.0).log2() + deg
+
+
 def rank_bound_ms(wn, D, S):
     """(bound ms, 'operations' or 'bytes', padded-shape bound ms) of one
     K1f call on (R, B) normalized weights wn, zero at the padding (see the
     module docstring)."""
     R, B = wn.shape
     deg = (wn > 0).sum(dim=1).double()
-    ops = S * float((deg * (2 * D + 3 * deg + TRIG_OPS)).sum())
-    ops_padded = R * B * S * (2 * D + 3 * B + TRIG_OPS)
+    ops = S * float((deg * (2 * D + TRIG_OPS) + rank_ops(deg)).sum())
+    ops_padded = R * S * (B * (2 * D + TRIG_OPS) + B * np.log2(max(B, 1))
+                          + B)
     nbytes = 4 * (R * B * D + R * B + R + S + D * S + R * S)
     ms, by = _bound(ops, nbytes)
     return ms, by, 1e3 * max(ops_padded / PEAK_F32_OPS, nbytes / PEAK_BYTES)
@@ -219,85 +285,116 @@ def rank_bwd_bound_ms(wn, D, S):
     output cotangent, writes dZ, df and dV (see the module docstring)."""
     R, B = wn.shape
     deg = (wn > 0).sum(dim=1).double()
-    ops = S * float((deg * (6 * D + 3 * deg + BWD_TRIG_OPS)).sum())
+    ops = S * float((deg * (6 * D + BWD_TRIG_OPS) + rank_ops(deg)).sum())
     nbytes = 4 * (2 * R * B * D + R * B + R + 2 * S + 2 * D * S + R * S)
     return _bound(ops, nbytes)
 
 
-def capture_rank_calls(run):
-    """Run `run()` with the rank route's entry point wrapped, and return
-    the arguments of every call it made, in order: a list of ((Z, wn,
-    pad_norm, freqs, V), uniform_w, with_dw), detached copies.  The checks
-    and timings replay exactly what the path passes.  Launches made here
-    count as usual: callers reset the counts after."""
+def rank2_bound_ms(wn, S, bwd=False, with_dw=False):
+    """(bound ms, 'operations' or 'bytes') of one K2f call, or K2b call
+    with or without with_dw, on (R, B) normalized weights wn, zero at the
+    padding (see the module docstring).  K2f reads P, wn, pad, freqs and
+    writes out; K2b reads those and the cotangent and writes dP, df (and
+    dwn, dpad)."""
+    R, B = wn.shape
+    deg = (wn > 0).sum(dim=1).double()
+    per = (BWD_TRIG_OPS + (1 if with_dw else 0)) if bwd else TRIG_OPS
+    ops = S * float((deg * per + rank_ops(deg)).sum())
+    if bwd:
+        nbytes = 4 * (2 * R * B * S + R * S + R * B + R + 2 * S
+                      + (R * B + R if with_dw else 0))
+    else:
+        nbytes = 4 * (R * B * S + R * B + R + S + R * S)
+    return _bound(ops, nbytes)
+
+
+def capture_rank_calls(run, name='fsw_rank_aggregate_proj'):
+    """Run `run()` with one of the rank route's entry points (`name` in
+    fsw_gnn_tpu_torch.embedding: the fused K1 `fsw_rank_aggregate_proj`
+    or the unfused K2 `fsw_rank_aggregate`) wrapped, and return the
+    arguments of every call it made, in order: a list of (args, uniform_w,
+    with_dw), the args detached copies.  The checks and timings replay
+    exactly what the path passes.  Launches made here count as usual:
+    callers reset the counts after."""
     from fsw_gnn_tpu_torch import embedding
-    real = embedding.fsw_rank_aggregate_proj
+    real = getattr(embedding, name)
     calls = []
 
     def spy(*args, uniform_w=False, with_dw=True):
         calls.append((tuple(t.detach().clone() for t in args),
                       bool(uniform_w), bool(with_dw)))
         return real(*args, uniform_w=uniform_w, with_dw=with_dw)
-    embedding.fsw_rank_aggregate_proj = spy
+    setattr(embedding, name, spy)
     try:
         run()
     finally:
-        embedding.fsw_rank_aggregate_proj = real
+        setattr(embedding, name, real)
     return calls
+
+
+def rank_fns(unfused):
+    """(forward label, backward label, kernel, plain, backward kernel,
+    backward plain, backward output names) of K2 (unfused) or K1."""
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    if unfused:
+        return ('K2f', 'K2b', R.fsw_rank_aggregate, R.fsw_rank_aggregate_plain,
+                R.fsw_rank_aggregate_bwd, R.fsw_rank_aggregate_bwd_plain,
+                BWD2_NAMES)
+    return ('K1f', 'K1b', R.fsw_rank_aggregate_proj,
+            R.fsw_rank_aggregate_proj_plain, R.fsw_rank_aggregate_proj_bwd,
+            R.fsw_rank_aggregate_proj_bwd_plain, BWD_NAMES)
 
 
 def tables_of(graph):
     return graph.tables if hasattr(graph, 'tables') else [graph]
 
 
-def check_fwd(torch, label, args, unif):
-    """K1f against its plain version on one input; returns the largest
-    absolute error and the largest error relative to the output's
+def check_fwd(torch, label, args, unif, unfused=False):
+    """K1f (or K2f) against its plain version on one input; returns the
+    largest absolute error and the largest error relative to the output's
     scale."""
-    from fsw_gnn_tpu_torch.ops.fsw_rank import (
-        fsw_rank_aggregate_proj, fsw_rank_aggregate_proj_plain)
-    got = fsw_rank_aggregate_proj(*args, uniform_w=unif)
+    name, _, kernel, plain, _, _, _ = rank_fns(unfused)
+    # with_dw=False: the wrapper passes uniform_w to the kernel only then
+    got = kernel(*args, uniform_w=unif, with_dw=False)
     torch.cuda.synchronize()
-    want = fsw_rank_aggregate_proj_plain(*args, uniform_w=unif)
+    want = plain(*args, uniform_w=unif)
     err = (got - want).abs()
     scale = want.abs().max().item()
     ok = bool(torch.all(err <= KERNEL_ATOL_REL * scale
                         + KERNEL_RTOL * want.abs()))
     if not (ok and torch.isfinite(got).all()):
-        fail(f'K1f disagrees ({label}): max abs err {err.max().item():.3e}, '
-             f'scale {scale:.3e}')
+        fail(f'{name} disagrees ({label}): max abs err '
+             f'{err.max().item():.3e}, scale {scale:.3e}')
     return err.max().item(), err.max().item() / max(scale, 1e-30)
 
 
-def check_bwd(torch, label, args, G, unif, with_dw):
-    """K1b against its plain version on one input; returns the largest
-    absolute error and the largest error relative to its output's
+def check_bwd(torch, label, args, G, unif, with_dw, unfused=False):
+    """K1b (or K2b) against its plain version on one input; returns the
+    largest absolute error and the largest error relative to its output's
     scale."""
-    from fsw_gnn_tpu_torch.ops.fsw_rank import (
-        fsw_rank_aggregate_proj_bwd, fsw_rank_aggregate_proj_bwd_plain)
-    got = fsw_rank_aggregate_proj_bwd(*args, G, uniform_w=unif,
-                                      with_dw=with_dw)
+    _, name, _, _, kernel, plain, names = rank_fns(unfused)
+    got = kernel(*args, G, uniform_w=unif, with_dw=with_dw)
     torch.cuda.synchronize()
-    want = fsw_rank_aggregate_proj_bwd_plain(*args, G, uniform_w=unif,
-                                             with_dw=with_dw)
+    want = plain(*args, G, uniform_w=unif, with_dw=with_dw)
     max_err = worst_rel = 0.0
-    for name, g, w in zip(BWD_NAMES, got, want):
+    for out, g, w in zip(names, got, want):
         if w is None:
             if g is not None:
-                fail(f'K1b returned {name} without with_dw ({label})')
+                fail(f'{name} returned {out} without with_dw ({label})')
             continue
         err = (g - w).abs()
         scale = w.abs().max().item()
         ok = bool(torch.all(err <= BWD_ATOL_REL * scale
                             + BWD_RTOL * w.abs()))
         if not (ok and torch.isfinite(g).all()):
-            fail(f'K1b {name} disagrees ({label}): max abs err '
+            fail(f'{name} {out} disagrees ({label}): max abs err '
                  f'{err.max().item():.3e}, scale {scale:.3e}')
         max_err = max(max_err, err.max().item())
         worst_rel = max(worst_rel, err.max().item() / max(scale, 1e-30))
     dead = args[1] == 0
     if not torch.all(got[0][dead] == 0):
-        fail(f'K1b gave padded entries a non-zero dZ ({label})')
+        fail(f'{name} gave padded entries a non-zero {names[0]} ({label})')
+    del got, want
     return max_err, worst_rel
 
 
@@ -437,7 +534,7 @@ def serve_and_check_k1f(torch, T, dev, model, counts, errs):
                                  (z, a, p, f, V), u)
                 max_err, worst_rel = max(max_err, e), max(worst_rel, r)
             km, kh = device_ms(torch, lambda: fsw_rank_aggregate_proj(
-                Z, wn, pad, freqs, V, uniform_w=unif), 20)
+                Z, wn, pad, freqs, V, uniform_w=unif, with_dw=False), 20)
             pm, _ = device_ms(torch, lambda: fsw_rank_aggregate_proj_plain(
                 Z, wn, pad, freqs, V, uniform_w=unif), 3)
             bm, by, bpm = rank_bound_ms(wn, D, V.shape[1])
@@ -533,6 +630,20 @@ def serve_and_check_k1f(torch, T, dev, model, counts, errs):
             'bound_by': ('operations' if 'operations' in bound_by
                          else 'bytes'),
             'library_ms': None}
+
+
+def close_to_cpu(torch, label, got, want, rtol, atol_rel):
+    """Fail unless |got - want| <= atol_rel * max|want| + rtol * |want|;
+    returns the largest error relative to max|want|."""
+    got = got.detach().cpu()
+    want = want.detach()
+    err = (got - want).abs()
+    scale = want.abs().max().item()
+    if not (bool(torch.isfinite(got).all()) and bool(
+            torch.all(err <= atol_rel * scale + rtol * want.abs()))):
+        fail(f'{label} differs from the CPU: max abs err '
+             f'{err.max().item():.3e}, scale {scale:.3e}')
+    return err.max().item() / max(scale, 1e-30)
 
 
 def bench_setup(torch, T):
@@ -657,16 +768,9 @@ def bench_step(torch, T, dev, counts, errs):
 
     # the first step on the CPU, from the same parameters
     loss_of(cpu_model(X, graph)).backward()
-    grad_err = {}
-    for k, p in cpu_model.named_parameters():
-        w, g = p.grad, grads[k]
-        err = (g - w).abs()
-        scale = w.abs().max().item()
-        if not bool(torch.all(err <= GRAD_ATOL_REL * scale
-                              + GRAD_RTOL * w.abs())):
-            fail(f'bench step: gradient of {k} differs from the CPU: max '
-                 f'abs err {err.max().item():.3e}, scale {scale:.3e}')
-        grad_err[k] = err.max().item() / max(scale, 1e-30)
+    grad_err = {k: close_to_cpu(torch, f'bench step: gradient of {k}',
+                                grads[k], p.grad, GRAD_RTOL, GRAD_ATOL_REL)
+                for k, p in cpu_model.named_parameters()}
 
     parts = step_parts_ms(torch, lambda: model(Xd, gd), loss_of, opt)
 
@@ -792,6 +896,334 @@ def trainer_phase(torch, T, dev, counts, errs):
     print('trainer: ' + json.dumps(res), flush=True)
 
 
+def check_rank2_calls(torch, dev, calls, cfg, where, errs, extra=True):
+    """K2f and K2b against their plain versions on captured K2 calls, at
+    the shapes the path gave them: K2f on the arguments as passed, K2b in
+    the path's variant and with with_dw on and random weights, and with
+    `extra` also with uniform_w off and with ties and an f = 0 slice."""
+    from fsw_gnn_tpu_torch.embedding import table_weights
+    gen = torch.Generator(device=dev).manual_seed(5)
+    fwd = [0.0, 0.0]
+    bwd = [0.0, 0.0]
+    with torch.no_grad():
+        for args, unif, dw in calls:
+            P, wn, pad, freqs = args
+            R, B, S = P.shape
+            shape = f'{where}, B={B} R={R} S={S}'
+            e = check_fwd(torch, f'{shape}, path', args, unif, unfused=True)
+            fwd = [max(a, b) for a, b in zip(fwd, e)]
+            w = torch.rand((R, B), generator=gen, device=dev) * (wn > 0)
+            _, wn_r, pad_r = table_weights(w, cfg)
+            variants = [('path', P, wn, pad, freqs, unif, dw),
+                        ('with_dw, random weights', P, wn_r.contiguous(),
+                         pad_r.contiguous(), freqs, False, True)]
+            if extra:
+                f_zero = freqs.clone()
+                f_zero[1 % S] = 0.0
+                Pt = P.clone()
+                Pt[:, 1::2] = Pt[:, 0:B - 1:2]
+                variants += [('uniform_w off', P, wn, pad, freqs, False, dw),
+                             ('ties, f=0', Pt, wn, pad, f_zero, unif, dw)]
+            G = torch.randn((R, S), generator=gen, device=dev)
+            for label, p_, a, pd, f, u, d in variants:
+                if label == 'ties, f=0':
+                    e = check_fwd(torch, f'{shape}, {label}', (p_, a, pd, f),
+                                  u, unfused=True)
+                    fwd = [max(x, y) for x, y in zip(fwd, e)]
+                e = check_bwd(torch, f'{shape}, {label}', (p_, a, pd, f), G,
+                              u, d, unfused=True)
+                bwd = [max(x, y) for x, y in zip(bwd, e)]
+            del variants
+    errs['fsw_rank_fwd'] = max(errs['fsw_rank_fwd'], fwd[0])
+    errs['fsw_rank_bwd'] = max(errs['fsw_rank_bwd'], bwd[0])
+    print(f'{where}: K2f and K2b checked on {len(calls)} calls: ok; K2f max '
+          f'abs err {fwd[0]:.3e} ({fwd[1]:.3e} of the output scale), K2b '
+          f'{bwd[0]:.3e} ({bwd[1]:.3e} of an output\'s scale)', flush=True)
+
+
+def multiset_setup(torch, T, dev):
+    """The reference demo's FSWEmbedding (d = 20, n = 100, 1000 slices,
+    random frequencies; `examples/demo_fsw_embedding.py`) from seed 0 on a
+    batch of 8 x 16 x 16 = 2048 multisets: X ~ N(0, 1), W a softmax of
+    N(0, 1) values, a N(0, 1) cotangent.  X and the slice vectors are put
+    on the dyadic grid (so the CPU ranks as the card does) and W on
+    multiples of 2^-20 (so both sum it exactly: the random frequencies
+    reach about 2400, and the phase pi f (2c - w) turns one ulp of c into
+    about 1e-3 of the output's scale)."""
+    model = T.FSWEmbedding(T.FSWConfig(d_in=MS_D, d_out=MS_S), device='cpu',
+                           generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.standard_normal(MS_LEAD + (MS_N, MS_D))
+                         .astype(np.float32))
+    W = torch.softmax(torch.from_numpy(rng.standard_normal(
+        MS_LEAD + (MS_N,)).astype(np.float32)), dim=-1)
+    # multiples of 2^-20 below 1: every partial sum of a multiset's weights
+    # is exact in float32, so the card and the CPU normalize alike
+    W = torch.round(W * 2.0 ** 20) / 2.0 ** 20
+    G = torch.from_numpy(rng.standard_normal(MS_LEAD + (MS_S,))
+                         .astype(np.float32))
+    with torch.no_grad():
+        X, Vq = dyadic(X.to(dev), model.proj_vecs.t().to(dev))
+        model.proj_vecs.copy_(Vq.t().cpu())
+    return model, X.cpu(), W, G
+
+
+def multiset_phase(torch, T, dev, counts, errs):
+    """Phase 8: FSWEmbedding on dense multisets at the demo's widths.
+    Returns the K2 entries' timing fields."""
+    from fsw_gnn_tpu_torch.embedding import (
+        RANK_AGGREGATE_MAX_BUCKET_NO_DW, _resolve_aggregate, bucket_quadrature)
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    cpu_model, X, W, G = multiset_setup(torch, T, dev)
+    model = copy.deepcopy(cpu_model).to(dev)
+    cfg = model.cfg
+    if _resolve_aggregate('auto', cfg, MS_N) != 'rank':
+        fail(f"multisets: 'auto' does not take K2 at n = {MS_N}")
+    Xd, Wd, Gd = X.to(dev), W.to(dev), G.to(dev)
+    n_sets = int(np.prod(MS_LEAD))
+
+    # K2f and K2b on the arguments the route passes, in four variants
+    gen = torch.Generator(device=dev).manual_seed(6)
+    checked = {}
+    for label, run in (
+            ('W given (the path)', lambda: model(Xd, Wd)),
+            ("W=None, w_mode='unit'", lambda: model(Xd, w_mode='unit')),
+            ("W=None, w_mode='uniform'", lambda: model(Xd,
+                                                       w_mode='uniform')),
+            ('mass 0.5 < threshold', lambda: model(Xd, 0.5 * Wd))):
+        with torch.no_grad():
+            calls = capture_rank_calls(run, 'fsw_rank_aggregate')
+        if len(calls) != 1:
+            fail(f'multisets ({label}): {len(calls)} K2 calls, expected 1')
+        (args, unif, dw), = calls
+        if args[0].shape != (n_sets, MS_N, MS_S):
+            fail(f'multisets ({label}): K2 saw {tuple(args[0].shape)}')
+        if label.startswith('mass') and not bool((args[2] > 0).all()):
+            fail('multisets: the light batch has no phantom mass')
+        check_rank2_calls(torch, dev, calls, cfg, f'multisets, {label}', errs,
+                          extra=label.startswith('W given'))
+        checked[label] = (unif, dw)
+        if label.startswith('W given'):
+            path_args, path_unif, path_dw = args, unif, dw
+        del calls, args
+    if checked["W=None, w_mode='unit'"] != (True, False):
+        fail('multisets: W=None did not run K2 with uniform_w, without dw')
+
+    # the main path: forward and backward through the module, counted
+    Xg = Xd.clone().requires_grad_(True)
+    Wg = Wd.clone().requires_grad_(True)
+    R.fsw_rank_aggregate.launches = 0
+    R.fsw_rank_aggregate_bwd.launches = 0
+    out = model(Xg, Wg)
+    (out * Gd).sum().backward()
+    torch.cuda.synchronize()
+    n_f, n_b = R.fsw_rank_aggregate.launches, R.fsw_rank_aggregate_bwd.launches
+    if (n_f, n_b) != (1, 1):
+        fail(f'multisets: K2f launched {n_f}, K2b {n_b} times; expected 1 '
+             f'each')
+    counts['fsw_rank_fwd'] += n_f
+    counts['fsw_rank_bwd'] += n_b
+    if out.shape != MS_LEAD + (MS_S,):
+        fail(f'multisets: output shape {tuple(out.shape)}')
+
+    # the first 128 multisets through the same module on the CPU
+    k = MS_CPU_SETS
+    Xc = X.reshape(-1, MS_N, MS_D)[:k].clone().requires_grad_(True)
+    Wc = W.reshape(-1, MS_N)[:k].clone().requires_grad_(True)
+    out_c = cpu_model(Xc, Wc)
+    (out_c * G.reshape(-1, MS_S)[:k]).sum().backward()
+    cpu_err = {
+        'out': close_to_cpu(torch, 'multisets: output',
+                            out.reshape(-1, MS_S)[:k], out_c, GRAD_RTOL,
+                            SERVE_ATOL_REL),
+        'grad_X': close_to_cpu(torch, 'multisets: gradient of X',
+                               Xg.grad.reshape(-1, MS_N, MS_D)[:k], Xc.grad,
+                               GRAD_RTOL, GRAD_ATOL_REL),
+        'grad_W': close_to_cpu(torch, 'multisets: gradient of W',
+                               Wg.grad.reshape(-1, MS_N)[:k], Wc.grad,
+                               GRAD_RTOL, GRAD_ATOL_REL)}
+    del out, Xg, Wg
+
+    # times at the path's shape: the kernels, their plain versions, the
+    # sort route, the whole forward and backward
+    P, wn, pad, freqs = path_args
+    G2 = Gd.reshape(-1, MS_S).contiguous()
+    with torch.no_grad():
+        t = {}
+        t['k2f_ms'], _ = device_ms(torch, lambda: R.fsw_rank_aggregate(
+            *path_args, uniform_w=path_unif, with_dw=path_dw), 10)
+        t['k2b_ms'], _ = device_ms(torch, lambda: R.fsw_rank_aggregate_bwd(
+            *path_args, G2, uniform_w=path_unif, with_dw=path_dw), 5)
+        # without the weight gradient: a third of the shared memory a
+        # block, so more blocks resident on an SM
+        t['k2b_no_dw_ms'], _ = device_ms(
+            torch, lambda: R.fsw_rank_aggregate_bwd(
+                *path_args, G2, uniform_w=path_unif, with_dw=False), 5)
+        t['k2f_plain_ms'], _ = device_ms(
+            torch, lambda: R.fsw_rank_aggregate_plain(
+                *path_args, uniform_w=path_unif), 2, 2)
+        t['k2b_plain_ms'], _ = device_ms(
+            torch, lambda: R.fsw_rank_aggregate_bwd_plain(
+                *path_args, G2, uniform_w=path_unif, with_dw=path_dw), 1, 2)
+        t['sort_fwd_ms'], _ = device_ms(torch, lambda: bucket_quadrature(
+            P, wn, pad, freqs, cfg, 'sort'), 5)
+
+    def fwd_bwd(agg, args=(P, wn, pad)):
+        leaves = [a.detach().requires_grad_(True) for a in args]
+        o = bucket_quadrature(*leaves, freqs, cfg, agg)
+        o.backward(G2)
+    t['sort_fwd_bwd_ms'], _ = device_ms(torch, lambda: fwd_bwd('sort'), 3)
+    t['rank_fwd_bwd_ms'], _ = device_ms(torch, lambda: fwd_bwd('rank'), 3)
+    # the same at the widest multiset 'auto' sends to K2, with weight
+    # gradients: normal projections, softmax weights
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n_cap = RANK_AGGREGATE_MAX_BUCKET_NO_DW
+    cap = (torch.randn((n_sets, n_cap, MS_S), generator=gen, device=dev),
+           torch.softmax(torch.randn((n_sets, n_cap), generator=gen,
+                                     device=dev), dim=-1),
+           torch.zeros((n_sets,), device=dev))
+    t['cap_n'] = n_cap
+    t['cap_sort_fwd_bwd_ms'], _ = device_ms(
+        torch, lambda: fwd_bwd('sort', cap), 3)
+    t['cap_rank_fwd_bwd_ms'], _ = device_ms(
+        torch, lambda: fwd_bwd('rank', cap), 3)
+    del cap
+    with torch.no_grad():
+        t['forward_ms'], t['forward_host_ms'] = device_ms(
+            torch, lambda: model(Xd, Wd), 5)
+
+    def module_fwd_bwd():
+        Xq = Xd.detach().requires_grad_(True)
+        Wq = Wd.detach().requires_grad_(True)
+        (model(Xq, Wq) * Gd).sum().backward()
+    t['forward_backward_ms'], t['forward_backward_host_ms'] = device_ms(
+        torch, module_fwd_bwd, 3)
+    t['k2f_bound_ms'], t['k2f_bound_by'] = rank2_bound_ms(wn, MS_S)
+    t['k2b_bound_ms'], t['k2b_bound_by'] = rank2_bound_ms(
+        wn, MS_S, bwd=True, with_dw=path_dw)
+    t['k2b_no_dw_bound_ms'], _ = rank2_bound_ms(wn, MS_S, bwd=True)
+    res = {'multisets': n_sets, 'n': MS_N, 'd': MS_D, 'slices': MS_S,
+           'P_bytes': 4 * P.numel(), 'launches_k2f': n_f,
+           'launches_k2b': n_b, 'k2b_with_dw': path_dw,
+           'cpu_sets': k, 'cpu_max_rel_err': cpu_err, **t}
+    print('multisets: ' + json.dumps(res), flush=True)
+    del path_args, P, wn, pad, freqs
+    torch.cuda.empty_cache()
+    return t
+
+
+def table_k2_phase(torch, T, dev, counts, errs):
+    """Phase 9: the bench FSWConv on the bench graph with slice_chunk =
+    64 = d_in, so the fused route does not apply and every class runs K2
+    on gathered projections, forward and backward; checked against the
+    CPU and K2 held against its plain version on the captured calls."""
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    cpu_model, X, graph = bench_setup(torch, T)
+    model = copy.deepcopy(cpu_model).to(dev)
+    Xd, gd = X.to(dev), graph.to(dev)
+    n_classes = len(graph.tables)
+    n_chunks = -(-model.embed_cfg.nSlices // TABLE_CHUNK)
+    fused = []
+    with torch.no_grad():
+        calls = capture_rank_calls(lambda: fused.extend(capture_rank_calls(
+            lambda: model(Xd, gd, slice_chunk=TABLE_CHUNK))),
+            'fsw_rank_aggregate')
+    if fused or len(calls) != n_classes * n_chunks:
+        fail(f'table K2: {len(calls)} K2 and {len(fused)} K1 calls for '
+             f'{n_classes} classes x {n_chunks} chunks')
+    check_rank2_calls(torch, dev, calls, model.embed_cfg, 'bench graph, K2',
+                      errs)
+
+    def loss_of(out):
+        return (out * out).sum() / N_NODES
+    R.fsw_rank_aggregate.launches = 0
+    R.fsw_rank_aggregate_bwd.launches = 0
+    out = model(Xd, gd, slice_chunk=TABLE_CHUNK)
+    loss_of(out).backward()
+    torch.cuda.synchronize()
+    n_f, n_b = R.fsw_rank_aggregate.launches, R.fsw_rank_aggregate_bwd.launches
+    want = n_classes * n_chunks
+    if (n_f, n_b) != (want, want):
+        fail(f'table K2: K2f launched {n_f}, K2b {n_b} times; expected '
+             f'{want} each ({n_classes} classes x {n_chunks} chunks)')
+    counts['fsw_rank_fwd'] += n_f
+    counts['fsw_rank_bwd'] += n_b
+    out_c = cpu_model(X, graph, slice_chunk=TABLE_CHUNK)
+    loss_of(out_c).backward()
+    err = {'out': close_to_cpu(torch, 'table K2: output', out, out_c,
+                               GRAD_RTOL, SERVE_ATOL_REL)}
+    for (k, p), q in zip(cpu_model.named_parameters(), model.parameters()):
+        err[k] = close_to_cpu(torch, f'table K2: gradient of {k}', q.grad,
+                              p.grad, GRAD_RTOL, GRAD_ATOL_REL)
+    with torch.no_grad():
+        fwd_ms, _ = device_ms(
+            torch, lambda: model(Xd, gd, slice_chunk=TABLE_CHUNK), 5)
+    res = {'classes': n_classes, 'chunks': n_chunks, 'launches_k2f': n_f,
+           'launches_k2b': n_b, 'forward_ms': fwd_ms,
+           'cpu_max_rel_err': err}
+    print('table K2: ' + json.dumps(res), flush=True)
+
+
+def hub_phase(torch, T, dev, counts):
+    """Phase 10: FSWConv(64, 64, mlp_layers=3) on the 2000-node graph
+    whose node 0 has 1000 in-edges, forward and backward: classes wider
+    than 128 take the sort route (no rank call sees them), and the output
+    and gradients match the CPU."""
+    from fsw_gnn_tpu_torch.embedding import RANK_AGGREGATE_MAX_BUCKET_NO_DW
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    ei, rng = hub_graph(0, HUB_NODES, HUB_IN)
+    layout = T.auto_layout(T.from_edge_index(ei, HUB_NODES))
+    widths = [t.bucket_size for t in tables_of(layout)]
+    narrow = sum(w <= RANK_AGGREGATE_MAX_BUCKET_NO_DW for w in widths)
+    if max(widths) <= RANK_AGGREGATE_MAX_BUCKET_NO_DW:
+        fail(f'hub graph: no class wider than 128 ({widths})')
+    X = torch.from_numpy(rng.standard_normal((HUB_NODES, D_IN))
+                         .astype(np.float32))
+    cpu_model = T.FSWConv(D_IN, D_OUT, mlp_layers=3,
+                          minimize_slice_coherence=False, device='cpu',
+                          generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        X, Vq = dyadic(X, cpu_model.fsw_embed.proj_vecs.t())
+        cpu_model.fsw_embed.proj_vecs.copy_(Vq.t())
+    model = copy.deepcopy(cpu_model).to(dev)
+    Xd, ld = X.to(dev), layout.to(dev)
+
+    def loss_of(out):
+        return (out * out).sum() / HUB_NODES
+    names = ('fsw_rank_aggregate_proj', 'fsw_rank_aggregate_bwd',
+             'fsw_rank_aggregate', 'fsw_rank_aggregate_proj_bwd')
+    for name in names:
+        getattr(R, name).launches = 0
+    unfused, outs = [], []
+
+    def run():
+        outs.append(model(Xd, ld))
+        loss_of(outs[0]).backward()
+    fused = capture_rank_calls(lambda: unfused.extend(capture_rank_calls(
+        run, 'fsw_rank_aggregate')))
+    torch.cuda.synchronize()
+    launches = {n: getattr(R, n).launches for n in names}
+    seen = [c[0][0].shape[1] for c in fused + unfused]
+    if max(seen) > RANK_AGGREGATE_MAX_BUCKET_NO_DW or len(seen) != narrow:
+        fail(f'hub graph: rank calls at widths {seen}, classes {widths}')
+    if (launches['fsw_rank_aggregate_proj'], launches[
+            'fsw_rank_aggregate_proj_bwd']) != (narrow, narrow):
+        fail(f'hub graph: launches {launches}, {narrow} narrow classes')
+    counts['fsw_rank_fwdp'] += launches['fsw_rank_aggregate_proj']
+    counts['fsw_rank_bwdp'] += launches['fsw_rank_aggregate_proj_bwd']
+    out_c = cpu_model(X, layout)
+    loss_of(out_c).backward()
+    err = {'out': close_to_cpu(torch, 'hub graph: output', outs[0], out_c,
+                               GRAD_RTOL, SERVE_ATOL_REL)}
+    for (k, p), q in zip(cpu_model.named_parameters(), model.parameters()):
+        err[k] = close_to_cpu(torch, f'hub graph: gradient of {k}', q.grad,
+                              p.grad, GRAD_RTOL, GRAD_ATOL_REL)
+    res = {'nodes': HUB_NODES, 'edges': int(ei.shape[1]),
+           'class_widths': widths, 'rank_call_widths': seen,
+           'launches': launches, 'cpu_max_rel_err': err}
+    print('hub graph: ' + json.dumps(res), flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -826,8 +1258,8 @@ def main():
                 print(f'  {name}: {line.strip()}')
     sys.stdout.flush()
 
-    counts = {'fsw_rank_fwdp': 0, 'fsw_rank_bwdp': 0}
-    errs = {'fsw_rank_fwdp': 0.0, 'fsw_rank_bwdp': 0.0}
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    errs = dict.fromkeys(KERNEL_NAMES, 0.0)
 
     # ---- 3., 4. K1f and serving -------------------------------------------
     torch.manual_seed(0)
@@ -842,18 +1274,40 @@ def main():
     # ---- 7. the Trainer -----------------------------------------------------
     trainer_phase(torch, T, dev, counts, errs)
 
-    # ---- 8. kernels line, 9. last line --------------------------------------
+    # ---- 8. multisets (K2), 9. K2 on the table path, 10. the hub graph ----
+    k2 = multiset_phase(torch, T, dev, counts, errs)
+    table_k2_phase(torch, T, dev, counts, errs)
+    hub_phase(torch, T, dev, counts)
+
+    # ---- 11. kernels line, 12. last line ------------------------------------
+    src = 'fsw_gnn_tpu_torch/csrc/'
+    pallas = 'fsw_gnn_tpu/ops/fsw_rank_pallas.py:'
     line = {'kernels': [
         dict(k1f, launches=counts['fsw_rank_fwdp'],
              max_abs_err=errs['fsw_rank_fwdp']),
         {'name': 'fsw_rank_bwdp', 'route': 'cuda',
-         'source': 'fsw_gnn_tpu_torch/csrc/fsw_rank_bwdp.cu',
-         'replaces': 'fsw_gnn_tpu/ops/fsw_rank_pallas.py:605',
+         'source': src + 'fsw_rank_bwdp.cu', 'replaces': pallas + '605',
          'launches': counts['fsw_rank_bwdp'],
          'max_abs_err': errs['fsw_rank_bwdp'],
          'ms': k1b_times['bwd'], 'plain_ms': k1b_times['bwd_plain'],
          'bound_ms': k1b_times['bwd_bound'],
-         'bound_by': k1b_times['bwd_bound_by'], 'library_ms': None}]}
+         'bound_by': k1b_times['bwd_bound_by'], 'library_ms': None},
+        {'name': 'fsw_rank_fwd', 'route': 'cuda',
+         'source': src + 'fsw_rank_fwd.cu', 'replaces': pallas + '284',
+         'launches': counts['fsw_rank_fwd'],
+         'max_abs_err': errs['fsw_rank_fwd'],
+         'ms': k2['k2f_ms'], 'plain_ms': k2['k2f_plain_ms'],
+         'bound_ms': k2['k2f_bound_ms'], 'bound_by': k2['k2f_bound_by'],
+         'library_ms': None},
+        {'name': 'fsw_rank_bwd', 'route': 'cuda',
+         'source': src + 'fsw_rank_bwd.cu', 'replaces': pallas + '292',
+         'launches': counts['fsw_rank_bwd'],
+         'max_abs_err': errs['fsw_rank_bwd'],
+         'ms': k2['k2b_ms'], 'plain_ms': k2['k2b_plain_ms'],
+         'bound_ms': k2['k2b_bound_ms'], 'bound_by': k2['k2b_bound_by'],
+         'library_ms': None}]}
+    if not all(k['launches'] > 0 for k in line['kernels']):
+        fail(f'a kernel was not launched on its path: {counts}')
     print(json.dumps(line))
     print(smi_line)
     print(json.dumps({'ok': True, 'device': {

@@ -1,10 +1,12 @@
-"""Carry the JAX package's FSWConv or FSWGNN variables into the port.
+"""Carry the JAX package's FSWEmbedding, FSWConv or FSWGNN variables into
+the port.
 
 The JAX package keeps a module's variables in collections: 'params'
 (learnable), 'fsw_fixed' (non-learnable embedding parameters) and
 'batch_stats' (BatchNorm running statistics).  Given them as nested dicts
 of numpy arrays, `fswconv_from_jax` / `fswgnn_from_jax` build the port
-module with the same constructor arguments and copy every array in.  Flax
+module with the same constructor arguments and copy every array in
+(`fswembedding_from_jax` takes the embedding's `FSWConfig`).  Flax
 `Dense.kernel` (in, out) becomes `Linear.weight` (out, in).
 
 This is how the tests make the two packages compute the same function:
@@ -12,6 +14,7 @@ their random initializers draw different numbers from the same seed.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
@@ -19,7 +22,9 @@ import torch
 
 from .conv import FSWConv
 from .device import resolve_device
+from .embedding import FSWConfig
 from .models.gnn import FSWGNN
+from .modules import FSWEmbedding
 
 
 def _flatten(tree: Mapping, prefix=()) -> dict:
@@ -32,14 +37,18 @@ def _flatten(tree: Mapping, prefix=()) -> dict:
     return out
 
 
+def _embed_targets(emb: FSWEmbedding, prefix=()) -> dict:
+    """(collection-free JAX path) -> (tensor, transpose?) for every array
+    of a port FSWEmbedding."""
+    return {prefix + (name,): (getattr(emb, name), False)
+            for name in ('proj_vecs', 'freqs', 'bias', 'total_mass_scale')
+            if hasattr(emb, name)}
+
+
 def _targets(conv: FSWConv) -> dict:
     """(collection-free JAX path) -> (tensor, transpose?) for every array
     of the port module."""
-    t = {}
-    emb = conv.fsw_embed
-    for name in ('proj_vecs', 'freqs', 'bias', 'total_mass_scale'):
-        if hasattr(emb, name):
-            t[('fsw_embed', name)] = (getattr(emb, name), False)
+    t = _embed_targets(conv.fsw_embed, ('fsw_embed',))
     head = conv.head
     for i, layer in enumerate(head.dense):
         t[('head', f'dense_{i}', 'kernel')] = (layer.weight, True)
@@ -82,6 +91,24 @@ def _load(targets: dict, leaves: dict):
                 raise ValueError(f'{"/".join(path)}: shape {arr.shape} '
                                  f'!= {tuple(tensor.shape)}')
             tensor.copy_(torch.from_numpy(np.array(arr, order='C')))
+
+
+def fswembedding_from_jax(variables: Mapping, cfg: FSWConfig, *,
+                          device=None,
+                          dtype=torch.float32) -> FSWEmbedding:
+    """A port FSWEmbedding on `device` (None: the card) holding the JAX
+    FSWEmbedding's variables ('params' and 'fsw_fixed': `proj_vecs`,
+    `freqs`, and `bias` and `total_mass_scale` where the configuration
+    has them), as nested dicts of numpy arrays.  `cfg` is the port's
+    FSWConfig with the JAX module's fields; the module is built with
+    minimize_slice_coherence=False, whose only effect is on the initial
+    slice vectors, replaced here.  Every array must find its place and
+    every place an array, or this raises."""
+    device = resolve_device(device)
+    cfg = dataclasses.replace(cfg, minimize_slice_coherence=False)
+    emb = FSWEmbedding(cfg, dtype=dtype, device='cpu')
+    _load(_embed_targets(emb), _collections(variables))
+    return emb.to(device)
 
 
 def fswconv_from_jax(variables: Mapping, *, device=None, dtype=torch.float32,

@@ -39,15 +39,18 @@
 //      are small); each chunk writes a partial (D, S).
 //   5.-6. a column-sum kernel reduces the partials of dV, the (R, S) df
 //      terms (two passes when R > 256) and the dwn / dpad tiles.
+// The entry kernel and the column sums are fsw_rank_common.cuh's, shared
+// with K2b (fsw_rank_bwd.cu), which runs steps 2, 5 and 6 on its input P.
 //
-// What bounds it on an H100: a row with d real entries needs about
-// S d (6 D + 3 d + 45) float32 operations (three products of 2 D each: the
-// recomputed projection, dZ and dV; the rank loop; trig and the df, dp
-// terms) against reading Z, V, G once and writing dZ, dV.  At the shapes of
-// the training path the operations dominate.  This version keeps the
-// products in plain FMAs out of shared memory (no tensor cores, no TF32)
-// and pays HBM round trips for P and dp; moving the products to wgmma and
-// fusing them with the entry kernel are the next steps.
+// What bounds it on an H100: a row with d real entries needs at least about
+// S d (6 D + log2 d + 46) float32 operations (three products of 2 D each:
+// the recomputed projection, dZ and dV; a sort and a cumsum to rank; trig
+// and the df, dp terms) against reading Z, V, G once and writing dZ, dV.
+// At the shapes of the training path the operations dominate.  This version
+// keeps the products in plain FMAs out of shared memory (no tensor cores,
+// no TF32), ranks by the B x B loop (3 d operations an entry) and pays HBM
+// round trips for P and dp; moving the products to wgmma and fusing them
+// with the entry kernel are the next steps.
 //
 // Padded (zero-weight) entries gather sender 0's row, which is not zero.
 // Their dp must be exactly 0, or the scatter-add of dZ into dX corrupts
@@ -61,32 +64,20 @@
 // forward and the plain version form it, and reduced exactly by
 // sincospif (no __sinf).
 
-#include <cuda_runtime.h>
+#include "fsw_rank_common.cuh"
 
 namespace {
 
-constexpr int TS = 64;          // slices per entry-kernel block
 constexpr int GT = 64;          // output tile edge of the two products
 constexpr int GK = 16;          // reduction depth per shared-memory stage
 constexpr int GTHREADS = 256;   // threads of a product block (4 x 4 each)
-constexpr int MAX_SPLIT = 256;  // partials a single reduction pass sums
 constexpr int FILL_BLOCKS = 264;  // 2 blocks per SM of an H100
-constexpr int RED_THREADS = 256;
-
-inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
-
-size_t entry_smem_bytes(int B, int with_dw) {
-  return sizeof(float) * ((size_t)B * TS * (with_dw ? 3 : 1) + (size_t)B +
-                          TS);
-}
 
 // Workspace layout, in floats; each region starts on a 256-byte boundary.
 struct Plan {
   size_t dp, dfr, tmp, dvp, dwnp, dpadp, total;
   int n_st, n_split, chunk;
 };
-
-size_t align64(size_t n) { return (n + 63) / 64 * 64; }
 
 Plan make_plan(int R, int B, int D, int S, int with_dw) {
   Plan p;
@@ -161,128 +152,6 @@ bwdp_proj_kernel(const float* __restrict__ Z, const float* __restrict__ V,
       const int s = s0 + tx * 4 + j;
       if (s < S) P[(size_t)n * S + s] = acc[i][j];
     }
-  }
-}
-
-// pd holds P on entry and dp on exit: each thread reads its own column of
-// the row's P before it writes dp there
-__global__ void bwdp_entry_kernel(float* __restrict__ pd,
-                                  const float* __restrict__ wn,
-                                  const float* __restrict__ pad,
-                                  const float* __restrict__ freqs,
-                                  const float* __restrict__ G,
-                                  float* __restrict__ dfr,
-                                  float* __restrict__ dwn_part,
-                                  float* __restrict__ dpad_part,
-                                  int R, int B, int S, int uniform_w,
-                                  int with_dw) {
-  extern __shared__ float smem[];
-  float* p_sm = smem;               // [B][TS]   projections, own column
-  float* w_sm = p_sm + B * TS;      // [B]       wn[r]
-  float* r_sm = w_sm + B;           // [TS]      dpad terms of the block
-  float* dc_sm = r_sm + TS;         // [B][TS]   dc (with_dw)
-  float* v_sm = dc_sm + B * TS;     // [B][TS]   dwn terms (with_dw)
-
-  const int r = blockIdx.x;
-  const int st = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int s = st * TS + tid;
-  const bool live = s < S;
-  float* dpr = pd + (size_t)r * B * S + s;
-
-  for (int b = tid; b < B; b += TS) w_sm[b] = wn[(size_t)r * B + b];
-  if (live) {
-    for (int b = 0; b < B; ++b) p_sm[b * TS + tid] = dpr[(size_t)b * S];
-  }
-  __syncthreads();
-
-  float dpad_acc = 0.f;
-  if (live) {
-    const float f = freqs[s];
-    const float pr = pad[r];
-    const bool fz = f == 0.f;
-    const float inv_f = fz ? 0.f : 1.f / f;
-    const float c2f = 0.636619772367581343f * inv_f;     // (2 / pi) / f
-    const float inv2f = 2.f * inv_f;
-    const float inv_pf = 0.318309886183790672f * inv_f;  // (1 / pi) / f
-    const float g = G[(size_t)r * S + s];
-    const float g1 = (1.f + f) * g;
-    // uniform_w only without with_dw (cos_fw is the row value at padded
-    // entries, exact only where it is multiplied by w)
-    const bool unif = uniform_w && !with_dw;
-    float sin_row = 0.f, cos_row = 1.f;
-    if (unif) {
-      float wr = 0.f;
-      for (int j = 0; j < B; ++j) wr = fmaxf(wr, w_sm[j]);
-      sincospif(2.f * (0.5f * f * wr), &sin_row, &cos_row);
-    }
-    float q = 0.f, qf = 0.f;
-    for (int i = 0; i < B; ++i) {
-      const float p_i = p_sm[i * TS + tid];
-      float c = 0.f;
-      for (int j = 0; j < B; ++j) {
-        const float p_j = p_sm[j * TS + tid];
-        const bool m = (p_j < p_i) || (p_j == p_i && j <= i);
-        c += m ? w_sm[j] : 0.f;
-      }
-      c += (p_i > 0.f) ? pr : 0.f;
-      const float w = w_sm[i];
-      float sin_fw, cos_fw;
-      if (unif) {
-        sin_fw = (w == 0.f) ? 0.f : sin_row;
-        cos_fw = cos_row;
-      } else {
-        sincospif(2.f * (0.5f * f * w), &sin_fw, &cos_fw);
-      }
-      const float two_c_w = 2.f * c - w;
-      float sin_t, cos_t;
-      sincospif(2.f * (0.5f * f * two_c_w), &sin_t, &cos_t);
-      const float sd = (fz ? 2.f * w : c2f * sin_fw) * cos_t;
-      dpr[(size_t)i * S] = g1 * sd;
-      q = fmaf(p_i, sd, q);
-      const float phi_f = inv2f * (w * cos_fw * cos_t
-                                   - inv_pf * sin_fw * cos_t
-                                   - two_c_w * sin_fw * sin_t);
-      qf = fmaf(p_i, phi_f, qf);
-      if (with_dw) {
-        const float dc = g1 * p_i * (-4.f) * sin_fw * sin_t;
-        dc_sm[i * TS + tid] = dc;
-        dpad_acc += (p_i > 0.f) ? dc : 0.f;
-        v_sm[i * TS + tid] =
-            g1 * p_i * 2.f * (cos_fw * cos_t + sin_fw * sin_t);
-      }
-    }
-    dfr[(size_t)r * S + s] = g * (q + (1.f + f) * qf);
-    if (with_dw) {
-      // transposed mask: entry j collects the dc of every i it precedes
-      for (int j = 0; j < B; ++j) {
-        const float p_j = p_sm[j * TS + tid];
-        float acc = 0.f;
-        for (int i = 0; i < B; ++i) {
-          const float p_i = p_sm[i * TS + tid];
-          const bool m = (p_j < p_i) || (p_j == p_i && j <= i);
-          acc += m ? dc_sm[i * TS + tid] : 0.f;
-        }
-        v_sm[j * TS + tid] += acc;
-      }
-    }
-  } else if (with_dw) {
-    for (int j = 0; j < B; ++j) v_sm[j * TS + tid] = 0.f;
-  }
-  if (!with_dw) return;
-  r_sm[tid] = dpad_acc;
-  __syncthreads();
-  // sums over the block's slices, each in the order t = 0 .. TS-1
-  float* wp = dwn_part + ((size_t)st * R + r) * B;
-  for (int j = tid; j < B; j += TS) {
-    float acc = 0.f;
-    for (int t = 0; t < TS; ++t) acc += v_sm[j * TS + t];
-    wp[j] = acc;
-  }
-  if (tid == 0) {
-    float acc = 0.f;
-    for (int t = 0; t < TS; ++t) acc += r_sm[t];
-    dpad_part[(size_t)st * R + r] = acc;
   }
 }
 
@@ -391,43 +260,14 @@ bwdp_dv_kernel(const float* __restrict__ Z, const float* __restrict__ dp,
   }
 }
 
-// out[y, m] = sum_{k = y kc}^{min(K, (y + 1) kc) - 1} in[k, m], in order
-__global__ void sum_rows_kernel(const float* __restrict__ in,
-                                float* __restrict__ out, int K, long long M,
-                                int kc) {
-  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const int k0 = blockIdx.y * kc;
-  const int k1 = min(K, k0 + kc);
-  float acc = 0.f;
-  for (int k = k0; k < k1; ++k) acc += in[(size_t)k * M + m];
-  out[(size_t)blockIdx.y * M + m] = acc;
-}
-
-// out (M) = column sums of in (K, M); two passes through tmp (at most
-// MAX_SPLIT x M floats) when K > MAX_SPLIT.
-cudaError_t reduce_rows(const float* in, float* out, float* tmp, int K,
-                        long long M, cudaStream_t stream) {
-  const unsigned gx = (unsigned)cdiv(M, RED_THREADS);
-  if (K <= MAX_SPLIT) {
-    sum_rows_kernel<<<dim3(gx, 1), RED_THREADS, 0, stream>>>(in, out, K, M,
-                                                              K);
-    return cudaGetLastError();
-  }
-  const int kc = cdiv(K, MAX_SPLIT);
-  const int k1 = cdiv(K, kc);
-  sum_rows_kernel<<<dim3(gx, k1), RED_THREADS, 0, stream>>>(in, tmp, K, M,
-                                                             kc);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  sum_rows_kernel<<<dim3(gx, 1), RED_THREADS, 0, stream>>>(tmp, out, k1, M,
-                                                            k1);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
+
+// Dynamic shared memory, in bytes, of the entry kernel at width B.
+size_t fsw_rank_bwdp_smem_bytes(int B, int with_dw) {
+  return entry_smem_bytes(B, with_dw);
+}
 
 // Bytes of device workspace a call at this shape needs (the caller
 // allocates it; the kernels allocate nothing).
@@ -449,7 +289,7 @@ int fsw_rank_bwdp_f32(const void* Z, const void* wn, const void* pad,
   const cudaStream_t st = (cudaStream_t)stream;
   const Plan p = make_plan(R, B, D, S, with_dw);
   if (p.n_st > MAX_SPLIT || cdiv(S, GT) > 65535 || cdiv(D, GT) > 65535 ||
-      entry_smem_bytes(B, with_dw) > 232448)
+      entry_smem_bytes(B, with_dw) > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   float* w = (float*)ws;
   float* dp = w + p.dp;
@@ -461,18 +301,12 @@ int fsw_rank_bwdp_f32(const void* Z, const void* wn, const void* pad,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  const size_t smem = entry_smem_bytes(B, with_dw);
-  if (smem > 48 * 1024) {
-    if ((e = cudaFuncSetAttribute(
-             bwdp_entry_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             (int)smem)) != cudaSuccess)
-      return (int)e;
-  }
-  bwdp_entry_kernel<<<dim3((unsigned)R, (unsigned)p.n_st), TS, smem, st>>>(
-      dp, (const float*)wn, (const float*)pad, (const float*)freqs,
-      (const float*)G, w + p.dfr, w + p.dwnp, w + p.dpadp, R, B, S,
-      uniform_w, with_dw);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  // P in the workspace becomes dp in place
+  if ((e = launch_rank_bwd_entry(dp, dp, (const float*)wn, (const float*)pad,
+                                 (const float*)freqs, (const float*)G,
+                                 w + p.dfr, w + p.dwnp, w + p.dpadp, R, B, S,
+                                 uniform_w, with_dw, st)) != cudaSuccess)
+    return (int)e;
 
   bwdp_dz_kernel<<<dim3((unsigned)cdiv(N, GT), (unsigned)cdiv(D, GT)),
                    GTHREADS, 0, st>>>(dp, (const float*)V, (float*)dZ,
@@ -487,18 +321,9 @@ int fsw_rank_bwdp_f32(const void* Z, const void* wn, const void* pad,
   if ((e = reduce_rows(w + p.dvp, (float*)dV, w + p.tmp, p.n_split,
                        (long long)D * S, st)) != cudaSuccess)
     return (int)e;
-  if ((e = reduce_rows(w + p.dfr, (float*)df, w + p.tmp, R, S, st)) !=
-      cudaSuccess)
-    return (int)e;
-  if (with_dw) {
-    if ((e = reduce_rows(w + p.dwnp, (float*)dwn, w + p.tmp, p.n_st, N,
-                         st)) != cudaSuccess)
-      return (int)e;
-    if ((e = reduce_rows(w + p.dpadp, (float*)dpad, w + p.tmp, p.n_st, R,
-                         st)) != cudaSuccess)
-      return (int)e;
-  }
-  return (int)cudaSuccess;
+  return (int)reduce_entry_partials(w + p.dfr, w + p.dwnp, w + p.dpadp,
+                                    (float*)df, (float*)dwn, (float*)dpad,
+                                    w + p.tmp, R, B, S, with_dw, st);
 }
 
 }  // extern "C"

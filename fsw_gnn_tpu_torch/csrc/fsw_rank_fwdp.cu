@@ -21,26 +21,23 @@
 // (no TF32, no tensor cores) and keeps its column of P in shared memory,
 // laid out [b][thread] so a warp's accesses fall on consecutive banks.  The
 // B x B rank loop and the quadrature then run per thread out of shared
-// memory.  Nothing crosses blocks, so there are no atomics.
+// memory (`rank_fwd_slice` in fsw_rank_common.cuh, shared with K2f, which
+// also holds the notes on trig accuracy and padding).  Nothing crosses
+// blocks, so there are no atomics.
 //
 // What bounds it on an H100: per entry-slice about 2D float32 operations
-// for the projection, 3B for the rank loop (compare, select, add) and a
-// trig tail, against reading Z once and writing the (R, S) output.  At the
-// served shapes (D = 64, B = 8 .. 64) the operations dominate, so the
+// for the projection, a sort and a cumsum's worth of ranking (log2 B + 1)
+// and a trig tail, against reading Z once and writing the (R, S) output.
+// At the served shapes (D = 64, B = 8 .. 64) the operations dominate, so the
 // design keeps every operand of the two inner loops in shared memory or
-// registers and the trig to one sincospi pair per entry (one per row and
-// slice for sin(pi f w) when the weights are row-constant).
-//
-// Trig accuracy: the phase argument pi f (2c - w) reaches about 1600 rad at
-// the 'spread' frequencies (f up to 2S - 1), so the period is reduced
-// exactly: u = f (2c - w) / 2 and cospi(2u) = cos(2 pi u), whose range
-// reduction in CUDA's sinpi/cospi is exact (no __sinf).
+// registers, ranks by the B x B loop NI entries a pass (3 B operations an
+// entry, no sort) and keeps the trig to one sincospi pair per entry (one
+// per row and slice for sin(pi f w) when the weights are row-constant).
 
-#include <cuda_runtime.h>
+#include "fsw_rank_common.cuh"
 
 namespace {
 
-constexpr int TS = 64;  // slices per block (one thread each)
 constexpr int BC = 16;  // table entries projected per pass
 
 __global__ void fsw_rank_fwdp_kernel(const float* __restrict__ Z,
@@ -87,46 +84,8 @@ __global__ void fsw_rank_fwdp_kernel(const float* __restrict__ Z,
   }
   __syncthreads();
   if (!live) return;
-
-  const float f = freqs[s];
-  const float pr = pad[r];
-  const bool fz = f == 0.f;
-  const float inv_f = fz ? 0.f : 1.f / f;
-  const float c2f = 0.636619772367581343f * inv_f;  // (2 / pi) / f
-
-  // uniform_w: every real entry of the row has the same weight, recovered
-  // as the row max; sin(pi f w) is computed once and forced to exactly 0 at
-  // the padded (zero-weight) entries, whose Z rows need not be zero.
-  float sin_row = 0.f;
-  if (uniform_w) {
-    float wr = 0.f;
-    for (int j = 0; j < B; ++j) wr = fmaxf(wr, w_sm[j]);
-    sin_row = sinpif(2.f * (0.5f * f * wr));
-  }
-
-  float acc = 0.f;
-  for (int i = 0; i < B; ++i) {
-    const float p_i = p_sm[i * TS + tid];
-    float c = 0.f;
-    for (int j = 0; j < B; ++j) {
-      const float p_j = p_sm[j * TS + tid];
-      const bool m = (p_j < p_i) || (p_j == p_i && j <= i);
-      c += m ? w_sm[j] : 0.f;
-    }
-    c += (p_i > 0.f) ? pr : 0.f;
-    const float w = w_sm[i];
-    float sin_fw;
-    if (uniform_w) {
-      sin_fw = (w == 0.f) ? 0.f : sin_row;
-    } else {
-      sin_fw = sinpif(2.f * (0.5f * f * w));
-    }
-    const float u = 0.5f * f * (2.f * c - w);
-    const float cos_t = cospif(2.f * u);
-    const float sd = (fz ? 2.f * w : c2f * sin_fw) * cos_t;
-    acc = fmaf(p_i, sd, acc);
-  }
-  out[(size_t)r * S + s] = (1.f + f) * acc;
+  out[(size_t)r * S + s] =
+      rank_fwd_slice(p_sm, w_sm, B, tid, freqs[s], pad[r], uniform_w);
 }
 
 }  // namespace
@@ -145,6 +104,7 @@ int fsw_rank_fwdp_f32(const void* Z, const void* wn, const void* pad,
                       const void* freqs, const void* V, void* out, int R,
                       int B, int D, int S, int uniform_w, void* stream) {
   const size_t smem = fsw_rank_fwdp_smem_bytes(B, D);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fsw_rank_fwdp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

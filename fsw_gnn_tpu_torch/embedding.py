@@ -1,8 +1,9 @@
-"""Fourier Sliced-Wasserstein embedding on neighbor-table layouts.
+"""Fourier Sliced-Wasserstein embedding: the table, multiset and dense
+graph paths.
 
-Counterpart of the table path of `fsw_gnn_tpu/embedding.py`.  The embedding
-of a weighted neighborhood {(x_j, w_j)} for slice vector v and frequency f
-is
+Counterpart of `fsw_gnn_tpu/embedding.py` (its CSR path is not ported).
+The embedding of a weighted neighborhood or multiset {(x_j, w_j)} for
+slice vector v and frequency f is
 
     emb = (1 + f) * sum_j p_(j) * 2 w_j sinc(f w_j) cos(pi f (2 c_j - w_j))
 
@@ -12,14 +13,23 @@ normalized weights in that order.  A neighborhood whose total mass is below
 deficit; its only effects are the normalization and the shift
 c_j += pad_norm * 1[p_(j) > 0].
 
-Two aggregations:
-  'sort': a stable sort along the bucket axis, then a cumsum (any dtype);
-  'rank': the fused-projection kernel (ops/fsw_rank.py), which needs no
-          sort, computes in float32 and casts back.
-'auto' takes 'rank' wherever the fused-projection route applies (not
-cartesian, d_in + d_edge below the slice count), on the CPU and on the card
-alike, and 'sort' elsewhere.  The crossover rules the JAX package measured
-on its own hardware are not carried over.
+Aggregations:
+  'sort': a stable sort along the entry axis, then a cumsum (any dtype);
+          multisets with synthesized weights (W=None) take the static-grid
+          quadrature instead, which sorts keys only;
+  'rank': the weighted-rank kernels (ops/fsw_rank.py), which need no sort,
+          compute in float32 and cast back: the fused-projection pair K1
+          on tables where d_in + d_edge is below the slice width of one
+          pass, the unfused pair K2 on projected entries elsewhere (tables
+          and multisets).
+'auto' takes 'rank' for a non-cartesian aggregation whose width (a table's
+bucket size, a multiset's n) is at most RANK_AGGREGATE_MAX_BUCKET_NO_DW,
+and 'sort' beyond it and in cartesian mode, on the CPU and on the card
+alike, whether or not the weights take a gradient.  The crossover rules
+the JAX package measured on its own hardware are not carried over; the
+width cap is the widest it ever routes to its rank kernels.  On an H100
+the unfused pair's forward and backward with weight gradients beat the
+sort route at n = 100 and at the cap (`chip_smoke.py`'s multiset phase).
 """
 from __future__ import annotations
 
@@ -29,10 +39,13 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from .ops.fsw_rank import fsw_rank_aggregate_proj
+from .ops.fsw_rank import fsw_rank_aggregate, fsw_rank_aggregate_proj
 
-_K2_TODO = ('the unfused rank kernel (K2 in ROADMAP.md, fsw_rank_aggregate) '
-            'is not ported yet')
+# the widest bucket the JAX package routes to its rank kernels (its
+# `RANK_AGGREGATE_MAX_BUCKET_NO_DW`): the kernels hold a whole row in a
+# block's shared memory, and their B x B rank loop outgrows a sort
+RANK_AGGREGATE_MAX_BUCKET_NO_DW = 128
+
 _K4_TODO = ('the cartesian rank kernel (K4 in ROADMAP.md, '
             'fsw_rank_aggregate_cart) is not ported yet')
 
@@ -188,20 +201,47 @@ def _finalize(emb, w_sum, cfg: FSWConfig, bias, total_mass_scale):
     return emb
 
 
-def _resolve_aggregate(aggregate: str, cfg: FSWConfig, s_eff: int) -> str:
-    """'sort' or 'rank' for one table.  'rank' here always means the
-    fused-projection kernel; where that route does not apply, 'rank' would
-    need K2 (or K4 in cartesian mode), which is not ported."""
+def _resolve_aggregate(aggregate: str, cfg: FSWConfig, bucket_size: int,
+                       s_eff: Optional[int] = None) -> str:
+    """The route of one aggregation of width `bucket_size` (a table's
+    bucket, a multiset's n): 'sort', 'rank' (the unfused kernels K2) or
+    'rank_proj' (the fused-projection kernels K1, tables only: pass the
+    slice width of one pass as `s_eff`, and K1 is taken where
+    d_in + d_edge < s_eff).
+
+    'auto' is 'rank' / 'rank_proj' for a non-cartesian aggregation of width
+    at most RANK_AGGREGATE_MAX_BUCKET_NO_DW, 'sort' otherwise.  An
+    explicit 'rank' is honoured at any width, as in the JAX package (on
+    the card a width whose row does not fit a block's shared memory then
+    raises); in cartesian mode it needs K4, which is not ported."""
     if aggregate not in ('auto', 'sort', 'rank'):
         raise ValueError(f"aggregate must be 'auto'|'sort'|'rank', "
                          f"got {aggregate!r}")
-    fused = not cfg.cartesian_mode and cfg.proj_dim < s_eff
     if aggregate == 'auto':
-        return 'rank' if fused else 'sort'
-    if aggregate == 'rank' and not fused:
-        raise NotImplementedError(_K4_TODO if cfg.cartesian_mode
-                                  else _K2_TODO)
-    return aggregate
+        narrow = bucket_size <= RANK_AGGREGATE_MAX_BUCKET_NO_DW
+        aggregate = 'rank' if narrow and not cfg.cartesian_mode else 'sort'
+    if aggregate == 'sort':
+        return 'sort'
+    if cfg.cartesian_mode:
+        raise NotImplementedError(_K4_TODO)
+    fused = s_eff is not None and cfg.proj_dim < s_eff
+    return 'rank_proj' if fused else 'rank'
+
+
+def _sort_quadrature(keys, wn, pad_norm, f_block, cfg: FSWConfig):
+    """The sort route on keys (..., S_blk, B) with weights wn (..., B) and
+    phantom mass pad_norm (...): a stable sort along the entries, the
+    cumsum, the quadrature.  f_block is (S_blk,), or in cartesian mode
+    (F,) or (S_blk, F).  Returns (..., S_blk) (or (..., S_blk, F))."""
+    ps, order = torch.sort(keys, dim=-1, stable=True)
+    ws = torch.gather(wn[..., None, :].expand(keys.shape), -1, order)
+    c = torch.cumsum(ws, dim=-1) + pad_norm[..., None, None] * (ps > 0)
+    if cfg.cartesian_mode:
+        sd = _sinc_diff(ws[..., None], c[..., None],
+                        f_block[..., None, :])               # (..., S, B, F)
+        return (1.0 + f_block) * torch.einsum('...sb,...sbf->...sf', ps, sd)
+    sd = _sinc_diff(ws, c, f_block[:, None])                 # (..., S, B)
+    return (1.0 + f_block) * torch.sum(ps * sd, dim=-1)
 
 
 def bucket_quadrature(P, wn, pad_norm, f_block, cfg: FSWConfig, agg: str,
@@ -209,33 +249,31 @@ def bucket_quadrature(P, wn, pad_norm, f_block, cfg: FSWConfig, agg: str,
     """Per-neighborhood FSW aggregation on pre-gathered projections.
 
     P (R, B, S_blk); wn (R, B); pad_norm (R,); f_block (S_blk,) (or
-    (S_blk, F) in cartesian mode).  `agg` is resolved: 'sort' (stable sort
-    + cumsum) or 'rank' (the unfused kernel K2 / cartesian K4, not ported
-    yet).  Returns (R, S_blk) (or (R, S_blk, F))."""
+    (F,) or (S_blk, F) in cartesian mode).  `agg` is resolved: 'sort'
+    (stable sort + cumsum) or 'rank' (kernel K2, in float32, cast back;
+    cartesian mode's K4 is not ported).  `uniform_w` declares row-constant
+    weights (see `fsw_rank_aggregate`).  Returns (R, S_blk) (or
+    (R, S_blk, F))."""
     if agg == 'rank':
-        raise NotImplementedError(_K4_TODO if cfg.cartesian_mode
-                                  else _K2_TODO)
-    keys = P.transpose(1, 2)                                   # (R, S, B)
-    ps, order = torch.sort(keys, dim=2, stable=True)
-    ws = torch.gather(wn[:, None, :].expand(keys.shape), 2, order)
-    c = torch.cumsum(ws, dim=2) + pad_norm[:, None, None] * (ps > 0)
-    if cfg.cartesian_mode:
-        sd = _sinc_diff(ws[..., None], c[..., None],
-                        f_block[:, None, :])                   # (R, S, B, F)
-        emb = torch.einsum('rsb,rsbf->rsf', ps, sd)
-        return (1.0 + f_block) * emb                           # (R, S, F)
-    sd = _sinc_diff(ws, c, f_block[:, None])                   # (R, S, B)
-    return (1.0 + f_block) * torch.sum(ps * sd, dim=2)         # (R, S)
+        if cfg.cartesian_mode:
+            raise NotImplementedError(_K4_TODO)
+        f32 = torch.float32
+        out = fsw_rank_aggregate(
+            P.to(f32).contiguous(), wn.to(f32).contiguous(),
+            pad_norm.to(f32).contiguous(), f_block.to(f32).contiguous(),
+            uniform_w=uniform_w, with_dw=weights_grad)
+        return out.to(P.dtype)
+    return _sort_quadrature(P.transpose(1, 2), wn, pad_norm, f_block, cfg)
 
 
 def table_weights(w, cfg: FSWConfig):
-    """(w_sum, wn, pad_norm) of an (R, B) weight table: the total mass, the
+    """(w_sum, wn, pad_norm) of weights w (..., B): the total mass, the
     weights normalized by max(total, thresh), and the phantom mass
     max(thresh - total, 0) in the same units."""
-    w_sum = torch.sum(w, dim=-1)                               # (R,)
+    w_sum = torch.sum(w, dim=-1)                               # (...,)
     w_sum_padded = lowclamp(w_sum, cfg.total_mass_pad_thresh)
     pad_norm = lowclamp(cfg.total_mass_pad_thresh - w_sum, 0.0) / w_sum_padded
-    return w_sum, w / w_sum_padded[:, None], pad_norm
+    return w_sum, w / w_sum_padded[..., None], pad_norm
 
 
 def gather_rows(X, table, cfg: FSWConfig):
@@ -247,6 +285,28 @@ def gather_rows(X, table, cfg: FSWConfig):
             raise ValueError('the table has no edge features')
         Z = torch.cat([Z, table.edge_feat.to(Z.dtype)], dim=-1)
     return Z
+
+
+def _chunked(slices_block, V, freqs, cfg: FSWConfig,
+             slice_chunk: Optional[int]):
+    """slices_block(V_block, f_block) over the slice axis, `slice_chunk`
+    slices at a time (all at once when None).  Zero-padded slices have a
+    zero slice vector (and f = 0 outside cartesian mode): they contribute
+    exact zeros and are cut off again."""
+    S = cfg.nSlices
+    if slice_chunk is None or slice_chunk >= S:
+        return slices_block(V, freqs)
+    S_pad = -(-S // slice_chunk) * slice_chunk
+    V_pad = torch.nn.functional.pad(V, (0, 0, 0, S_pad - S))
+    if cfg.cartesian_mode:        # every chunk takes all the frequencies
+        return torch.cat([slices_block(V_pad[k:k + slice_chunk], freqs)
+                          for k in range(0, S_pad, slice_chunk)],
+                         dim=-2)[..., :S, :]
+    f_pad = torch.cat([freqs, freqs.new_zeros(S_pad - S)])
+    return torch.cat([slices_block(V_pad[k:k + slice_chunk],
+                                   f_pad[k:k + slice_chunk])
+                      for k in range(0, S_pad, slice_chunk)],
+                     dim=-1)[..., :S]
 
 
 def fsw_embed_table(X, table, projVecs, freqs, cfg: FSWConfig,
@@ -269,13 +329,13 @@ def fsw_embed_table(X, table, projVecs, freqs, cfg: FSWConfig,
     dt = X.dtype
     S = cfg.nSlices
     s_eff = S if slice_chunk is None else min(slice_chunk, S)
-    agg = _resolve_aggregate(aggregate, cfg, s_eff)
+    agg = _resolve_aggregate(aggregate, cfg, table.bucket_size, s_eff)
     w_sum, wn, pad_norm = table_weights(table.weight, cfg)
 
     # the fused-projection route gathers the raw sender rows (R, B, D) and
     # projects inside the kernel; Z is built once for every slice chunk
-    use_proj = agg == 'rank'
-    unif = bool(table.uniform_w) and not weights_grad
+    use_proj = agg == 'rank_proj'
+    unif = bool(table.uniform_w)
     if use_proj:
         f32 = torch.float32
         Z32 = gather_rows(X, table, cfg).to(f32).contiguous()
@@ -299,21 +359,7 @@ def fsw_embed_table(X, table, projVecs, freqs, cfg: FSWConfig,
         return bucket_quadrature(P, wn, pad_norm, f_block, cfg, agg,
                                  weights_grad, uniform_w=unif)
 
-    slice_freqs = (freqs.expand((S,) + tuple(freqs.shape))
-                   if cfg.cartesian_mode else freqs)
-    if slice_chunk is None or slice_chunk >= S:
-        emb = slices_block(projVecs, slice_freqs)
-    else:
-        # zero-padded slices have f = 0 and a zero slice vector: they
-        # contribute exact zeros and are cut off again
-        n_chunks = -(-S // slice_chunk)
-        S_pad = n_chunks * slice_chunk
-        V_pad = torch.nn.functional.pad(projVecs, (0, 0, 0, S_pad - S))
-        f_pad = torch.cat([slice_freqs, slice_freqs.new_zeros(
-            (S_pad - S,) + tuple(slice_freqs.shape[1:]))])
-        emb = torch.cat([
-            slices_block(V_pad[k:k + slice_chunk], f_pad[k:k + slice_chunk])
-            for k in range(0, S_pad, slice_chunk)], dim=1)[:, :S]
+    emb = _chunked(slices_block, projVecs, freqs, cfg, slice_chunk)
 
     if return_raw:
         return emb.to(dt), w_sum
@@ -343,3 +389,101 @@ def fsw_embed_multi_table(X, mt, projVecs, freqs, cfg: FSWConfig,
         emb.index_copy_(0, ids, raw.to(dt))
         w_sum.index_copy_(0, ids, ws.to(dt))
     return _finalize(emb[:R], w_sum[:R], cfg, bias, total_mass_scale)
+
+
+def fsw_embed_multiset(X, W, projVecs, freqs, cfg: FSWConfig,
+                       bias=None, total_mass_scale=None,
+                       w_mode: str = 'unit',
+                       slice_chunk: Optional[int] = None,
+                       aggregate: str = 'auto',
+                       weights_grad: bool = True):
+    """Embed batched weighted multisets (point clouds).
+
+    X (..., n, d_in); W (..., n) nonnegative, or None with w_mode 'unit'
+    (every weight 1) or 'uniform' (every weight 1/n).  Returns
+    (..., d_out) (or (..., nSlices, nFreqs) in non-collapsed cartesian
+    mode).  `slice_chunk` bounds the slice width processed at once.
+
+    Each multiset is one neighborhood of width n, routed as a table class
+    (`_resolve_aggregate`, bucket n): 'rank' projects with a matmul and
+    runs kernel K2 on the (R, n, S) projections (R = the leading dims
+    flattened); 'sort' sorts, except that synthesized weights (W=None)
+    outside cartesian mode take the static-grid quadrature: the sorted
+    cumulative weight is then the fixed grid c_j = (j + 1) wc (+ the
+    phantom mass above zero), so only the keys are sorted and the trig is
+    one (S, n) matrix.  Synthesized weights are never differentiated."""
+    n = X.shape[-2]
+    dt, dev = X.dtype, X.device
+    unif = W is None                    # synthesized weights: row-constant
+    if unif:
+        if w_mode not in ('unit', 'uniform'):
+            raise ValueError(f"w_mode must be 'unit' or 'uniform', "
+                             f"got {w_mode!r}")
+        W = torch.full(X.shape[:-1], 1.0 if w_mode == 'unit' else 1.0 / n,
+                       dtype=dt, device=dev)
+        weights_grad = False
+        # the static grid's constants, Python floats
+        T = float(cfg.total_mass_pad_thresh)
+        ws_total = float(n) if w_mode == 'unit' else 1.0
+        wsp_c = max(ws_total, T)
+        wc = (1.0 / wsp_c) if w_mode == 'unit' else 1.0 / (n * wsp_c)
+        padc = max(T - ws_total, 0.0) / wsp_c
+    agg = _resolve_aggregate(aggregate, cfg, n)
+    w_sum, wn, pad_norm = table_weights(W, cfg)
+
+    def slices_block(V_block, f_block):
+        """V_block (S_blk, d_in) slice vectors; f_block (S_blk,) (or (F,)
+        in cartesian mode)."""
+        Xp = X @ V_block.t()                                 # (..., n, Sb)
+        if agg == 'rank':
+            lead = Xp.shape[:-2]
+            out = bucket_quadrature(
+                Xp.reshape(-1, n, Xp.shape[-1]), wn.reshape(-1, n),
+                pad_norm.reshape(-1), f_block, cfg, 'rank', weights_grad,
+                uniform_w=unif)
+            return out.reshape(lead + out.shape[1:])         # (..., Sb)
+        keys = Xp.transpose(-1, -2)                          # (..., Sb, n)
+        if unif and not cfg.cartesian_mode:
+            ps = torch.sort(keys, dim=-1).values
+            wct = torch.tensor(wc, dtype=dt, device=dev)
+            c0 = (torch.arange(1, n + 1, dtype=dt, device=dev) * wc)[None, :]
+            g1 = (1.0 + f_block)[:, None]
+            phi0 = g1 * _sinc_diff(wct, c0, f_block[:, None])   # (Sb, n)
+            if padc != 0.0:
+                phi1 = g1 * _sinc_diff(wct, c0 + padc, f_block[:, None])
+                return torch.sum(ps * torch.where(ps > 0, phi1, phi0),
+                                 dim=-1)
+            return torch.einsum('...sn,sn->...s', ps, phi0)
+        return _sort_quadrature(keys, wn, pad_norm, f_block, cfg)
+
+    emb = _chunked(slices_block, projVecs[:, :cfg.d_in], freqs, cfg,
+                   slice_chunk)
+    return _finalize(emb, w_sum, cfg, bias, total_mass_scale)
+
+
+def fsw_embed_graph_dense(X, W, projVecs, freqs, cfg: FSWConfig,
+                          X_edge=None, bias=None, total_mass_scale=None,
+                          slice_chunk: Optional[int] = None):
+    """Graph mode with a dense adjacency: W (..., R, n) the weights of
+    sender j in recipient r's neighborhood, X (..., n, d_in), X_edge
+    (..., R, n, d_edge) or (..., R, n) when d_edge == 1.  Returns
+    (..., R, d_out).  The sort route only, as in the JAX package."""
+    w_sum, wn, pad_norm = table_weights(W, cfg)
+    if cfg.d_edge > 0:
+        if X_edge is None:
+            raise ValueError('d_edge > 0 needs X_edge')
+        if X_edge.dim() == W.dim():
+            X_edge = X_edge[..., None]
+
+    def slices_block(V_block, f_block):
+        """V_block (S_blk, d_in + d_edge); f_block (S_blk,) or (F,)."""
+        Xp = X @ V_block[:, :cfg.d_in].t()                   # (..., n, Sb)
+        if cfg.d_edge > 0:
+            P = Xp[..., None, :, :] + X_edge @ V_block[:, cfg.d_in:].t()
+        else:
+            P = Xp[..., None, :, :].expand(W.shape[:-1] + Xp.shape[-2:])
+        return _sort_quadrature(P.transpose(-1, -2), wn, pad_norm, f_block,
+                                cfg)                          # (..., R, Sb)
+
+    emb = _chunked(slices_block, projVecs, freqs, cfg, slice_chunk)
+    return _finalize(emb, w_sum, cfg, bias, total_mass_scale)

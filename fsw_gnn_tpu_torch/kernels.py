@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 into its own shared library, loaded with ctypes (no PyTorch headers, so a
 build takes seconds).  The build happens at first use, from the sources in
-the package, into `_build/` beside them (listed in .gitignore).  A
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and never confused with an old build.
+the package, into `_build/` beside them (listed in .gitignore).  Device
+code shared between sources lives in `csrc/*.cuh` headers.  A library's
+file name carries a hash of its source, the headers and the flags, so an
+edited source or header is rebuilt and never confused with an old build.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no `nvcc`.
@@ -42,7 +43,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f'{name}.cu').read_bytes()
+    """The library's path, named by a hash of its source, every header of
+    `csrc/` (the sources include them) and the flags."""
+    src = (CSRC / f'{name}.cu').read_bytes() + b''.join(
+        p.read_bytes() for p in sorted(CSRC.glob('*.cuh')))
     digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f'lib{name}-{digest[:16]}.so'
 

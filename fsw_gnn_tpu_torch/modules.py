@@ -1,6 +1,8 @@
-"""The FSW embedding as a torch `nn.Module`.
+"""The FSW embedding as a torch `nn.Module`, and two helpers on slice
+parameters.
 
-Counterpart of `fsw_gnn_tpu/modules.py`, for the neighbor-table layouts.
+Counterpart of `fsw_gnn_tpu/modules.py`: neighbor-table layouts, dense
+multisets and dense adjacencies (the CSR `Graph` is not ported).
 Parameters `proj_vecs`, `freqs`, optional `bias` and `total_mass_scale`
 are `nn.Parameter`s when learnable and buffers otherwise (the JAX package
 keeps the latter in its 'fsw_fixed' collection).
@@ -13,13 +15,36 @@ import torch
 from torch import nn
 
 from .device import resolve_device
-from .embedding import FSWConfig, fsw_embed_multi_table, fsw_embed_table
+from .embedding import (FSWConfig, fsw_embed_graph_dense,
+                        fsw_embed_multi_table, fsw_embed_multiset,
+                        fsw_embed_table)
 from .graph import MultiTable, NeighborTable
 from .params import bias_shape, generate_freqs, generate_proj_vecs
 
 
+def spread_freqs_at_interval(freqs, center: float, radius: float):
+    """Equispaced frequencies on [center - radius, center + radius], of
+    freqs' shape, dtype and device: the new tensor to copy into an
+    `FSWEmbedding`'s `freqs`."""
+    if radius < 0:
+        raise ValueError('radius must be >= 0')
+    nF = freqs.shape[0]
+    if nF == 1 or radius == 0:
+        return torch.full_like(freqs, center)
+    spread = 2 * (0.5 + torch.arange(nF, dtype=freqs.dtype,
+                                     device=freqs.device)) / nF - 1
+    return center + radius * (spread / (1 - 1 / nF))
+
+
+def get_mutual_coherence(proj_vecs):
+    """Max |off-diagonal Gram entry| of the slice vectors (rows)."""
+    G = proj_vecs @ proj_vecs.t()
+    return torch.max(torch.abs(G - torch.diag(torch.diag(G))))
+
+
 class FSWEmbedding(nn.Module):
-    """Fourier Sliced-Wasserstein embedding of graph neighborhoods.
+    """Fourier Sliced-Wasserstein embedding of multisets and graph
+    neighborhoods.
 
     Parameters are drawn from `generator` (a fresh one seeded 0 when None)
     and placed on `device` (None: the card)."""
@@ -50,26 +75,47 @@ class FSWEmbedding(nn.Module):
                 torch.tensor(cfg.total_mass_encoding_scale),
                 cfg.learnable_total_mass_encoding_scale)
 
-    def forward(self, X, W=None, *, graph=None, slice_chunk=None,
-                aggregate: str = 'auto', weights_grad: bool = True):
-        """X (num_nodes, d_in) sender features; `graph` a NeighborTable or
-        MultiTable (moved to X's device when needed).  Returns
-        (num_recipients, d_out).  `W` (a multiset's weights or a dense
-        adjacency) is not ported yet and must be None."""
+    def forward(self, X, W=None, *, graph=None, X_edge=None,
+                graph_mode: bool = False, w_mode: str = 'unit',
+                slice_chunk=None, aggregate: str = 'auto',
+                weights_grad: bool = True, proj_gather_fn=None):
+        """Dispatches as the JAX module does: a `graph` (NeighborTable or
+        MultiTable, moved to X's device when needed; X (num_nodes, d_in))
+        first, giving (num_recipients, d_out), W ignored; then
+        `graph_mode=True` with a dense adjacency W (..., R, n), X
+        (..., n, d_in) and optional X_edge, giving (..., R, d_out); else
+        a batch of multisets X (..., n, d_in) with weights W (..., n) or
+        None (`w_mode` 'unit' or 'uniform'), giving (..., d_out).  With
+        out_dim == 0 every call gives zeros of those shapes.  A CSR `Graph`
+        and, with a graph, `proj_gather_fn` are not ported and raise."""
         cfg = self.cfg
-        if W is not None or not isinstance(graph, (MultiTable,
-                                                    NeighborTable)):
-            raise NotImplementedError(
-                'only the NeighborTable / MultiTable layouts are ported: '
-                'dense multisets and dense adjacencies are item 6 and the '
-                'CSR Graph is item 7 in ROADMAP.md')
         if cfg.out_dim == 0:
-            return X.new_zeros((graph.num_recipients, 0))
-        graph = graph.to(X.device)
+            if graph is not None:
+                lead = (graph.num_recipients,)
+            else:
+                lead = (W.shape[:-1] if graph_mode and W is not None
+                        else X.shape[:-2])
+            return X.new_zeros(tuple(lead) + (0,))
         kw = dict(bias=getattr(self, 'bias', None),
                   total_mass_scale=getattr(self, 'total_mass_scale', None),
-                  slice_chunk=slice_chunk, aggregate=aggregate,
-                  weights_grad=weights_grad)
-        embed = (fsw_embed_multi_table if isinstance(graph, MultiTable)
-                 else fsw_embed_table)
-        return embed(X, graph, self.proj_vecs, self.freqs, cfg, **kw)
+                  slice_chunk=slice_chunk)
+        if graph is not None:
+            if proj_gather_fn is not None:
+                raise NotImplementedError(
+                    'proj_gather_fn (the distributed overlap exchange) is '
+                    'item 14 in ROADMAP.md, not ported yet')
+            if not isinstance(graph, (MultiTable, NeighborTable)):
+                raise NotImplementedError(
+                    'the CSR Graph layout is item 7 in ROADMAP.md, not '
+                    'ported yet: pass a NeighborTable or MultiTable')
+            graph = graph.to(X.device)
+            embed = (fsw_embed_multi_table if isinstance(graph, MultiTable)
+                     else fsw_embed_table)
+            return embed(X, graph, self.proj_vecs, self.freqs, cfg,
+                         aggregate=aggregate, weights_grad=weights_grad, **kw)
+        if graph_mode:
+            return fsw_embed_graph_dense(X, W, self.proj_vecs, self.freqs,
+                                         cfg, X_edge=X_edge, **kw)
+        return fsw_embed_multiset(X, W, self.proj_vecs, self.freqs, cfg,
+                                  w_mode=w_mode, aggregate=aggregate,
+                                  weights_grad=weights_grad, **kw)

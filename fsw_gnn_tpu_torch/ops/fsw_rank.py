@@ -1,10 +1,16 @@
-"""Fused-projection FSW aggregation by weighted ranks: the CUDA kernels
-(forward K1f, backward K1b) and their plain PyTorch versions.
+"""FSW aggregation by weighted ranks: the CUDA kernels and their plain
+PyTorch versions.
 
-Replaces `fsw_rank_aggregate_proj` of fsw_gnn_tpu/ops/fsw_rank_pallas.py,
-whose forward is the TPU kernel `_fwdp_kernel` and whose backward is
-`_bwdp_kernel`.  For table rows r, entries i, j of width B and slices s,
-with P = Z @ V:
+Two kernel pairs, replacing the two rank aggregations of
+fsw_gnn_tpu/ops/fsw_rank_pallas.py:
+
+  * K2 `fsw_rank_aggregate` on projections P (R, B, S) already computed:
+    forward K2f (TPU `_fwd_kernel`), backward K2b (TPU `_bwd_kernel`);
+  * K1 `fsw_rank_aggregate_proj` on sender rows Z (R, B, D) and the slice
+    matrix V (D, S), projecting P = Z V itself: forward K1f (TPU
+    `_fwdp_kernel`), backward K1b (TPU `_bwdp_kernel`).
+
+For table rows r, entries i, j of width B and slices s:
 
     c_i     = sum_j wn_j * 1[p_j < p_i or (p_j == p_i and j <= i)]
               + pad * 1[p_i > 0]
@@ -16,7 +22,6 @@ order, so no sort is needed.  The backward (the mask is constant almost
 everywhere), with g the output cotangent and A = pi f (2c - w):
 
     dp_i   = (1 + f) g phi_i
-    dZ     = dP V^T,  dV = Z^T dP  (summed over every row and entry)
     df_s   = sum_r g [ q + (1 + f) sum_i p_i phi_f ],   q = sum_i p_i phi_i
     phi_f  = (2/f) [ w cos(pi f w) cos A - sin(pi f w) cos A / (pi f)
                      - (2c - w) sin(pi f w) sin A ]          (0 at f = 0)
@@ -24,14 +29,18 @@ everywhere), with g the output cotangent and A = pi f (2c - w):
     dc_i   = (1 + f) g p_i (-4) sin(pi f w) sin A
     dwn_j  = sum_s (1 + f) g p_j 2 cos(A - pi f w) + sum_{i,s} dc_i M_ij
     dpad   = sum_{i,s} dc_i 1[p_i > 0]
+    K1 only: dZ = dP V^T, dV = Z^T dP (summed over every row and entry).
 
-The kernel sources (csrc/fsw_rank_fwdp.cu, csrc/fsw_rank_bwdp.cu) say what
-bounds them on an H100 and what their design does about it.
+The kernel sources (csrc/fsw_rank_fwd.cu, fsw_rank_bwd.cu,
+fsw_rank_fwdp.cu, fsw_rank_bwdp.cu, sharing csrc/fsw_rank_common.cuh) say
+what bounds them on an H100 and what their design does about it.
 
-`fsw_rank_aggregate_proj` is a `torch.autograd.Function`: on CPU tensors
-its forward and backward are the plain versions, on CUDA tensors the
-kernels.  On the card it never falls back.  Like the TPU kernel it saves
-only its inputs and recomputes P in the backward.
+Both public functions are `torch.autograd.Function`s: on CPU tensors their
+forward and backward are the plain versions, on CUDA tensors the kernels.
+On the card they never fall back.  Like the TPU kernels they save only
+their inputs and recompute the ranks (and K1 the projection) in the
+backward.  A width whose row the kernel's shared memory cannot hold raises
+a ValueError naming the width and the limit.
 """
 from __future__ import annotations
 
@@ -57,20 +66,22 @@ def _sincos2pi(u):
     return torch.sin(a), torch.cos(a)
 
 
-def _project_and_rank(Z, wn, pad_norm, V):
-    """P = Z V (einsum) and the inclusive weighted rank c with the pad
-    shift, summed in the order j = 0 .. B-1 as `_rank_c` does."""
-    P = torch.einsum('rbd,ds->rbs', Z, V)                   # (R, B, S)
+def _precedes(P, pos, j):
+    """M_ij over every i for one j: p_j < p_i, or p_j == p_i and j <= i."""
+    pj = P[:, j:j + 1, :]
+    return (pj < P) | ((pj == P) & (pos >= j))
+
+
+def _rank(P, wn, pad_norm):
+    """The inclusive weighted rank c (R, B, S) with the pad shift, summed
+    in the order j = 0 .. B-1 as `_rank_c` does."""
     B = P.shape[1]
     zero = torch.zeros((), dtype=P.dtype, device=P.device)
     pos = torch.arange(B, device=P.device).view(1, B, 1)
     c = torch.zeros_like(P)
     for j in range(B):
-        pj = P[:, j:j + 1, :]
-        m = (pj < P) | ((pj == P) & (pos >= j))
-        c = c + torch.where(m, wn[:, j, None, None], zero)
-    c = c + torch.where(P > 0, pad_norm[:, None, None], zero)
-    return P, c, pos
+        c = c + torch.where(_precedes(P, pos, j), wn[:, j, None, None], zero)
+    return c + torch.where(P > 0, pad_norm[:, None, None], zero)
 
 
 def _trig(wn, c, freqs, uniform_w):
@@ -99,35 +110,32 @@ def _freq_consts(freqs):
     return fz, inv_f
 
 
-def fsw_rank_aggregate_proj_plain(Z, wn, pad_norm, freqs, V,
-                                  uniform_w: bool = False):
-    """Plain PyTorch forward: project with einsum, build c with the B-step
-    masked loop, then the quadrature.  Any float dtype."""
-    P, c, _ = _project_and_rank(Z, wn, pad_norm, V)
-    ws = wn[:, :, None]
+def fsw_rank_aggregate_plain(P, wn, pad_norm, freqs, uniform_w: bool = False):
+    """Plain PyTorch forward of K2 (the formulas of `_fwd_kernel`): the
+    B-step masked rank loop, then the quadrature.  Any float dtype."""
+    c = _rank(P, wn, pad_norm)
     sin_fw, _, _, cos_t = _trig(wn, c, freqs, uniform_w)
     fz, inv_f = _freq_consts(freqs)
-    sd = torch.where(fz, 2.0 * ws, (2.0 / math.pi) * inv_f * sin_fw) * cos_t
+    sd = torch.where(fz, 2.0 * wn[:, :, None],
+                     (2.0 / math.pi) * inv_f * sin_fw) * cos_t
     return (1.0 + freqs) * torch.sum(P * sd, dim=1)
 
 
-def fsw_rank_aggregate_proj_bwd_plain(Z, wn, pad_norm, freqs, V, g,
-                                      uniform_w: bool = False,
-                                      with_dw: bool = True):
-    """Plain PyTorch backward (the formulas of `_bwdp_kernel`): returns
-    (dZ, dwn, dpad, df, dV) for the output cotangent g (R, S); dwn and
+def fsw_rank_aggregate_bwd_plain(P, wn, pad_norm, freqs, g,
+                                 uniform_w: bool = False,
+                                 with_dw: bool = True):
+    """Plain PyTorch backward of K2 (the formulas of `_bwd_kernel`):
+    returns (dP, dwn, dpad, df) for the output cotangent g (R, S); dwn and
     dpad are None when with_dw is False.  The uniform_w trig is used only
     without with_dw, as the TPU kernel does."""
-    P, c, pos = _project_and_rank(Z, wn, pad_norm, V)
+    c = _rank(P, wn, pad_norm)
     ws = wn[:, :, None]
     sin_fw, cos_fw, sin_t, cos_t = _trig(wn, c, freqs,
                                          uniform_w and not with_dw)
     fz, inv_f = _freq_consts(freqs)
     sd = torch.where(fz, 2.0 * ws, (2.0 / math.pi) * inv_f * sin_fw) * cos_t
     g1 = ((1.0 + freqs) * g)[:, None, :]                     # (R, 1, S)
-    dp = g1 * sd
-    dZ = torch.einsum('rbs,ds->rbd', dp, V)
-    dV = torch.einsum('rbd,rbs->ds', Z, dp)
+    dP = g1 * sd
     two_c_w = 2.0 * c - ws
     phi_f = 2.0 * inv_f * (ws * cos_fw * cos_t
                            - (inv_f / math.pi) * sin_fw * cos_t
@@ -136,84 +144,240 @@ def fsw_rank_aggregate_proj_bwd_plain(Z, wn, pad_norm, freqs, V, g,
     df = torch.sum(g * (q + (1.0 + freqs) * torch.sum(P * phi_f, dim=1)),
                    dim=0)
     if not with_dw:
-        return dZ, None, None, df, dV
+        return dP, None, None, df
     dc = g1 * P * (-4.0) * sin_fw * sin_t
     zero = torch.zeros((), dtype=P.dtype, device=P.device)
     dpad = torch.sum(torch.where(P > 0, dc, zero), dim=(1, 2))
     dwn = torch.sum(g1 * P * 2.0 * (cos_fw * cos_t + sin_fw * sin_t), dim=2)
-    cols = []
-    for j in range(P.shape[1]):
-        pj = P[:, j:j + 1, :]
-        m = (pj < P) | ((pj == P) & (pos >= j))
-        cols.append(torch.sum(torch.where(m, dc, zero), dim=(1, 2)))
-    return dZ, dwn + torch.stack(cols, dim=1), dpad, df, dV
+    pos = torch.arange(P.shape[1], device=P.device).view(1, -1, 1)
+    cols = [torch.sum(torch.where(_precedes(P, pos, j), dc, zero), dim=(1, 2))
+            for j in range(P.shape[1])]
+    return dP, dwn + torch.stack(cols, dim=1), dpad, df
+
+
+def fsw_rank_aggregate_proj_plain(Z, wn, pad_norm, freqs, V,
+                                  uniform_w: bool = False):
+    """Plain PyTorch forward of K1: project with einsum, then K2's plain
+    forward.  Any float dtype."""
+    P = torch.einsum('rbd,ds->rbs', Z, V)
+    return fsw_rank_aggregate_plain(P, wn, pad_norm, freqs, uniform_w)
+
+
+def fsw_rank_aggregate_proj_bwd_plain(Z, wn, pad_norm, freqs, V, g,
+                                      uniform_w: bool = False,
+                                      with_dw: bool = True):
+    """Plain PyTorch backward of K1 (the formulas of `_bwdp_kernel`):
+    returns (dZ, dwn, dpad, df, dV); dwn and dpad are None without
+    with_dw."""
+    P = torch.einsum('rbd,ds->rbs', Z, V)
+    dP, dwn, dpad, df = fsw_rank_aggregate_bwd_plain(
+        P, wn, pad_norm, freqs, g, uniform_w=uniform_w, with_dw=with_dw)
+    dZ = torch.einsum('rbs,ds->rbd', dP, V)
+    dV = torch.einsum('rbd,rbs->ds', Z, dP)
+    return dZ, dwn, dpad, df, dV
+
+
+# name -> (entry function's argtypes, helpers' argtypes); every helper
+# returns bytes (size_t), the entry function a CUDA error code
+_SIGNATURES = {
+    'fsw_rank_fwdp': ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
+                      {'smem_bytes': [ctypes.c_int] * 2}),
+    'fsw_rank_bwdp': ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6,
+                      {'workspace_bytes': [ctypes.c_int] * 5,
+                       'smem_bytes': [ctypes.c_int] * 2}),
+    'fsw_rank_fwd': ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4,
+                     {'smem_bytes': [ctypes.c_int]}),
+    'fsw_rank_bwd': ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5,
+                     {'workspace_bytes': [ctypes.c_int] * 4,
+                      'smem_bytes': [ctypes.c_int] * 2}),
+}
 
 
 def _kernel(name):
-    """(entry function, helper) of one kernel library, loaded once."""
+    """(entry function, {helper name: function}) of one kernel library,
+    loaded once."""
     if name not in _FN:
         from ..kernels import load
         lib = load(name)
-        if name == 'fsw_rank_fwdp':
-            fn = lib.fsw_rank_fwdp_f32
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-                ctypes.c_void_p]
-            aux = lib.fsw_rank_fwdp_smem_bytes
-            aux.argtypes = [ctypes.c_int, ctypes.c_int]
-        else:
-            fn = lib.fsw_rank_bwdp_f32
-            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
-                ctypes.c_void_p]
-            aux = lib.fsw_rank_bwdp_workspace_bytes
-            aux.argtypes = [ctypes.c_int] * 5
+        argtypes, helpers = _SIGNATURES[name]
+        fn = getattr(lib, f'{name}_f32')
+        fn.argtypes = argtypes + [ctypes.c_void_p]          # + the stream
         fn.restype = ctypes.c_int
-        aux.restype = ctypes.c_size_t
+        aux = {}
+        for helper, types in helpers.items():
+            h = getattr(lib, f'{name}_{helper}')
+            h.argtypes = types
+            h.restype = ctypes.c_size_t
+            aux[helper] = h
         _FN[name] = (fn, aux)
     return _FN[name]
 
 
-def _check(named, R, B, D, S):
+def _fits(name, B, *smem_args):
+    """Raise a ValueError when one row of width B needs more shared memory
+    than a block has (the kernels hold a whole row)."""
+    need = _kernel(name)[1]['smem_bytes'](*smem_args)
+    if need > _MAX_SMEM:
+        raise ValueError(f'{name}: bucket width {B} needs {need} bytes of '
+                         f'shared memory, above the {_MAX_SMEM} a block '
+                         f'has on this card; use aggregate=\'sort\'')
+
+
+def _check(named, shapes):
     """Device, float32, contiguity and shape of every CUDA argument."""
-    want = {'wn': (R, B), 'pad_norm': (R,), 'freqs': (S,), 'V': (D, S),
-            'g': (R, S)}
     dev = named[0][1].device
     for name, t in named:
         if t.device != dev:
-            raise ValueError(f'{name} is on {t.device}, Z on {dev}')
+            raise ValueError(f'{name} is on {t.device}, {named[0][0]} on '
+                             f'{dev}')
         if t.dtype != torch.float32:
             raise TypeError(f'{name} must be float32, got {t.dtype}')
         if not t.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
-        if name in want and tuple(t.shape) != want[name]:
+        if name in shapes and tuple(t.shape) != shapes[name]:
             raise ValueError(f'{name} has shape {tuple(t.shape)}, '
-                             f'expected {want[name]}')
+                             f'expected {shapes[name]}')
 
+
+def _device(t):
+    """'cpu' or 'cuda' for the first argument; anything else raises."""
+    if t.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'unsupported device {t.device}')
+    return t.device.type
+
+
+def _launch(name, fn, *args):
+    """Call a kernel library's entry function on the current stream of the
+    tensors' card and raise on a CUDA error code."""
+    dev = next(a for a in args if isinstance(a, torch.Tensor)).device
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        rc = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'{name} launch failed: CUDA error {rc}')
+
+
+# ---- K2: the unfused weighted-rank aggregation ----------------------------
+
+def _fwd2(P, wn, pad_norm, freqs, uniform_w):
+    """K2's forward on P's device: plain on the CPU, K2f on the card."""
+    if _device(P) == 'cpu':
+        return fsw_rank_aggregate_plain(P, wn, pad_norm, freqs, uniform_w)
+    R, B, S = P.shape
+    _check(list(zip(('P', 'wn', 'pad_norm', 'freqs'),
+                    (P, wn, pad_norm, freqs))),
+           {'wn': (R, B), 'pad_norm': (R,), 'freqs': (S,)})
+    out = torch.empty((R, S), dtype=torch.float32, device=P.device)
+    if R == 0 or S == 0:
+        return out
+    if B == 0:
+        return out.zero_()
+    _fits('fsw_rank_fwd', B, B)
+    _launch('fsw_rank_fwd', _kernel('fsw_rank_fwd')[0], P, wn, pad_norm,
+            freqs, out, R, B, S, int(bool(uniform_w)))
+    fsw_rank_aggregate.launches += 1
+    return out
+
+
+def fsw_rank_aggregate_bwd(P, wn, pad_norm, freqs, g,
+                           uniform_w: bool = False, with_dw: bool = True):
+    """K2's backward on P's device: (dP, dwn, dpad, df), dwn and dpad None
+    without with_dw.  CPU tensors: the plain version.  CUDA tensors:
+    kernel K2b (float32, contiguous), or an error; each call adds one to
+    `fsw_rank_aggregate_bwd.launches`."""
+    if _device(P) == 'cpu':
+        return fsw_rank_aggregate_bwd_plain(P, wn, pad_norm, freqs, g,
+                                            uniform_w=uniform_w,
+                                            with_dw=with_dw)
+    R, B, S = P.shape
+    _check(list(zip(('P', 'wn', 'pad_norm', 'freqs', 'g'),
+                    (P, wn, pad_norm, freqs, g))),
+           {'wn': (R, B), 'pad_norm': (R,), 'freqs': (S,), 'g': (R, S)})
+    f32 = dict(dtype=torch.float32, device=P.device)
+    dP = torch.empty((R, B, S), **f32)
+    df = torch.empty((S,), **f32)
+    dwn = torch.empty((R, B), **f32) if with_dw else None
+    dpad = torch.empty((R,), **f32) if with_dw else None
+    if R == 0 or B == 0 or S == 0:
+        for t in (dP, df, dwn, dpad):
+            if t is not None:
+                t.zero_()
+        return dP, dwn, dpad, df
+    fn, aux = _kernel('fsw_rank_bwd')
+    _fits('fsw_rank_bwd', B, B, int(with_dw))
+    ws = torch.empty((aux['workspace_bytes'](R, B, S, int(with_dw)),),
+                     dtype=torch.uint8, device=P.device)
+    _launch('fsw_rank_bwd', fn, P, wn, pad_norm, freqs, g, dP,
+            dwn if with_dw else None, dpad if with_dw else None, df, ws,
+            R, B, S, int(bool(uniform_w)), int(bool(with_dw)))
+    fsw_rank_aggregate_bwd.launches += 1
+    return dP, dwn, dpad, df
+
+
+class _Rank(torch.autograd.Function):
+    """K2f forward, K2b backward (their plain versions on the CPU).  Saves
+    the inputs only; the backward recomputes the ranks, as `_fsw_fwd`
+    does."""
+
+    @staticmethod
+    def forward(ctx, P, wn, pad_norm, freqs, uniform_w, with_dw):
+        ctx.save_for_backward(P, wn, pad_norm, freqs)
+        ctx.uniform_w, ctx.with_dw = uniform_w, with_dw
+        if P.device.type == 'cuda' and any(ctx.needs_input_grad[:4]):
+            # refuse now a width the backward could not take
+            _fits('fsw_rank_bwd', P.shape[1], P.shape[1], int(
+                with_dw and any(ctx.needs_input_grad[1:3])))
+        return _fwd2(P, wn, pad_norm, freqs, uniform_w)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        need = ctx.needs_input_grad
+        if not any(need[:4]):
+            return (None,) * 6
+        with_dw = ctx.with_dw and (need[1] or need[2])
+        grads = fsw_rank_aggregate_bwd(
+            *ctx.saved_tensors, g.contiguous(), uniform_w=ctx.uniform_w,
+            with_dw=with_dw)
+        return tuple(t if n else None for t, n in zip(grads, need)) + (
+            None, None)
+
+
+def fsw_rank_aggregate(P, wn, pad_norm, freqs, uniform_w: bool = False,
+                       with_dw: bool = True):
+    """P (R, B, S) per-entry projections; wn (R, B) normalized weights;
+    pad_norm (R,) phantom-mass shift; freqs (S,).  Returns (R, S),
+    differentiable in P, wn, pad_norm and freqs.
+
+    CPU tensors: the plain versions.  CUDA tensors: kernels K2f and K2b
+    (float32, contiguous), or an error; each forward launch adds one to
+    `fsw_rank_aggregate.launches`.  with_dw=False declares wn and pad_norm
+    data: their gradient is None and its loop is skipped.  uniform_w
+    declares row-constant weights and enables their trig (see the module
+    docstring); it is honoured only with with_dw=False, as in the JAX
+    package: weights that take a gradient may change after the flag was
+    detected."""
+    return _Rank.apply(P, wn, pad_norm, freqs,
+                       bool(uniform_w) and not with_dw, bool(with_dw))
+
+
+# ---- K1: the fused-projection weighted-rank aggregation --------------------
 
 def _fwd(Z, wn, pad_norm, freqs, V, uniform_w):
-    """The forward on Z's device: plain on the CPU, K1f on the card."""
+    """K1's forward on Z's device: plain on the CPU, K1f on the card."""
     args = (Z, wn, pad_norm, freqs, V)
-    if Z.device.type == 'cpu':
+    if _device(Z) == 'cpu':
         return fsw_rank_aggregate_proj_plain(*args, uniform_w=uniform_w)
-    if Z.device.type != 'cuda':
-        raise ValueError(f'unsupported device {Z.device}')
     R, B, D = Z.shape
     S = V.shape[1]
     _check(list(zip(('Z', 'wn', 'pad_norm', 'freqs', 'V'), args)),
-           R, B, D, S)
+           {'wn': (R, B), 'pad_norm': (R,), 'freqs': (S,), 'V': (D, S)})
     out = torch.empty((R, S), dtype=torch.float32, device=Z.device)
     if R == 0 or S == 0:
         return out
-    fn, smem = _kernel('fsw_rank_fwdp')
-    if smem(B, D) > _MAX_SMEM:
-        raise ValueError(f'bucket width {B} with feature width {D} needs '
-                         f'{smem(B, D)} bytes of shared memory '
-                         f'(> {_MAX_SMEM})')
-    with torch.cuda.device(Z.device):
-        stream = torch.cuda.current_stream(Z.device).cuda_stream
-        rc = fn(*(t.data_ptr() for t in args), out.data_ptr(),
-                R, B, D, S, int(bool(uniform_w)), stream)
-    if rc != 0:
-        raise RuntimeError(f'fsw_rank_fwdp launch failed: CUDA error {rc}')
+    _fits('fsw_rank_fwdp', B, B, D)
+    _launch('fsw_rank_fwdp', _kernel('fsw_rank_fwdp')[0], *args, out,
+            R, B, D, S, int(bool(uniform_w)))
     fsw_rank_aggregate_proj.launches += 1
     return out
 
@@ -221,20 +385,19 @@ def _fwd(Z, wn, pad_norm, freqs, V, uniform_w):
 def fsw_rank_aggregate_proj_bwd(Z, wn, pad_norm, freqs, V, g,
                                 uniform_w: bool = False,
                                 with_dw: bool = True):
-    """The backward on Z's device: (dZ, dwn, dpad, df, dV), dwn and dpad
+    """K1's backward on Z's device: (dZ, dwn, dpad, df, dV), dwn and dpad
     None without with_dw.  CPU tensors: the plain version.  CUDA tensors:
     kernel K1b (float32, contiguous), or an error; each call adds one to
     `fsw_rank_aggregate_proj_bwd.launches`."""
     args = (Z, wn, pad_norm, freqs, V, g)
-    if Z.device.type == 'cpu':
+    if _device(Z) == 'cpu':
         return fsw_rank_aggregate_proj_bwd_plain(
             *args, uniform_w=uniform_w, with_dw=with_dw)
-    if Z.device.type != 'cuda':
-        raise ValueError(f'unsupported device {Z.device}')
     R, B, D = Z.shape
     S = V.shape[1]
     _check(list(zip(('Z', 'wn', 'pad_norm', 'freqs', 'V', 'g'), args)),
-           R, B, D, S)
+           {'wn': (R, B), 'pad_norm': (R,), 'freqs': (S,), 'V': (D, S),
+            'g': (R, S)})
     f32 = dict(dtype=torch.float32, device=Z.device)
     dZ = torch.empty((R, B, D), **f32)
     df = torch.empty((S,), **f32)
@@ -246,18 +409,13 @@ def fsw_rank_aggregate_proj_bwd(Z, wn, pad_norm, freqs, V, g,
             if t is not None:
                 t.zero_()
         return dZ, dwn, dpad, df, dV
-    fn, workspace = _kernel('fsw_rank_bwdp')
-    ws = torch.empty((workspace(R, B, D, S, int(with_dw)),),
+    fn, aux = _kernel('fsw_rank_bwdp')
+    _fits('fsw_rank_bwdp', B, B, int(with_dw))
+    ws = torch.empty((aux['workspace_bytes'](R, B, D, S, int(with_dw)),),
                      dtype=torch.uint8, device=Z.device)
-    with torch.cuda.device(Z.device):
-        stream = torch.cuda.current_stream(Z.device).cuda_stream
-        rc = fn(*(t.data_ptr() for t in args), dZ.data_ptr(),
-                dwn.data_ptr() if with_dw else None,
-                dpad.data_ptr() if with_dw else None,
-                df.data_ptr(), dV.data_ptr(), ws.data_ptr(),
-                R, B, D, S, int(bool(uniform_w)), int(bool(with_dw)), stream)
-    if rc != 0:
-        raise RuntimeError(f'fsw_rank_bwdp launch failed: CUDA error {rc}')
+    _launch('fsw_rank_bwdp', fn, *args, dZ, dwn if with_dw else None,
+            dpad if with_dw else None, df, dV, ws,
+            R, B, D, S, int(bool(uniform_w)), int(bool(with_dw)))
     fsw_rank_aggregate_proj_bwd.launches += 1
     return dZ, dwn, dpad, df, dV
 
@@ -270,6 +428,10 @@ class _RankProj(torch.autograd.Function):
     def forward(ctx, Z, wn, pad_norm, freqs, V, uniform_w, with_dw):
         ctx.save_for_backward(Z, wn, pad_norm, freqs, V)
         ctx.uniform_w, ctx.with_dw = uniform_w, with_dw
+        if Z.device.type == 'cuda' and any(ctx.needs_input_grad[:5]):
+            # refuse now a width the backward could not take
+            _fits('fsw_rank_bwdp', Z.shape[1], Z.shape[1], int(
+                with_dw and any(ctx.needs_input_grad[1:3])))
         return _fwd(Z, wn, pad_norm, freqs, V, uniform_w)
 
     @staticmethod
@@ -295,12 +457,14 @@ def fsw_rank_aggregate_proj(Z, wn, pad_norm, freqs, V,
     CPU tensors: the plain versions.  CUDA tensors: kernels K1f and K1b
     (float32, contiguous), or an error; each forward launch adds one to
     `fsw_rank_aggregate_proj.launches`.  with_dw=False declares wn and
-    pad_norm data: their gradient is None and its loop is skipped;
-    uniform_w enables the row-constant-weight trig (see the module
-    docstring)."""
-    return _RankProj.apply(Z, wn, pad_norm, freqs, V, bool(uniform_w),
-                           bool(with_dw))
+    pad_norm data: their gradient is None and its loop is skipped.
+    uniform_w declares row-constant weights, honoured only with
+    with_dw=False (see `fsw_rank_aggregate`)."""
+    return _RankProj.apply(Z, wn, pad_norm, freqs, V,
+                           bool(uniform_w) and not with_dw, bool(with_dw))
 
 
+fsw_rank_aggregate.launches = 0
+fsw_rank_aggregate_bwd.launches = 0
 fsw_rank_aggregate_proj.launches = 0
 fsw_rank_aggregate_proj_bwd.launches = 0

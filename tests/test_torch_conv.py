@@ -88,8 +88,10 @@ def test_fswconv_f64_sort_matches_jax(layout, d_edge, slice_chunk):
 def test_fswconv_f32_rank_matches_jax(layout, d_edge):
     jm, variables, tm, X, jl, tl = _setup(layout, d_edge, f64=False,
                                           seed=1)
-    assert _resolve_aggregate('auto', tm.embed_cfg,
-                              tm.embed_cfg.nSlices) == 'rank'
+    cfg = tm.embed_cfg
+    for table in tl.tables if layout == 'multi' else [tl]:
+        assert _resolve_aggregate('auto', cfg, table.bucket_size,
+                                  cfg.nSlices) == 'rank_proj'
     want = np.asarray(jm.apply(variables, jnp.asarray(X), jl,
                                aggregate='rank'))
     with torch.no_grad():
@@ -172,14 +174,16 @@ def test_unported_routes_raise():
     conv = T.FSWConv(4, 4, minimize_slice_coherence=False, device='cpu')
     with pytest.raises(NotImplementedError, match='item 7'):
         conv(X, g)                                   # CSR Graph
-    with pytest.raises(NotImplementedError, match='item 6'):
-        conv.fsw_embed(X, torch.ones(16, 16), graph=T.to_multi_table(g))
-    # d_in + d_edge >= slices: 'rank' would need the unfused kernel K2
+    # a graph given, W is ignored, as in the JAX package
+    assert conv.fsw_embed(X, torch.ones(16, 16),
+                          graph=T.to_multi_table(g)).shape == (
+        16, conv.embed_cfg.d_out)
+    # d_in + d_edge >= slices: 'rank' takes the unfused kernel K2
     wide = T.FSWConv(4, 4, embed_dim=4, minimize_slice_coherence=False,
                      device='cpu')
-    with pytest.raises(NotImplementedError, match='K2'):
-        wide(X, T.to_multi_table(g), aggregate='rank')
-    assert wide(X, T.to_multi_table(g)).shape == (16, 4)   # 'auto': sort
+    got = wide(X, T.to_multi_table(g), aggregate='rank')
+    assert got.shape == (16, 4) and torch.isfinite(got).all()
+    assert wide(X, T.to_multi_table(g)).shape == (16, 4)   # 'auto': K2
     with pytest.raises(NotImplementedError, match='item 9'):
         T.FSWConv(4, 4, device='cpu')           # coherence minimizer
 

@@ -12,8 +12,10 @@ import torch
 
 from chip_smoke import dyadic
 from fsw_gnn_tpu_torch.ops.fsw_rank import (
-    fsw_rank_aggregate_proj, fsw_rank_aggregate_proj_bwd,
-    fsw_rank_aggregate_proj_bwd_plain, fsw_rank_aggregate_proj_plain)
+    fsw_rank_aggregate, fsw_rank_aggregate_bwd, fsw_rank_aggregate_bwd_plain,
+    fsw_rank_aggregate_plain, fsw_rank_aggregate_proj,
+    fsw_rank_aggregate_proj_bwd, fsw_rank_aggregate_proj_bwd_plain,
+    fsw_rank_aggregate_proj_plain)
 
 NAMES = ('dZ', 'dwn', 'dpad', 'df', 'dV')
 
@@ -33,7 +35,7 @@ def _args(rng, R, B, D, S, uniform_w):
     """float32 inputs with tied projections (repeated sender rows),
     zero-weight padding, an f = 0 slice and a 'spread'-range frequency."""
     Z = rng.standard_normal((R, B, D))
-    Z[:, 1::4, :] = Z[:, 0::4, :]
+    Z[:, 1::4, :] = Z[:, 0:B - 1:4, :]
     V = rng.standard_normal((D, S)) / np.sqrt(D)
     real = rng.random((R, B)) < 0.7
     real[:, 0] = True
@@ -63,7 +65,8 @@ def test_rank_kernel_matches_plain(cuda_device, B, D, S, uniform_w):
             _args(np.random.default_rng(B), 37, B, D, S, uniform_w)]
     before = fsw_rank_aggregate_proj.launches
     with torch.no_grad():
-        got = fsw_rank_aggregate_proj(*args, uniform_w=uniform_w)
+        got = fsw_rank_aggregate_proj(*args, uniform_w=uniform_w,
+                                      with_dw=False)
     torch.cuda.synchronize()
     assert fsw_rank_aggregate_proj.launches == before + 1
     want = fsw_rank_aggregate_proj_plain(*args, uniform_w=uniform_w)
@@ -187,3 +190,113 @@ def test_fswconv_training_step_matches_cpu(cuda_device):
     for (k, a), b in zip(cpu.named_parameters(), gpu.parameters()):
         torch.testing.assert_close(b.detach().cpu(), a.detach(), rtol=1e-5,
                                    atol=1e-6, msg=k)
+
+
+def _args2(rng, R, B, S, uniform_w, dev):
+    """K2's float32 inputs on the card: projections P (R, B, S) with ties
+    (every fourth entry repeats the one before it), the rest as `_args`."""
+    Z, wn, pad, freqs, _ = _args(rng, R, B, 1, S, uniform_w)
+    P = rng.standard_normal((R, B, S)).astype(np.float32)
+    P[:, 1::4] = P[:, 0:B - 1:4]
+    return [a.to(dev).contiguous() for a in
+            (torch.from_numpy(P), wn, pad, freqs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,S', [(8, 127), (100, 1000), (128, 200),
+                                 (13, 7), (300, 65)])
+@pytest.mark.parametrize('uniform_w', [False, True])
+def test_rank2_kernel_matches_plain(cuda_device, B, S, uniform_w):
+    """K2f against its plain version: |kernel - plain| <= 2e-5 *
+    max|plain| + 1e-5 * |plain|.  P is given, so the ranks agree to the
+    bit; the trig differs (sincospi against sin/cos of the wrapped
+    phase)."""
+    args = _args2(np.random.default_rng(B), 37, B, S, uniform_w,
+                  cuda_device)
+    before = fsw_rank_aggregate.launches
+    with torch.no_grad():
+        got = fsw_rank_aggregate(*args, uniform_w=uniform_w, with_dw=False)
+    torch.cuda.synchronize()
+    assert fsw_rank_aggregate.launches == before + 1
+    want = fsw_rank_aggregate_plain(*args, uniform_w=uniform_w)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=2e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,S', [(8, 127), (100, 1000), (128, 200),
+                                 (13, 7), (300, 65)])
+@pytest.mark.parametrize('with_dw', [False, True])
+def test_rank2_bwd_kernel_matches_plain(cuda_device, B, S, with_dw):
+    """K2b against its plain version, each output within 1e-4 of its
+    largest plain entry + 1e-4 * |plain| (the trig, and the summation
+    orders of df over R and of dwn over S); zero-weight entries get
+    exactly 0; two calls give the same bits."""
+    rng = np.random.default_rng(2000 + B)
+    for uniform_w in (False, True):
+        args = _args2(rng, 37, B, S, uniform_w, cuda_device)
+        G = torch.from_numpy(rng.standard_normal((37, S)).astype(
+            np.float32)).to(cuda_device)
+        before = fsw_rank_aggregate_bwd.launches
+        got = fsw_rank_aggregate_bwd(*args, G, uniform_w=uniform_w,
+                                     with_dw=with_dw)
+        torch.cuda.synchronize()
+        assert fsw_rank_aggregate_bwd.launches == before + 1
+        want = fsw_rank_aggregate_bwd_plain(*args, G, uniform_w=uniform_w,
+                                            with_dw=with_dw)
+        for g, w, name in zip(got, want, ('dP', 'dwn', 'dpad', 'df')):
+            if w is None:
+                assert g is None and not with_dw
+                continue
+            assert torch.isfinite(g).all(), name
+            torch.testing.assert_close(g, w, rtol=1e-4,
+                                       atol=1e-4 * w.abs().max().item(),
+                                       msg=name)
+        assert torch.all(got[0][args[1] == 0] == 0)
+        again = fsw_rank_aggregate_bwd(*args, G, uniform_w=uniform_w,
+                                       with_dw=with_dw)
+        for a, b in zip(got, again):
+            assert a is None or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_rank2_autograd_and_width_limits(cuda_device):
+    """The autograd Function runs K2f and K2b on the card and its
+    gradients equal the plain backward's; a width whose row does not fit
+    in a block's shared memory raises a ValueError naming it, for all
+    four kernels, before anything is launched."""
+    rng = np.random.default_rng(7)
+    args = _args2(rng, 11, 24, 40, False, cuda_device)
+    G = torch.from_numpy(rng.standard_normal((11, 40)).astype(
+        np.float32)).to(cuda_device)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    before = (fsw_rank_aggregate.launches, fsw_rank_aggregate_bwd.launches)
+    (fsw_rank_aggregate(*leaves) * G).sum().backward()
+    torch.cuda.synchronize()
+    assert (fsw_rank_aggregate.launches,
+            fsw_rank_aggregate_bwd.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    want = fsw_rank_aggregate_bwd_plain(*args, G, with_dw=True)
+    for t, w in zip(leaves, want):
+        torch.testing.assert_close(t.grad, w, rtol=1e-4,
+                                   atol=1e-4 * w.abs().max().item())
+
+    wide = _args2(rng, 2, 444, 8, False, cuda_device)
+    Gw = torch.zeros((2, 8), device=cuda_device)
+    with pytest.raises(ValueError, match='bucket width 444'):
+        fsw_rank_aggregate_bwd(*wide, Gw, with_dw=True)
+    with pytest.raises(ValueError, match='bucket width 444'):
+        fsw_rank_aggregate(*[a.requires_grad_(True) for a in wide])
+    assert fsw_rank_aggregate_bwd(*wide, Gw, with_dw=False)[0].shape == (
+        2, 444, 8)
+    huge = _args2(rng, 1, 4096, 8, False, cuda_device)
+    with pytest.raises(ValueError, match='bucket width 4096'):
+        fsw_rank_aggregate(*huge)
+    Z, wn, pad, freqs, V = [a.to(cuda_device) for a in
+                            _args(rng, 2, 1024, 64, 8, False)]
+    with pytest.raises(ValueError, match='bucket width 1024'):
+        fsw_rank_aggregate_proj(Z, wn, pad, freqs, V)
+    with pytest.raises(ValueError, match='bucket width 1024'):
+        fsw_rank_aggregate_proj_bwd(Z, wn, pad, freqs, V,
+                                    torch.zeros((2, 8), device=cuda_device),
+                                    with_dw=False)

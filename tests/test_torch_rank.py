@@ -52,7 +52,7 @@ def _jax(args, uniform_w):
 
 def _port(args, uniform_w):
     out = fsw_rank_aggregate_proj(*(torch.from_numpy(a) for a in args),
-                                  uniform_w=uniform_w)
+                                  uniform_w=uniform_w, with_dw=False)
     return out.numpy()
 
 
@@ -119,7 +119,7 @@ def test_cpu_wrapper_is_plain_version():
     args = [torch.from_numpy(a.astype(np.float32))
             for a in _args(rng, 4, 8, 3, 6, True)]
     before = fsw_rank_aggregate_proj.launches
-    a = fsw_rank_aggregate_proj(*args, uniform_w=True)
+    a = fsw_rank_aggregate_proj(*args, uniform_w=True, with_dw=False)
     b = fsw_rank_aggregate_proj_plain(*args, uniform_w=True)
     assert torch.equal(a, b)
     assert fsw_rank_aggregate_proj.launches == before   # no kernel on CPU

@@ -161,3 +161,38 @@ def test_rank_route_weight_gradient_matches_jax(weights_grad):
             jnp.asarray(freqs), jcfg, aggregate='rank',
             weights_grad=True) * G))(jnp.asarray(tt.weight)))
         assert np.abs(full - want).max() > 1e-2 * np.abs(full).max()
+
+
+def test_auto_keeps_wide_classes_off_the_rank_kernels(monkeypatch):
+    """A 2000-node graph whose node 0 has 1024 in-edges: `auto_layout`
+    builds a degree class 1024 wide, more than the rank kernels' shared
+    memory holds a row of.  Under 'auto' no rank call may see a width
+    above 128 (such classes take the sort route, as in the JAX package),
+    and the float32 FSWConv forward matches JAX's 'auto' (its sort route
+    on the CPU) within test_torch_conv.py's float32 tolerance."""
+    from chip_smoke import hub_graph
+    ei, rng = hub_graph(0)
+    n = int(ei.max()) + 1
+    X = rng.standard_normal((n, 64)).astype(np.float32)
+    jl = J.auto_layout(J.from_edge_index(ei, n, dtype=jnp.float32))
+    tl = T.auto_layout(T.from_edge_index(ei, n, dtype=np.float32))
+    assert max(t.bucket_size for t in tl.tables) == 1024
+    kw = dict(in_channels=64, out_channels=64, mlp_layers=3)
+    jm = J.FSWConv(minimize_slice_coherence=False, dtype=jnp.float32, **kw)
+    variables = jax.tree_util.tree_map(
+        np.asarray, jm.init(jax.random.PRNGKey(0), jnp.asarray(X), jl))
+    tm = T.fswconv_from_jax(variables, device='cpu', **kw).eval()
+
+    widths = []
+    for name in ('fsw_rank_aggregate_proj', 'fsw_rank_aggregate'):
+        def spy(*args, _real=getattr(TE, name), **kwargs):
+            widths.append(args[0].shape[1])
+            return _real(*args, **kwargs)
+        monkeypatch.setattr(TE, name, spy)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(X), tl).numpy()
+    assert widths and max(widths) <= 128, sorted(set(widths))
+    assert len(widths) == sum(t.bucket_size <= 128 for t in tl.tables)
+    want = np.asarray(jm.apply(variables, jnp.asarray(X), jl))
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=2e-5 * np.abs(want).max())
