@@ -70,10 +70,35 @@ Phases (any failure exits non-zero before the last line is printed):
      128 (the classes up to 1024 wide take the sort route), K1f and K1b
      launched once per narrow class, output and gradients against the
      CPU;
- 11. one JSON line listing the four kernels with their launches, errors,
+ 11. K3 (`segcumsum`) alone on 2^24 normal values, against its plain
+     version with the ids and with the mask, at average segments of 32
+     and 4096, singletons, and 32 in float64; each timed beside its bound
+     and torch.cumsum's unsegmented floor on the same array;
+ 12. the CSR path: the bench FSWConv on the bench graph as a CSR Graph
+     (130925 edges padded to 130944): K3 once a forward on 127 x 130944
+     elements, held against its plain version on the captured call;
+     forward and forward + backward timed beside the `multi` layout of the
+     same graph; output and gradients (the edge weights' too) against the
+     CPU on an 8192-node graph whose in-degrees are all 16;
+ 13. K3's backward: one gradient of the bench graph's edge weights on the
+     card, K3's backward held against autograd through its plain version
+     on the captured cotangent;
+ 14. FSWGraphClassifier(64, (64, 64), 2, mlp_layers=3) on 256 graphs of
+     64 nodes (in-degrees 4 or 8 by class), the convs on the CSR Graph and
+     the readout on `readout_graph`: logits against the CPU, the first
+     step's gradients against the CPU in float64, 5 Adam steps with the
+     loss falling, K3 three times a forward;
+ 15. a 16384-node graph whose node 0 has 8192 in-edges: `auto_layout`
+     keeps the CSR Graph; FSWConv forward and backward against the CPU;
+ 16. the server's CSR route: a GraphServer without classes serves 20
+     requests of 4096-8192 nodes; a classes server takes a hub request
+     (`fallbacks`) and a duplicate-edge request under assume_uniform_w
+     (`uniform_w_fallbacks`) through CSR; outputs against the CPU;
+ 17. one JSON line listing the five kernels with their launches, errors,
      times and bounds (the launches are those of the main-path runs 4, 6,
-     7, 8, 9 and 10 together; K2's times and bounds at phase 8's shape);
- 12. the last line: {"ok": true, "device": {...}}.
+     7, 8, 9, 10 and 12-16 together; K2's times and bounds at phase 8's
+     shape, K3's at phase 12's);
+ 18. the last line: {"ok": true, "device": {...}}.
 
 Tolerances:
   * K1f against its plain version, both on the card in float32:
@@ -103,6 +128,19 @@ Tolerances:
     gradient: |gpu - cpu| <= 1e-4 * max|cpu| + 1e-4 * |cpu|, with the
     features and the slice vectors on the dyadic grid, and the multisets'
     weights on multiples of 2^-20 (see `multiset_setup`).
+  * K3 against its plain version, per element: |kernel - plain| <=
+    8 eps * (the segment's prefix of |v|) (its suffix of |g| for the
+    backward).  Both restart at every segment; each sums a prefix in a few
+    roundings of partial sums no larger than it.
+  * the CSR phases against the CPU, outputs and gradients: as above, on
+    graphs whose in-degrees are powers of two (every normalized weight and
+    every cumulative weight exact in any summation order: with the
+    'spread' frequencies up to 253 one ulp of c moves an output by about
+    1e-4 of its scale), features and slice vectors dyadic where the first
+    layer's projections decide the sort.  The classifier's later layers
+    project features computed in another order on each side; their
+    float32 projections differ by ulps, which swaps near-ties and jumps
+    the gradient, so its gradients are compared in float64.
 
 Bounds: the least time the card could take for a kernel's work, the
 larger of (bytes that must move) / 3.35 TB/s and (float32 operations) /
@@ -124,6 +162,9 @@ B x B rank loop does 3 d^2 instead), so a row with d real entries needs
 At the multiset shape K2's operations take less time than its bytes.  The
 bound of the padded shapes (every table entry counted) is printed beside
 K1f's.
+K3 needs one add an element and moves 12 bytes an element in float32
+with ids (values and ids read, output written), 9 with the mask: its
+bound is the bytes'.
 
 Device times are medians over 5 windows of back-to-back calls between
 two CUDA events, a sleep kernel queued first so the card never waits for
@@ -162,7 +203,14 @@ HUB_NODES, HUB_IN = 2000, 1024
 MS_LEAD, MS_N, MS_D, MS_S, MS_CPU_SETS = (8, 16, 16), 100, 20, 1000, 128
 TABLE_CHUNK = 64
 KERNEL_NAMES = ('fsw_rank_fwdp', 'fsw_rank_bwdp', 'fsw_rank_fwd',
-                'fsw_rank_bwd')
+                'fsw_rank_bwd', 'segcumsum')
+K3_N, K3_ULPS = 1 << 24, 8
+K3_CASES = (('avg 32', 32, 'float32'), ('avg 4096', 4096, 'float32'),
+            ('singletons', 1, 'float32'), ('avg 32, float64', 32, 'float64'))
+CSR_CHECK_DEG = 16
+CLS_GRAPHS, CLS_NODES, CLS_DEGS, CLS_STEPS, CLS_LR = 256, 64, (4, 8), 5, 1e-4
+CSR_HUB_NODES, CSR_HUB_IN, CSR_HUB_DEG = 16384, 8192, 4
+CSR_REQUESTS, CSR_SERVE_HUB_IN, CSR_CLASSES_NODES = 20, 256, 2048
 
 
 def fail(msg):
@@ -196,6 +244,23 @@ def hub_graph(seed, n=HUB_NODES, hub_in=HUB_IN, deg=4):
     keep = src != dst
     pairs = np.unique(src[keep].astype(np.int64) * n + dst[keep])
     return np.stack([pairs // n, pairs % n]), rng
+
+
+def regular_graph(seed, n, deg, offset=0):
+    """Edges into every node v of n (ids offset by `offset`) from `deg`
+    distinct other nodes among the n, chosen at random: every in-degree is
+    `deg`, so at a power of two every normalized weight and every prefix
+    of them is exact in any summation order."""
+    rng = np.random.default_rng(seed)
+    off = np.empty((n, deg), np.int64)
+    for v in range(n):
+        row = np.unique(rng.integers(1, n, 4 * deg))
+        while row.shape[0] < deg:
+            row = np.unique(np.concatenate([row, rng.integers(1, n, deg)]))
+        off[v] = rng.permutation(row)[:deg]
+    dst = np.repeat(np.arange(n), deg)
+    src = (dst + off.reshape(-1)) % n
+    return np.stack([src, dst]) + offset
 
 
 def dyadic(Z, V):
@@ -461,6 +526,30 @@ def traced_busy_ms(torch, fn, n):
     return busy_us / 1e3 / n if busy_us else None
 
 
+def traced_top_kernels(torch, fn, n, top=8):
+    """(device-busy ms per call, [[name, ms per call, calls per call]] of
+    the `top` costliest kernels and copies on the card) from a
+    torch.profiler trace of n calls of `fn`, names cut to 90 characters."""
+    from collections import defaultdict
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us, calls = defaultdict(float), defaultdict(int)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us[e.name[:90]] += e.time_range.elapsed_us()
+            calls[e.name[:90]] += 1
+    rows = sorted(us.items(), key=lambda kv: -kv[1])[:top]
+    return (sum(us.values()) / 1e3 / n,
+            [[k, v / 1e3 / n, calls[k] / n] for k, v in rows])
+
+
 def step_parts_ms(torch, forward, loss_of, opt):
     """Device and host ms of one training step and of its forward,
     backward and optimizer parts, each timed on its own (the backward
@@ -646,9 +735,10 @@ def close_to_cpu(torch, label, got, want, rtol, atol_rel):
     return err.max().item() / max(scale, 1e-30)
 
 
-def bench_setup(torch, T):
+def bench_setup(torch, T, csr=False):
     """bench.py's graph, features and model: the 8192-node simple graph in
-    the `multi` layout, X ~ N(0, 1) from the same generator, FSWConv(64,
+    the `multi` layout (with `csr`, the padded CSR Graph: 130925 edges
+    padded to 130944), X ~ N(0, 1) from the same generator, FSWConv(64,
     64, mlp_layers=3) from seed 0; X and the slice vectors put on the
     dyadic grid (so the CPU ranks as the card does)."""
     ei, rng = simple_graph(0, N_NODES)
@@ -660,8 +750,8 @@ def bench_setup(torch, T):
     with torch.no_grad():
         X, Vq = dyadic(X, model.fsw_embed.proj_vecs.t())
         model.fsw_embed.proj_vecs.copy_(Vq.t())
-    graph = T.to_multi_table(T.from_edge_index(ei, N_NODES))
-    return model, X, graph
+    graph = T.from_edge_index(ei, N_NODES)
+    return model, X, graph if csr else T.to_multi_table(graph)
 
 
 def check_rank_calls(torch, dev, calls, cfg, where, errs, all_variants):
@@ -1166,7 +1256,7 @@ def table_k2_phase(torch, T, dev, counts, errs):
 
 def hub_phase(torch, T, dev, counts):
     """Phase 10: FSWConv(64, 64, mlp_layers=3) on the 2000-node graph
-    whose node 0 has 1000 in-edges, forward and backward: classes wider
+    whose node 0 has 1024 in-edges, forward and backward: classes wider
     than 128 take the sort route (no rank call sees them), and the output
     and gradients match the CPU."""
     from fsw_gnn_tpu_torch.embedding import RANK_AGGREGATE_MAX_BUCKET_NO_DW
@@ -1224,6 +1314,475 @@ def hub_phase(torch, T, dev, counts):
     print('hub graph: ' + json.dumps(res), flush=True)
 
 
+def k3_within(torch, label, got, want, prefix, dtype):
+    """Fail unless |got - want| <= K3_ULPS eps (prefix) per element, where
+    `prefix` is the segmented prefix of |v| each element sums (float64);
+    returns the largest absolute error."""
+    err = (got.double() - want.double()).abs()
+    eps = torch.finfo(dtype).eps
+    if not (bool(torch.isfinite(got).all())
+            and bool(torch.all(err <= K3_ULPS * eps * prefix))):
+        worst = float((err / (eps * prefix).clamp(min=1e-300)).max())
+        fail(f'K3 disagrees with its plain version ({label}): max abs err '
+             f'{err.max().item():.3e}, {worst:.2f} eps of the prefix')
+    return err.max().item()
+
+
+def check_k3(torch, label, values, kw):
+    """K3 against its plain version on one input (`kw`: segment_ids= or
+    boundaries=); returns the largest absolute error."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum, segcumsum_plain
+    with torch.no_grad():
+        got = segcumsum(values, **kw)
+        torch.cuda.synchronize()
+        want = segcumsum_plain(values, **kw)
+        prefix = segcumsum_plain(values.abs().double(), **kw)
+        return k3_within(torch, label, got, want, prefix, values.dtype)
+
+
+def check_k3_bwd(torch, label, values, mask, g):
+    """K3's backward (the reversed segmented cumsum of the cotangent g)
+    against autograd through the plain version, on the card; returns the
+    largest absolute error."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import (_ids_from_mask, segcumsum,
+                                                 segcumsum_plain)
+    grads = []
+    for fn in (segcumsum, segcumsum_plain):
+        v = values.detach().clone().requires_grad_(True)
+        fn(v, boundaries=mask).backward(g)
+        grads.append(v.grad)
+    torch.cuda.synchronize()
+    ids = _ids_from_mask(mask)
+    with torch.no_grad():
+        suffix = segcumsum_plain(g.abs().double().flip(0),
+                                 -ids.flip(0)).flip(0)
+    return k3_within(torch, label, grads[0], grads[1], suffix, values.dtype)
+
+
+def k3_bytes(n, dtype_bytes, by):
+    """Bytes K3 must move: the values read, the output written, the ids
+    (4 bytes) or the mask (1 byte) read."""
+    return n * (2 * dtype_bytes + (4 if by == 'ids' else 1))
+
+
+def k3_phase(torch, dev, errs):
+    """Phase 11: K3 alone on 2^24 normal values, against its plain version
+    with the ids and with the mask, timed beside its bound and torch's
+    unsegmented cumsum of the same array."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import (segcumsum, segcumsum_plain,
+                                                 segment_boundaries)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = K3_N
+    rows = []
+    for label, avg, dt in K3_CASES:
+        dtype = getattr(torch, dt)
+        v = torch.randn(n, generator=gen, device=dev, dtype=dtype)
+        if avg == 1:
+            ids = torch.arange(n, device=dev, dtype=torch.int32)
+        else:
+            ids = torch.sort(torch.randint(0, n // avg, (n,), generator=gen,
+                                           device=dev)).values.int()
+        row = {'case': label, 'n': n, 'dtype': dt,
+               'max_segment': int(torch.bincount(ids).max())}
+        for by, kw in (('ids', dict(segment_ids=ids)),
+                       ('mask', dict(boundaries=segment_boundaries(ids)))):
+            e = check_k3(torch, f'{label}, {by}', v, kw)
+            errs['segcumsum'] = max(errs['segcumsum'], e)
+            ms, _ = device_ms(torch, lambda: segcumsum(v, **kw), 20)
+            nbytes = k3_bytes(n, v.element_size(), by)
+            row[f'{by}_ms'] = ms
+            row[f'{by}_GB_per_s'] = nbytes / ms / 1e6
+            row[f'{by}_bound_ms'] = 1e3 * nbytes / PEAK_BYTES
+            row[f'{by}_max_abs_err'] = e
+        row['plain_ms'], _ = device_ms(
+            torch, lambda: segcumsum_plain(v, ids), 2, 2)
+        row['torch_cumsum_ms'], _ = device_ms(
+            torch, lambda: torch.cumsum(v, 0), 20)
+        rows.append(row)
+        del v, ids
+        print('K3: ' + json.dumps(row), flush=True)
+    return rows
+
+
+def capture_k3_calls(run, cotangents=False):
+    """Run `run()` with the CSR path's K3 entry point
+    (`fsw_gnn_tpu_torch.embedding.segcumsum`) wrapped; return one record
+    per call: detached copies of its values and mask and, with
+    `cotangents`, of the cotangent its output receives in the backward."""
+    from fsw_gnn_tpu_torch import embedding
+    real = embedding.segcumsum
+    calls = []
+
+    def spy(values, segment_ids=None, *, boundaries=None,
+            max_seg_size=None):
+        out = real(values, segment_ids, boundaries=boundaries,
+                   max_seg_size=max_seg_size)
+        rec = {'values': values.detach().clone(), 'mask': boundaries}
+        if cotangents and out.requires_grad:
+            out.register_hook(lambda g: rec.__setitem__('cotangent',
+                                                        g.detach().clone()))
+        calls.append(rec)
+        return out
+    embedding.segcumsum = spy
+    try:
+        run()
+    finally:
+        embedding.segcumsum = real
+    return calls
+
+
+def check_dyadic_conv(torch, T, dev, label, ei, n, X, cpu_model, graph_of,
+                      weight_grad=False):
+    """Forward and backward of an FSWConv on a CSR graph on the card and on
+    the CPU, from the same parameters, X and the slice vectors on the
+    dyadic grid; outputs and gradients within 1e-4 of each scale (and the
+    edge weights' gradient with `weight_grad`).  Returns the K3 launches
+    on the card and the largest error relative to a scale."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum
+    with torch.no_grad():
+        X, Vq = dyadic(X, cpu_model.fsw_embed.proj_vecs.t())
+        cpu_model.fsw_embed.proj_vecs.copy_(Vq.t())
+    model = copy.deepcopy(cpu_model).to(dev)
+    res = []
+    for m, d in ((model, dev), (cpu_model, torch.device('cpu'))):
+        g = graph_of().to(d)
+        if weight_grad:
+            g.weight = g.weight.clone().requires_grad_(True)
+        segcumsum.launches = 0
+        out = m(X.to(d), g)
+        ((out * out).sum() / n).backward()
+        if d.type == 'cuda':
+            torch.cuda.synchronize()
+        res.append(([out] + ([g.weight.grad] if weight_grad else []),
+                    segcumsum.launches))
+    err = {}
+    for i, (a, b) in enumerate(zip(res[0][0], res[1][0])):
+        err['out' if i == 0 else 'grad_weight'] = close_to_cpu(
+            torch, f'{label}: output' if i == 0 else f'{label}: gradient of '
+            f'the edge weights', a, b, GRAD_RTOL, SERVE_ATOL_REL)
+    for (k, p), q in zip(cpu_model.named_parameters(), model.parameters()):
+        err[k] = close_to_cpu(torch, f'{label}: gradient of {k}', q.grad,
+                              p.grad, GRAD_RTOL, GRAD_ATOL_REL)
+    return res[0][1], max(err.values())
+
+
+def csr_conv_phase(torch, T, dev, counts, errs):
+    """Phases 12 and 13: the bench FSWConv on the bench graph as a CSR
+    Graph: K3 once a forward, held against its plain version on the
+    captured call; forward and forward + backward timed beside the `multi`
+    layout; output and gradients against the CPU on an 8192-node graph of
+    in-degree 16; then one gradient of the edge weights (K3's backward)
+    against the plain version.  Returns K3's entry fields."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum, segcumsum_plain
+    cpu_model, X, graph = bench_setup(torch, T, csr=True)
+    model = copy.deepcopy(cpu_model).to(dev)
+    Xd, gd = X.to(dev), graph.to(dev)
+    md = T.to_multi_table(graph).to(dev)
+    S, E = model.embed_cfg.nSlices, graph.padded_num_edges
+    with torch.no_grad():
+        calls = capture_k3_calls(lambda: model(Xd, gd))
+    if len(calls) != 1 or calls[0]['values'].shape != (S * E,):
+        fail(f'CSR conv: K3 calls {[c["values"].shape for c in calls]}, '
+             f'expected one of {S} x {E}')
+    vals, mask = calls[0]['values'], calls[0]['mask']
+    e = check_k3(torch, 'CSR conv, captured', vals, dict(boundaries=mask))
+    errs['segcumsum'] = max(errs['segcumsum'], e)
+
+    def loss_of(out):
+        return (out * out).sum() / N_NODES
+    segcumsum.launches = 0
+    loss_of(model(Xd, gd)).backward()
+    torch.cuda.synchronize()
+    if segcumsum.launches != 1:
+        fail(f'CSR conv: K3 launched {segcumsum.launches} times in one '
+             f'forward and backward, expected 1')
+    counts['segcumsum'] += segcumsum.launches
+
+    t = {}
+    with torch.no_grad():
+        t['k3_ms'], _ = device_ms(
+            torch, lambda: segcumsum(vals, boundaries=mask), 20)
+        t['k3_plain_ms'], _ = device_ms(
+            torch, lambda: segcumsum_plain(vals, boundaries=mask), 2, 2)
+        t['torch_cumsum_ms'], _ = device_ms(
+            torch, lambda: torch.cumsum(vals, 0), 20)
+        for name, lay in (('csr', gd), ('multi', md)):
+            t[f'{name}_forward_ms'], t[f'{name}_forward_host_ms'] = \
+                device_ms(torch, lambda: model(Xd, lay), 5)
+
+    for name, lay in (('csr', gd), ('multi', md)):
+        def fwd_bwd():
+            model.zero_grad(set_to_none=True)
+            loss_of(model(Xd, lay)).backward()
+        t[f'{name}_fwd_bwd_ms'], _ = device_ms(torch, fwd_bwd, 3)
+    with torch.no_grad():
+        t['csr_forward_busy_ms'], t['csr_forward_top'] = traced_top_kernels(
+            torch, lambda: model(Xd, gd), 5)
+
+    def fwd_bwd_csr():
+        model.zero_grad(set_to_none=True)
+        loss_of(model(Xd, gd)).backward()
+    t['csr_fwd_bwd_busy_ms'], t['csr_fwd_bwd_top'] = traced_top_kernels(
+        torch, fwd_bwd_csr, 3)
+    e_real = graph.num_edges
+    for name in ('csr', 'multi'):
+        t[f'{name}_fwd_edges_per_s'] = e_real / (t[f'{name}_forward_ms']
+                                                 * 1e-3)
+        t[f'{name}_fwd_bwd_edges_per_s'] = e_real / (
+            t[f'{name}_fwd_bwd_ms'] * 1e-3)
+    t['k3_bound_ms'] = 1e3 * k3_bytes(S * E, 4, 'mask') / PEAK_BYTES
+
+    # the CPU check: a graph of the same size whose in-degrees are all 16
+    ei = regular_graph(3, N_NODES, CSR_CHECK_DEG)
+    Xc = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (N_NODES, D_IN)).astype(np.float32))
+    n_k3, cpu_err = check_dyadic_conv(
+        torch, T, dev, 'CSR conv', ei, N_NODES, Xc,
+        T.FSWConv(D_IN, D_OUT, mlp_layers=3, minimize_slice_coherence=False,
+                  device='cpu', generator=torch.Generator().manual_seed(0)),
+        lambda: T.from_edge_index(ei, N_NODES), weight_grad=True)
+    if n_k3 != 2:
+        fail(f'CSR conv: K3 launched {n_k3} times with the edge weights\' '
+             f'gradient, expected 2')
+    counts['segcumsum'] += n_k3
+
+    # 13. K3's backward on the bench graph: one gradient of the edge weights
+    gw = graph.to(dev)
+    gw.weight = gw.weight.clone().requires_grad_(True)
+    segcumsum.launches = 0
+    calls = capture_k3_calls(lambda: loss_of(model(Xd, gw)).backward(),
+                             cotangents=True)
+    torch.cuda.synchronize()
+    if segcumsum.launches != 2 or 'cotangent' not in calls[0]:
+        fail(f'K3 backward: {segcumsum.launches} launches, expected 2')
+    counts['segcumsum'] += segcumsum.launches
+    e_b = check_k3_bwd(torch, 'backward, bench graph', calls[0]['values'],
+                       calls[0]['mask'], calls[0]['cotangent'])
+    errs['segcumsum'] = max(errs['segcumsum'], e_b)
+    if not bool(torch.isfinite(gw.weight.grad).all()):
+        fail('K3 backward: the edge weights\' gradient is not finite')
+    res = {'nodes': N_NODES, 'edges': e_real, 'padded_edges': E,
+           'slices': S, 'k3_elements': S * E, 'k3_max_abs_err': e,
+           'k3_backward_max_abs_err': e_b,
+           'cpu_check_in_degree': CSR_CHECK_DEG,
+           'cpu_max_rel_err': cpu_err, **t}
+    print('CSR conv: ' + json.dumps(res), flush=True)
+    del calls, gw
+    return t
+
+
+def classifier_batch(seed, n_graphs, npg):
+    """Disjoint graphs of npg nodes in one node space: class c's graphs
+    give every node in-degree CLS_DEGS[c] (sparse against dense, as
+    tests/test_graph_classifier.py); X ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    ei = np.concatenate([regular_graph(seed + g, npg, CLS_DEGS[g % 2],
+                                       offset=g * npg)
+                         for g in range(n_graphs)], axis=1)
+    gi = np.repeat(np.arange(n_graphs), npg)
+    X = rng.standard_normal((n_graphs * npg, D_IN)).astype(np.float32)
+    return ei, gi, X, np.arange(n_graphs) % 2
+
+
+def classifier_phase(torch, T, dev, counts):
+    """Phase 14: FSWGraphClassifier(64, (64, 64), 2, mlp_layers=3) on 256
+    graphs of 64 nodes, the conv stack on the CSR Graph and the readout on
+    `readout_graph`: logits against the CPU (float32); the first step's
+    gradients against the CPU with both in float64 (float32 projections
+    computed in another order swap near-ties between the card and the
+    CPU, and the gradient jumps at a swap); 5 Adam steps with the loss
+    falling."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum
+    F = torch.nn.functional
+    ei, gi, X, y = classifier_batch(5, CLS_GRAPHS, CLS_NODES)
+    n = X.shape[0]
+    cpu_model = T.FSWGraphClassifier(
+        D_IN, (D_IN, D_OUT), 2, mlp_layers=3, minimize_slice_coherence=False,
+        device='cpu', generator=torch.Generator().manual_seed(0))
+    model = copy.deepcopy(cpu_model).to(dev)
+    Xt, yt = torch.from_numpy(X), torch.from_numpy(y)
+    Xd, yd = Xt.to(dev), yt.to(dev)
+
+    def graphs(dtype, d):
+        return (T.from_edge_index(ei, n, dtype=dtype).to(d),
+                T.readout_graph(gi, n, CLS_GRAPHS, dtype=dtype).to(d))
+    gd, pd = graphs(np.float32, dev)
+    segcumsum.launches = 0
+    with torch.no_grad():
+        logits = model(Xd, gd, pd)
+        want = cpu_model(Xt, *graphs(np.float32, 'cpu'))
+    err = {'logits': close_to_cpu(torch, 'classifier: logits', logits, want,
+                                  GRAD_RTOL, SERVE_ATOL_REL)}
+    # first-step gradients, float64 on both sides
+    m64c = copy.deepcopy(cpu_model).double()
+    m64d = copy.deepcopy(m64c).to(dev)
+    for m, d in ((m64d, dev), (m64c, torch.device('cpu'))):
+        F.cross_entropy(m(Xt.double().to(d), *graphs(np.float64, d)),
+                        yt.to(d)).backward()
+    for (k, p), q in zip(m64c.named_parameters(), m64d.parameters()):
+        err[k] = close_to_cpu(torch, f'classifier: gradient of {k}', q.grad,
+                              p.grad, GRAD_RTOL, GRAD_ATOL_REL)
+    del m64c, m64d
+    opt = torch.optim.Adam(model.parameters(), lr=CLS_LR)
+    losses = []
+    for _ in range(CLS_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(model(Xd, gd, pd), yd)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    losses = torch.stack(losses).cpu().numpy()
+    # 3 K3 calls a forward (two convs, the readout), float32 and float64
+    n_k3, want_k3 = segcumsum.launches, 3 * (1 + 1 + CLS_STEPS)
+    if n_k3 != want_k3:
+        fail(f'classifier: K3 launched {n_k3} times, expected {want_k3}')
+    counts['segcumsum'] += n_k3
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f'classifier: loss not finite and falling: {losses}')
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        F.cross_entropy(model(Xd, gd, pd), yd).backward()
+        opt.step()
+    step_ms, step_host_ms = device_ms(torch, step, 3)
+    res = {'graphs': CLS_GRAPHS, 'nodes': n, 'edges': int(ei.shape[1]),
+           'launches_k3': n_k3, 'losses': losses.tolist(),
+           'step_device_ms': step_ms, 'step_host_ms': step_host_ms,
+           'cpu_max_rel_err': err}
+    print('classifier: ' + json.dumps(res), flush=True)
+
+
+def csr_hub_graph(seed, n, hub_in, deg):
+    """Node 0 receives `hub_in` edges from nodes 1 .. hub_in, every other
+    node `deg` edges (`regular_graph`): one degree above auto_layout's
+    max_bucket, every normalized weight a power of two."""
+    ei = regular_graph(seed, n, deg)
+    ei = ei[:, ei[1] != 0]
+    hub = np.stack([np.arange(1, hub_in + 1), np.zeros(hub_in, np.int64)])
+    return np.concatenate([ei, hub], axis=1)
+
+
+def csr_hub_phase(torch, T, dev, counts):
+    """Phase 15: FSWConv(64, 64, mlp_layers=3) on a 16384-node graph whose
+    node 0 has 8192 in-edges: `auto_layout` keeps the CSR Graph; forward
+    and backward against the CPU."""
+    ei = csr_hub_graph(6, CSR_HUB_NODES, CSR_HUB_IN, CSR_HUB_DEG)
+    g = T.from_edge_index(ei, CSR_HUB_NODES)
+    if not isinstance(T.auto_layout(g), T.Graph):
+        fail('CSR hub: auto_layout did not keep the CSR Graph')
+    X = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (CSR_HUB_NODES, D_IN)).astype(np.float32))
+    cpu_model = T.FSWConv(D_IN, D_OUT, mlp_layers=3,
+                          minimize_slice_coherence=False, device='cpu',
+                          generator=torch.Generator().manual_seed(0))
+    n_k3, err = check_dyadic_conv(
+        torch, T, dev, 'CSR hub', ei, CSR_HUB_NODES, X, cpu_model,
+        lambda: T.auto_layout(T.from_edge_index(ei, CSR_HUB_NODES)))
+    if n_k3 != 1:
+        fail(f'CSR hub: K3 launched {n_k3} times, expected 1')
+    counts['segcumsum'] += n_k3
+    print('CSR hub: ' + json.dumps({
+        'nodes': CSR_HUB_NODES, 'edges': int(ei.shape[1]),
+        'hub_in_degree': CSR_HUB_IN, 'launches_k3': n_k3,
+        'cpu_max_rel_err': err}), flush=True)
+
+
+def csr_request(seed, n, hub_in=0, duplicate=False):
+    """A request of n nodes, every in-degree 16 (`regular_graph`), X ~
+    N(0, 1); `hub_in` > 0 gives node 0 that many in-edges instead,
+    `duplicate` repeats one edge of node 5 in place of another (weights
+    2/16 and 1/16: still exact sums)."""
+    ei = regular_graph(seed, n, CSR_CHECK_DEG)
+    if hub_in:
+        ei = ei[:, ei[1] != 0]
+        ei = np.concatenate([ei, np.stack([np.arange(1, hub_in + 1),
+                                           np.zeros(hub_in, np.int64)])], 1)
+    if duplicate:
+        into5 = np.nonzero(ei[1] == 5)[0]
+        ei[0, into5[1]] = ei[0, into5[0]]
+    X = np.random.default_rng(seed).standard_normal((n, D_IN))
+    return ei, X.astype(np.float32)
+
+
+def csr_server_phase(torch, T, dev, model, counts):
+    """Phase 16: the bench FSWConv behind a GraphServer without classes
+    (every request through the CSR Graph), 20 requests of 4096 to 8192
+    nodes; a classes server (phase 3's envelope, assume_uniform_w) gets a
+    2048-node hub request (counted in `fallbacks`) and a 2048-node
+    duplicate-edge request (counted in `uniform_w_fallbacks`): at that
+    size every in-degree-16 row fits the envelope's class rows.  Outputs
+    against the same servers on the CPU, K3 launched once a CSR request."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum
+    server = T.GraphServer(model, N_NODES, MAX_EDGES, device=dev)
+    cpu_server = T.GraphServer(copy.deepcopy(model), N_NODES, MAX_EDGES,
+                               device='cpu')
+    server.warmup(D_IN)
+    sizes = np.random.default_rng(8).integers(MIN_NODES, N_NODES + 1,
+                                              CSR_REQUESTS)
+    sizes[0] = N_NODES
+    reqs = [csr_request(30 + i, int(n)) for i, n in enumerate(sizes)]
+    half = CSR_REQUESTS // 2
+    segcumsum.launches = 0
+    latencies, outs = [], []
+    for ei, X in reqs[:half]:
+        t0 = time.perf_counter()
+        outs.append(server.predict(ei, X))
+        latencies.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    outs += server.predict_many(reqs[half:], window=WINDOW)
+    t_many = time.perf_counter() - t0
+    n_k3 = segcumsum.launches
+    if n_k3 != CSR_REQUESTS:
+        fail(f'CSR server: K3 launched {n_k3} times for {CSR_REQUESTS} '
+             f'requests')
+    for (ei, X), out in zip(reqs, outs):
+        if out.shape != (X.shape[0], D_OUT) or not np.isfinite(out).all():
+            fail(f'CSR server: bad output for a {X.shape[0]}-node request')
+    err = {'request_0': close_to_cpu(
+        torch, 'CSR server: request 0', torch.from_numpy(outs[0]),
+        torch.from_numpy(cpu_server.predict(*reqs[0])), GRAD_RTOL,
+        SERVE_ATOL_REL)}
+
+    ref_ei, _ = simple_graph(0, N_NODES)
+    classes, class_rows = T.multi_envelope(
+        T.from_edge_index(ref_ei, N_NODES), N_NODES)
+    env = dict(classes=classes, class_rows=class_rows, assume_uniform_w=True)
+    cls_server = T.GraphServer(model, N_NODES, MAX_EDGES, device=dev, **env)
+    cls_cpu = T.GraphServer(copy.deepcopy(model), N_NODES, MAX_EDGES,
+                            device='cpu', **env)
+    for label, req, counter in (
+            ('hub', csr_request(60, CSR_CLASSES_NODES,
+                                hub_in=CSR_SERVE_HUB_IN), 'fallbacks'),
+            ('duplicate edge', csr_request(61, CSR_CLASSES_NODES,
+                                           duplicate=True),
+             'uniform_w_fallbacks')):
+        segcumsum.launches = 0
+        got = cls_server.predict(*req)
+        torch.cuda.synchronize()
+        if (getattr(cls_server, counter), segcumsum.launches) != (1, 1):
+            fail(f'CSR server, {label}: {counter} '
+                 f'{getattr(cls_server, counter)}, K3 launched '
+                 f'{segcumsum.launches} times; expected 1 and 1')
+        n_k3 += 1
+        err[label] = close_to_cpu(torch, f'CSR server, {label}',
+                                  torch.from_numpy(got),
+                                  torch.from_numpy(cls_cpu.predict(*req)),
+                                  GRAD_RTOL, SERVE_ATOL_REL)
+    if (cls_server.fallbacks, cls_server.uniform_w_fallbacks) != (1, 1):
+        fail('CSR server: the fallback counters moved twice')
+    counts['segcumsum'] += n_k3
+    res = {'requests': CSR_REQUESTS, 'launches_k3': n_k3,
+           'p50_latency_ms': 1e3 * float(np.median(latencies)),
+           'predict_edges_per_s': (sum(ei.shape[1] for ei, _ in reqs[:half])
+                                   / sum(latencies)),
+           'predict_many_edges_per_s': (sum(ei.shape[1]
+                                            for ei, _ in reqs[half:])
+                                        / t_many),
+           'cpu_max_rel_err': err}
+    print('CSR server: ' + json.dumps(res), flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1279,7 +1838,15 @@ def main():
     table_k2_phase(torch, T, dev, counts, errs)
     hub_phase(torch, T, dev, counts)
 
-    # ---- 11. kernels line, 12. last line ------------------------------------
+    # ---- 11. K3 alone, 12.-13. the CSR conv and K3's backward, 14. the
+    # graph classifier, 15. the CSR hub, 16. the server's CSR route ---------
+    k3_phase(torch, dev, errs)
+    k3 = csr_conv_phase(torch, T, dev, counts, errs)
+    classifier_phase(torch, T, dev, counts)
+    csr_hub_phase(torch, T, dev, counts)
+    csr_server_phase(torch, T, dev, model, counts)
+
+    # ---- 17. kernels line, 18. last line ------------------------------------
     src = 'fsw_gnn_tpu_torch/csrc/'
     pallas = 'fsw_gnn_tpu/ops/fsw_rank_pallas.py:'
     line = {'kernels': [
@@ -1305,6 +1872,14 @@ def main():
          'max_abs_err': errs['fsw_rank_bwd'],
          'ms': k2['k2b_ms'], 'plain_ms': k2['k2b_plain_ms'],
          'bound_ms': k2['k2b_bound_ms'], 'bound_by': k2['k2b_bound_by'],
+         'library_ms': None},
+        {'name': 'segcumsum', 'route': 'cuda',
+         'source': src + 'segcumsum.cu',
+         'replaces': 'fsw_gnn_tpu/ops/segcumsum_pallas.py:274',
+         'replaces_mask_body': 'fsw_gnn_tpu/ops/segcumsum_pallas.py:200',
+         'launches': counts['segcumsum'], 'max_abs_err': errs['segcumsum'],
+         'ms': k3['k3_ms'], 'plain_ms': k3['k3_plain_ms'],
+         'bound_ms': k3['k3_bound_ms'], 'bound_by': 'bytes',
          'library_ms': None}]}
     if not all(k['launches'] > 0 for k in line['kernels']):
         fail(f'a kernel was not launched on its path: {counts}')

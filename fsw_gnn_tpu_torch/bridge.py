@@ -1,13 +1,13 @@
-"""Carry the JAX package's FSWEmbedding, FSWConv or FSWGNN variables into
-the port.
+"""Carry the JAX package's FSWEmbedding, FSWConv, FSWReadout, FSWGNN or
+FSWGraphClassifier variables into the port.
 
 The JAX package keeps a module's variables in collections: 'params'
 (learnable), 'fsw_fixed' (non-learnable embedding parameters) and
 'batch_stats' (BatchNorm running statistics).  Given them as nested dicts
-of numpy arrays, `fswconv_from_jax` / `fswgnn_from_jax` build the port
-module with the same constructor arguments and copy every array in
-(`fswembedding_from_jax` takes the embedding's `FSWConfig`).  Flax
-`Dense.kernel` (in, out) becomes `Linear.weight` (out, in).
+of numpy arrays, each `*_from_jax` builds the port module with the same
+constructor arguments and copies every array in (`fswembedding_from_jax`
+takes the embedding's `FSWConfig`).  Flax `Dense.kernel` (in, out)
+becomes `Linear.weight` (out, in).
 
 This is how the tests make the two packages compute the same function:
 their random initializers draw different numbers from the same seed.
@@ -20,10 +20,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .conv import FSWConv
+from .conv import FSWConv, FSWReadout
 from .device import resolve_device
 from .embedding import FSWConfig
-from .models.gnn import FSWGNN
+from .models.gnn import FSWGNN, FSWGraphClassifier
 from .modules import FSWEmbedding
 
 
@@ -130,6 +130,12 @@ def fswconv_from_jax(variables: Mapping, *, device=None, dtype=torch.float32,
     return conv.to(device)
 
 
+def _gnn_targets(gnn: FSWGNN, prefix=()) -> dict:
+    return {prefix + (f'conv_{i}',) + path: t
+            for i, conv in enumerate(gnn.convs)
+            for path, t in _targets(conv).items()}
+
+
 def fswgnn_from_jax(variables: Mapping, *, device=None, dtype=torch.float32,
                     **gnn_kwargs) -> FSWGNN:
     """A port FSWGNN on `device` (None: the card) holding the JAX FSWGNN's
@@ -140,9 +146,37 @@ def fswgnn_from_jax(variables: Mapping, *, device=None, dtype=torch.float32,
     device = resolve_device(device)
     gnn_kwargs = dict(gnn_kwargs, minimize_slice_coherence=False)
     gnn = FSWGNN(dtype=dtype, device='cpu', **gnn_kwargs)
-    targets = {}
-    for i, conv in enumerate(gnn.convs):
-        for path, t in _targets(conv).items():
-            targets[(f'conv_{i}',) + path] = t
-    _load(targets, _collections(variables))
+    _load(_gnn_targets(gnn), _collections(variables))
     return gnn.to(device)
+
+
+def fswreadout_from_jax(variables: Mapping, *, device=None,
+                        dtype=torch.float32, **readout_kwargs) -> FSWReadout:
+    """A port FSWReadout on `device` (None: the card) holding the JAX
+    FSWReadout's variables, which have FSWConv's structure; as
+    `fswconv_from_jax`."""
+    device = resolve_device(device)
+    readout_kwargs = dict(readout_kwargs, minimize_slice_coherence=False)
+    readout = FSWReadout(dtype=dtype, device='cpu', **readout_kwargs)
+    _load(_targets(readout), _collections(variables))
+    return readout.to(device)
+
+
+def fswgraphclassifier_from_jax(variables: Mapping, *, device=None,
+                                dtype=torch.float32,
+                                **model_kwargs) -> FSWGraphClassifier:
+    """A port FSWGraphClassifier on `device` (None: the card) holding the
+    JAX model's variables: 'gnn' as `fswgnn_from_jax` places it, 'readout'
+    as `fswreadout_from_jax`, and the 'cls_head' Dense.  `model_kwargs`
+    are the JAX module's constructor arguments (minimize_slice_coherence
+    is set False, as there)."""
+    device = resolve_device(device)
+    model_kwargs = dict(model_kwargs, minimize_slice_coherence=False)
+    model = FSWGraphClassifier(dtype=dtype, device='cpu', **model_kwargs)
+    targets = _gnn_targets(model.gnn, ('gnn',))
+    targets.update({('readout',) + path: t
+                    for path, t in _targets(model.readout).items()})
+    targets[('cls_head', 'kernel')] = (model.cls_head.weight, True)
+    targets[('cls_head', 'bias')] = (model.cls_head.bias, False)
+    _load(targets, _collections(variables))
+    return model.to(device)

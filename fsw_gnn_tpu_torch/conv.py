@@ -1,6 +1,7 @@
-"""The FSW graph convolution as a torch `nn.Module`.
+"""The FSW graph convolution and readout as torch `nn.Module`s.
 
-Counterpart of `FSWConv` in `fsw_gnn_tpu/conv.py`, with the same defaults:
+Counterpart of `FSWConv` and `FSWReadout` in `fsw_gnn_tpu/conv.py`, with
+the same defaults:
   * embed_dim = 2 * max(in, out) unless mlp_layers == 0 and not
     concat_self, which forces embed_dim = out_channels;
   * mlp_hidden_dim = max(in, out);
@@ -12,8 +13,9 @@ Counterpart of `FSWConv` in `fsw_gnn_tpu/conv.py`, with the same defaults:
   * BatchNorm in train mode is flax's (`FlaxBatchNorm`);
   * Dropout draws its mask from the `generator` the caller passes to
     `forward` (it cannot match JAX's random stream).
-The convolution consumes a prebuilt NeighborTable or MultiTable.  Train
-and eval mode are torch's (`module.train()` / `.eval()`).
+The convolution consumes a prebuilt CSR Graph, NeighborTable or
+MultiTable.  Train and eval mode are torch's (`module.train()` /
+`.eval()`).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from torch import nn
 from .device import resolve_device
 from .embedding import FSWConfig
 from .modules import FSWEmbedding
-from .registry import register_layer
+from .registry import register_layer, register_pooling
 
 
 def leaky_relu_02(x):
@@ -162,13 +164,17 @@ class _MLPHead(nn.Module):
 
 @register_layer('fsw_conv')
 class FSWConv(nn.Module):
-    """FSW message-passing layer over a NeighborTable or MultiTable.
+    """FSW message-passing layer over a CSR Graph, NeighborTable or
+    MultiTable.
 
     Call `conv(vertex_features, graph)` with vertex_features
-    (N, in_channels) and a table whose recipients are the N nodes.  Edge
-    features (edgefeat_dim > 0) ride in the tables' `edge_feat`.
+    (N, in_channels) and a layout whose recipients are the N nodes.  Edge
+    features (edgefeat_dim > 0) ride in the layout's `edge_feat`.
     Parameters are drawn from `generator` (a fresh one seeded 0 when None)
     and placed on `device` (None: the card)."""
+
+    # concat_self appends the recipients' own features to the embedding
+    _self_features = True
 
     def __init__(self, in_channels: int, out_channels: int,
                  edgefeat_dim: int = 0,
@@ -229,7 +235,8 @@ class FSWConv(nn.Module):
         )
         self.fsw_embed = FSWEmbedding(self.embed_cfg, dtype=dtype,
                                       device='cpu', generator=gen)
-        head_in = embed_dim + (in_channels if concat_self else 0)
+        head_in = embed_dim + (in_channels if concat_self
+                               and self._self_features else 0)
         self.head = _MLPHead(
             in_dim=head_in, out_channels=out_channels,
             mlp_layers=mlp_layers,
@@ -273,4 +280,34 @@ class FSWConv(nn.Module):
                           else recipient_features)
             emb = torch.cat([self.message_weight_vs_self * emb, self_feats],
                             dim=-1)
+        return self.head(emb, generator)
+
+
+@register_pooling('fsw_readout')
+class FSWReadout(FSWConv):
+    """Global graph pooling as a bipartite FSW aggregation.
+
+    Call `readout(vertex_features, pool_graph)` where `pool_graph` comes
+    from `graph.readout_graph(graph_index, num_vertices, batch_size)`: an
+    edge of weight 1 from every vertex to its graph's node.  Returns
+    (batch_size, out_channels).  The recipients are graph nodes with no
+    features of their own, so concat_self only sizes the embedding (as in
+    the JAX package); edgefeat_dim must be 0."""
+
+    _self_features = False
+
+    def __init__(self, in_channels: int, out_channels: int, **kwargs):
+        if kwargs.get('edgefeat_dim', 0) != 0:
+            raise ValueError('edgefeat_dim must be 0 in a global readout '
+                             'layer')
+        super().__init__(in_channels, out_channels, **kwargs)
+
+    def forward(self, vertex_features, graph, *, slice_chunk=None,
+                aggregate: str = 'auto',
+                generator: Optional[torch.Generator] = None):
+        """vertex_features (num_vertices, d_in); `generator` draws the
+        dropout masks in train mode."""
+        emb = self.fsw_embed(vertex_features, graph=graph,
+                             slice_chunk=slice_chunk, aggregate=aggregate,
+                             weights_grad=False)
         return self.head(emb, generator)

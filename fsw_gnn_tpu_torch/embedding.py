@@ -1,7 +1,7 @@
-"""Fourier Sliced-Wasserstein embedding: the table, multiset and dense
-graph paths.
+"""Fourier Sliced-Wasserstein embedding: the CSR graph, table, multiset and
+dense graph paths.
 
-Counterpart of `fsw_gnn_tpu/embedding.py` (its CSR path is not ported).
+Counterpart of `fsw_gnn_tpu/embedding.py`.
 The embedding of a weighted neighborhood or multiset {(x_j, w_j)} for
 slice vector v and frequency f is
 
@@ -30,6 +30,11 @@ the JAX package measured on its own hardware are not carried over; the
 width cap is the widest it ever routes to its rank kernels.  On an H100
 the unfused pair's forward and backward with weight gradients beat the
 sort route at n = 100 and at the cap (`chip_smoke.py`'s multiset phase).
+
+The CSR graph path (`fsw_embed_graph`) sorts every slice's projections
+within each recipient's segment and takes c with the segmented cumsum,
+kernel K3 on the card (ops/segcumsum.py), over all slices of a chunk in
+one call.
 """
 from __future__ import annotations
 
@@ -39,7 +44,10 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from .graph import Graph
 from .ops.fsw_rank import fsw_rank_aggregate, fsw_rank_aggregate_proj
+from .ops.segcumsum import segcumsum, segment_boundaries
+from .ops.segment import segment_argsort, segment_sum
 
 # the widest bucket the JAX package routes to its rank kernels (its
 # `RANK_AGGREGATE_MAX_BUCKET_NO_DW`): the kernels hold a whole row in a
@@ -487,3 +495,103 @@ def fsw_embed_graph_dense(X, W, projVecs, freqs, cfg: FSWConfig,
 
     emb = _chunked(slices_block, projVecs, freqs, cfg, slice_chunk)
     return _finalize(emb, w_sum, cfg, bias, total_mass_scale)
+
+
+def graph_weights(graph, cfg: FSWConfig):
+    """(w_sum (R,), wn (E,), pad_norm_e (E,)) of a CSR graph on X's device:
+    each recipient's total mass, the edge weights normalized by their
+    recipient's max(total, thresh), and the recipient's phantom mass per
+    edge."""
+    w_sum = segment_sum(graph.weight, graph.dst, graph.num_recipients)
+    w_sum_padded = lowclamp(w_sum, cfg.total_mass_pad_thresh)
+    pad_norm = lowclamp(cfg.total_mass_pad_thresh - w_sum, 0.0) / w_sum_padded
+    return w_sum, graph.weight / w_sum_padded[graph.dst], pad_norm[graph.dst]
+
+
+def fsw_embed_graph(X, graph, projVecs, freqs, cfg: FSWConfig,
+                    bias=None, total_mass_scale=None,
+                    slice_chunk: Optional[int] = None):
+    """Embed every recipient's in-neighborhood of a CSR `Graph` (moved to
+    X's device when needed).
+
+    X (num_nodes, d_in).  Returns (num_recipients, d_out) (or (R, nSlices,
+    nFreqs) in non-collapsed cartesian mode).  `slice_chunk` bounds the
+    slice width processed at once.
+
+    Where the JAX package maps one slice at a time, a chunk of S_b slices
+    goes at once: the projections are laid out as (S_b, E), each row
+    sorted within the segments (recipients), and the cumsum of the sorted
+    weights is one K3 call over the S_b * E elements, its segments given
+    by the graph's E-long is_end mask repeated S_b times (sorting within a
+    segment leaves every edge in its segment).  Padded edges (weight 0,
+    sender 0, recipient R - 1) contribute exactly 0."""
+    graph = graph.to(X.device)
+    dt = X.dtype
+    R = graph.num_recipients
+    E = graph.padded_num_edges
+    dst = graph.dst
+    w_sum, wn, pad_e = graph_weights(graph, cfg)
+    is_end = segment_boundaries(dst)
+    if cfg.d_edge > 0 and graph.edge_feat is None:
+        raise ValueError('the graph has no edge features')
+
+    def slices_block(V_block, f_block):
+        """V_block (S_b, d_in + d_edge); f_block (S_b,) or (F,)."""
+        S_b = V_block.shape[0]
+        # projections laid out (S_b, E), each slice's row contiguous
+        keys = (V_block[:, :cfg.d_in] @ X.t()).index_select(1, graph.src)
+        if cfg.d_edge > 0:
+            keys = keys + V_block[:, cfg.d_in:] @ graph.edge_feat.to(dt).t()
+        order = segment_argsort(keys, dst)
+        ps = torch.gather(keys, 1, order)
+        ws = wn[order]
+        c = segcumsum(ws.reshape(-1).contiguous(),
+                      boundaries=is_end.repeat(S_b)).reshape(S_b, E)
+        c = c + pad_e * (ps > 0)
+        if cfg.cartesian_mode:
+            sd = _sinc_diff(ws[..., None], c[..., None], f_block)
+            terms = ps[..., None] * sd                          # (S_b, E, F)
+            out = terms.new_zeros((S_b, R) + terms.shape[2:]).index_add(
+                1, dst, terms)
+            return ((1.0 + f_block) * out).transpose(0, 1)      # (R, S_b, F)
+        terms = ps * _sinc_diff(ws, c, f_block[:, None])
+        out = terms.new_zeros((S_b, R)).index_add(1, dst, terms)
+        return ((1.0 + f_block)[:, None] * out).t()             # (R, S_b)
+
+    emb = _chunked(slices_block, projVecs, freqs, cfg, slice_chunk)
+    return _finalize(emb.to(dt), w_sum.to(dt), cfg, bias, total_mass_scale)
+
+
+def fsw_embed_graph_batched(X, graphs, projVecs, freqs, cfg: FSWConfig,
+                            bias=None, total_mass_scale=None,
+                            slice_chunk: Optional[int] = None):
+    """Embed a stack of G equally shaped CSR graphs (`graph.stack_graphs`:
+    every array with a leading G axis).  X (*batch, n, d_in) with the
+    batch dims multiplying out to G; returns (*batch, R, d_out).
+
+    The stack runs as one block-diagonal graph (node ids offset by g * n,
+    recipients by g * R), so every chunk of slices is still one K3 call."""
+    batch_shape = tuple(X.shape[:-2])
+    graphs = graphs.to(X.device)
+    G = graphs.src.shape[0]
+    if math.prod(batch_shape) != G:
+        raise ValueError(f'leading batch dims {batch_shape} must multiply '
+                         f'out to the stacked graph count {G}')
+    N, R = graphs.num_nodes, graphs.num_recipients
+    E = graphs.src.shape[1]
+    g = torch.arange(G, device=X.device)[:, None]
+    ef = graphs.edge_feat
+    row_ptr = torch.cat([(graphs.row_ptr[:, :-1] + g * E).reshape(-1),
+                         graphs.row_ptr.new_full((1,), G * E)])
+    flat = Graph(
+        src=(graphs.src + g * N).reshape(-1),
+        dst=(graphs.dst + g * R).reshape(-1),
+        weight=graphs.weight.reshape(-1), row_ptr=row_ptr,
+        in_degrees=graphs.in_degrees.reshape(-1),
+        edge_feat=None if ef is None else ef.reshape(G * E, -1),
+        num_nodes=G * N, num_recipients=G * R, num_edges=G * E)
+    out = fsw_embed_graph(X.reshape(G * N, X.shape[-1]), flat, projVecs,
+                          freqs, cfg, bias=bias,
+                          total_mass_scale=total_mass_scale,
+                          slice_chunk=slice_chunk)
+    return out.reshape(batch_shape + (R,) + tuple(out.shape[1:]))

@@ -405,16 +405,56 @@ def to_multi_table(graph: Graph, min_bucket: int = 8,
 def auto_layout(graph: Graph, max_bucket: int = 4096):
     """The layout the single-device path computes on, chosen as the JAX
     package's `auto_layout` chooses it: the degree-bucketed MultiTable, or
-    one NeighborTable when the graph has a single degree class.  A max
-    degree above `max_bucket` would take the CSR route, which is not
-    ported (item 7 in ROADMAP.md): that raises."""
+    one NeighborTable when the graph has a single degree class, and the
+    CSR `Graph` itself when its max degree exceeds `max_bucket`."""
     _, deg = _degrees(graph)
     max_deg = int(deg.max()) if graph.num_recipients > 0 else 0
     if max_deg > max_bucket:
-        raise NotImplementedError(
-            f'max degree {max_deg} > {max_bucket} takes the CSR route, '
-            f'which is not ported yet (item 7 in ROADMAP.md)')
+        return graph
     mt = to_multi_table(graph)
     if len(mt.tables) == 1:
         return to_neighbor_table(graph)
     return mt
+
+
+def stack_graphs(graphs) -> Graph:
+    """Stack equally shaped CSR `Graph`s into one Graph whose arrays carry
+    a leading G axis, for `embedding.fsw_embed_graph_batched`.  Every graph
+    must share the padded edge count (`pad_to=` in `from_edge_index`), the
+    node and recipient counts and the presence of edge features."""
+    g0 = graphs[0]
+    for g in graphs[1:]:
+        if (g.src.shape != g0.src.shape or g.num_nodes != g0.num_nodes
+                or g.num_recipients != g0.num_recipients
+                or (g.edge_feat is None) != (g0.edge_feat is None)):
+            raise ValueError('stacked graphs need equal padded shapes, node '
+                             'and recipient counts and edge features')
+
+    def stack(name):
+        return np.stack([np.asarray(getattr(g, name)) for g in graphs])
+    return Graph(
+        src=stack('src'), dst=stack('dst'), weight=stack('weight'),
+        row_ptr=stack('row_ptr'), in_degrees=stack('in_degrees'),
+        edge_feat=None if g0.edge_feat is None else stack('edge_feat'),
+        src_order=stack('src_order'), src_sorted=stack('src_sorted'),
+        num_nodes=g0.num_nodes, num_recipients=g0.num_recipients,
+        num_edges=max(g.num_edges for g in graphs))
+
+
+def readout_graph(graph_index, num_vertices: int,
+                  batch_size: Optional[int] = None, *,
+                  pad_multiple: int = 128, dtype=np.float32) -> Graph:
+    """Bipartite graph for global pooling: an edge of weight 1 from every
+    vertex to the node of its graph.  `graph_index` (num_vertices,) must be
+    non-decreasing; batch_size defaults to its max + 1."""
+    gi = np.asarray(graph_index, np.int64)
+    if gi.shape != (num_vertices,):
+        raise ValueError(f'graph_index has shape {gi.shape}, expected '
+                         f'({num_vertices},)')
+    if np.any(np.diff(gi) < 0):
+        raise ValueError('graph_index must be monotone non-decreasing')
+    batch_size = int(gi.max()) + 1 if batch_size is None else int(batch_size)
+    edge_index = np.stack([np.arange(num_vertices, dtype=np.int64), gi])
+    return from_edge_index(edge_index, num_nodes=num_vertices,
+                           num_recipients=batch_size,
+                           pad_multiple=pad_multiple, dtype=dtype)

@@ -1,1 +1,1 @@
-from .gnn import FSWGNN, gnn_layer_conv
+from .gnn import FSWGNN, FSWGraphClassifier, gnn_layer_conv

@@ -1,19 +1,21 @@
 """Stacked FSW-GNN models.
 
 Counterpart of `fsw_gnn_tpu/models/gnn.py` for one device: `FSWGNN`, an
-N-layer node classifier of `FSWConv`s.  The edge-partitioned exchanges
-(`gather_fn`, `proj_gather_fn`) and cross-shard BatchNorm belong to the
-distributed trainer (item 14 in ROADMAP.md); `FSWGraphClassifier` waits for
-`FSWReadout` (item 10).  Neither is ported yet.
+N-layer node classifier of `FSWConv`s, and `FSWGraphClassifier`, a conv
+stack with FSW readout pooling and a linear head.  The edge-partitioned
+exchanges (`gather_fn`, `proj_gather_fn`) and cross-shard BatchNorm belong
+to the distributed trainer (item 14 in ROADMAP.md), not ported yet.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import math
+
 import torch
 from torch import nn
 
-from ..conv import FSWConv, leaky_relu_02
+from ..conv import FSWConv, FSWReadout, leaky_relu_02
 from ..device import resolve_device
 
 _DIST_TODO = ('the edge-partitioned exchanges (gather_fn, proj_gather_fn, '
@@ -73,9 +75,9 @@ class FSWGNN(nn.Module):
     def forward(self, vertex_features, graph, *, gather_fn=None,
                 proj_gather_fn=None,
                 generator: Optional[torch.Generator] = None):
-        """vertex_features (N, in_channels); `graph` a NeighborTable or
-        MultiTable over the N nodes.  `generator` draws the dropout masks
-        in train mode.  Returns (N, hidden_dims[-1])."""
+        """vertex_features (N, in_channels); `graph` a CSR Graph,
+        NeighborTable or MultiTable over the N nodes.  `generator` draws
+        the dropout masks in train mode.  Returns (N, hidden_dims[-1])."""
         if gather_fn is not None or proj_gather_fn is not None:
             raise NotImplementedError(_DIST_TODO)
         x = vertex_features
@@ -109,3 +111,54 @@ def gnn_layer_conv(model: FSWGNN, i: int, *,
         dtype=model.dtype,
         device='cpu',
         generator=generator)
+
+
+class FSWGraphClassifier(nn.Module):
+    """Conv stack, FSW readout pooling and a linear classification head.
+
+    `gnn` is an FSWGNN over `hidden_dims`; `readout` an FSWReadout from
+    hidden_dims[-1] to readout_dim (default hidden_dims[-1]) with
+    concat_self off; `cls_head` a Linear to num_classes, initialized as
+    flax's Dense (LeCun-normal weights, zero bias).  Parameters are drawn
+    from `generator` (a fresh one seeded 0 when None) and placed on
+    `device` (None: the card)."""
+
+    def __init__(self, in_channels: int, hidden_dims: Sequence[int],
+                 num_classes: int, readout_dim: Optional[int] = None,
+                 minimize_slice_coherence: bool = True,
+                 mlp_layers: int = 1,
+                 dtype=torch.float32,
+                 device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        gen = generator if generator is not None else (
+            torch.Generator().manual_seed(0))
+        hidden_dims = tuple(hidden_dims)
+        rd = readout_dim or hidden_dims[-1]
+        self.gnn = FSWGNN(in_channels, hidden_dims,
+                          minimize_slice_coherence=minimize_slice_coherence,
+                          mlp_layers=mlp_layers, dtype=dtype, device='cpu',
+                          generator=gen)
+        self.readout = FSWReadout(
+            hidden_dims[-1], rd, concat_self=False,
+            minimize_slice_coherence=minimize_slice_coherence,
+            mlp_layers=mlp_layers, dtype=dtype, device='cpu', generator=gen)
+        self.cls_head = nn.Linear(rd, num_classes, dtype=dtype)
+        with torch.no_grad():
+            # flax's lecun_normal: a normal truncated at two standard
+            # deviations, scaled to variance 1 / fan_in
+            std = 1.0 / math.sqrt(rd) / 0.87962566103423978
+            nn.init.trunc_normal_(self.cls_head.weight, std=std,
+                                  a=-2.0 * std, b=2.0 * std, generator=gen)
+            self.cls_head.bias.zero_()
+        self.to(device)
+
+    def forward(self, vertex_features, graph, pool_graph, *,
+                generator: Optional[torch.Generator] = None):
+        """vertex_features (N, in_channels); `graph` over the N vertices of
+        the batch; `pool_graph` from `graph.readout_graph`.  Returns
+        (batch_size, num_classes) logits."""
+        x = self.gnn(vertex_features, graph, generator=generator)
+        pooled = self.readout(x, pool_graph, generator=generator)
+        return self.cls_head(pooled)

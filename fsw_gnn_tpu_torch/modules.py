@@ -1,8 +1,8 @@
 """The FSW embedding as a torch `nn.Module`, and two helpers on slice
 parameters.
 
-Counterpart of `fsw_gnn_tpu/modules.py`: neighbor-table layouts, dense
-multisets and dense adjacencies (the CSR `Graph` is not ported).
+Counterpart of `fsw_gnn_tpu/modules.py`: the CSR `Graph`, neighbor-table
+layouts, dense multisets and dense adjacencies.
 Parameters `proj_vecs`, `freqs`, optional `bias` and `total_mass_scale`
 are `nn.Parameter`s when learnable and buffers otherwise (the JAX package
 keeps the latter in its 'fsw_fixed' collection).
@@ -15,10 +15,10 @@ import torch
 from torch import nn
 
 from .device import resolve_device
-from .embedding import (FSWConfig, fsw_embed_graph_dense,
+from .embedding import (FSWConfig, fsw_embed_graph, fsw_embed_graph_dense,
                         fsw_embed_multi_table, fsw_embed_multiset,
                         fsw_embed_table)
-from .graph import MultiTable, NeighborTable
+from .graph import Graph, MultiTable
 from .params import bias_shape, generate_freqs, generate_proj_vecs
 
 
@@ -79,15 +79,18 @@ class FSWEmbedding(nn.Module):
                 graph_mode: bool = False, w_mode: str = 'unit',
                 slice_chunk=None, aggregate: str = 'auto',
                 weights_grad: bool = True, proj_gather_fn=None):
-        """Dispatches as the JAX module does: a `graph` (NeighborTable or
-        MultiTable, moved to X's device when needed; X (num_nodes, d_in))
+        """Dispatches as the JAX module does: a `graph` (CSR Graph,
+        NeighborTable or MultiTable, moved to X's device when needed; X
+        (num_nodes, d_in))
         first, giving (num_recipients, d_out), W ignored; then
         `graph_mode=True` with a dense adjacency W (..., R, n), X
         (..., n, d_in) and optional X_edge, giving (..., R, d_out); else
         a batch of multisets X (..., n, d_in) with weights W (..., n) or
         None (`w_mode` 'unit' or 'uniform'), giving (..., d_out).  With
-        out_dim == 0 every call gives zeros of those shapes.  A CSR `Graph`
-        and, with a graph, `proj_gather_fn` are not ported and raise."""
+        out_dim == 0 every call gives zeros of those shapes.  With a graph,
+        `proj_gather_fn` is not ported and raises.  A CSR Graph takes no
+        `aggregate` or `weights_grad`, as in the JAX package: it always
+        sorts, and its weights take a gradient when they require one."""
         cfg = self.cfg
         if cfg.out_dim == 0:
             if graph is not None:
@@ -104,10 +107,9 @@ class FSWEmbedding(nn.Module):
                 raise NotImplementedError(
                     'proj_gather_fn (the distributed overlap exchange) is '
                     'item 14 in ROADMAP.md, not ported yet')
-            if not isinstance(graph, (MultiTable, NeighborTable)):
-                raise NotImplementedError(
-                    'the CSR Graph layout is item 7 in ROADMAP.md, not '
-                    'ported yet: pass a NeighborTable or MultiTable')
+            if isinstance(graph, Graph):
+                return fsw_embed_graph(X, graph, self.proj_vecs, self.freqs,
+                                       cfg, **kw)
             graph = graph.to(X.device)
             embed = (fsw_embed_multi_table if isinstance(graph, MultiTable)
                      else fsw_embed_table)

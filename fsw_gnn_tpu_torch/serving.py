@@ -1,22 +1,25 @@
 """Online inference over arbitrary request graphs.
 
-Counterpart of `multi_envelope` and the 'multi' layout of `GraphServer` in
-`fsw_gnn_tpu/serving.py`.  A pinned degree-class envelope (`classes` plus
-per-class row capacities `class_rows`, e.g. from `multi_envelope`) gives
-every request's MultiTable the same shapes.  Requests are padded with
-isolated nodes (zero features, no in-edges) and zero-weight entries, both
-exact no-ops for the real outputs.
+Counterpart of `multi_envelope` and `GraphServer` in
+`fsw_gnn_tpu/serving.py`, with its two routes.  A pinned degree-class
+envelope (`classes` plus per-class row capacities `class_rows`, e.g. from
+`multi_envelope`) gives every request's MultiTable the same shapes; a
+request outside it, every request of a server built without one, and a
+request that fails the `assume_uniform_w` check go through the padded CSR
+`Graph` instead.  Requests are padded with isolated nodes (zero features,
+no in-edges) and zero-weight entries or edges, exact no-ops for the real
+outputs.
 
 Transfer layout: a request is built on the host in numpy and shipped as
 one int32 carrier [graph ints | graph float bits | X bits] in one pinned
-host buffer, with one non-blocking host-to-device copy.  The device side
-takes it apart with slices and `Tensor.view(dtype)` bit views, so no value
-is converted on the wire.
+host buffer, with one non-blocking host-to-device copy: for the MultiTable
+[idx of every class, row_ids | weights, in_degrees, edge_feat | X], for the
+CSR graph [src, dst, row_ptr, src_order, src_sorted | weight, in_degrees,
+edge_feat | X].  The device side takes it apart with slices and
+`Tensor.view(dtype)` bit views, so no value is converted on the wire.
 
-Not ported yet (ROADMAP.md): the CSR route that the JAX server falls back
-to for requests outside the envelope (item 7), export_forward /
-load_forward, the 'triple' transfer layout, bf16 floats and uint16 index
-packing (item 13).
+Not ported yet (ROADMAP.md item 13): export_forward / load_forward, the
+'triple' transfer layout, bf16 floats and uint16 index packing.
 """
 from __future__ import annotations
 
@@ -24,11 +27,8 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .graph import (MultiTable, NeighborTable, class_of, degree_classes,
-                    from_edge_index, to_multi_table)
-
-_CSR_TODO = ('the CSR serving route (item 7 in ROADMAP.md) is not ported '
-             'yet')
+from .graph import (Graph, MultiTable, NeighborTable, class_of,
+                    degree_classes, from_edge_index, to_multi_table)
 
 
 def multi_envelope(reference_graph, max_nodes: int, headroom: float = 1.5):
@@ -54,16 +54,17 @@ def multi_envelope(reference_graph, max_nodes: int, headroom: float = 1.5):
 
 class GraphServer:
     """Online inference of `model` over request graphs inside a fixed
-    (max_nodes, max_edges) envelope and degree-class envelope.
+    (max_nodes, max_edges) envelope.
 
     The server puts `model` in eval mode on `device` (None: the card) and
-    runs it under torch.inference_mode().  `assume_uniform_w=True` serves
-    every request through the row-constant-weight kernel path and checks
-    on the host, per request, that this holds (a duplicate edge coalesces
-    to weight 2 and breaks it); such a request is counted in
-    `uniform_w_fallbacks`, a request outside the envelope in `fallbacks`,
-    and both then raise, since the CSR route that would serve them is not
-    ported yet."""
+    runs it under torch.inference_mode().  With `classes` and `class_rows`
+    a request inside that degree-class envelope is served as a MultiTable
+    and one outside it as a CSR Graph, counted in `fallbacks`; without
+    them every request is served as a CSR Graph.  `assume_uniform_w=True`
+    serves MultiTables through the row-constant-weight kernel path and
+    checks on the host, per request, that this holds (a duplicate edge
+    coalesces to weight 2 and breaks it); a request that fails goes
+    through the CSR Graph and counts in `uniform_w_fallbacks`."""
 
     def __init__(self, model, max_nodes: int, max_edges: int, *,
                  d_edge: int = 0, dtype=torch.float32,
@@ -72,12 +73,9 @@ class GraphServer:
         if dtype != torch.float32:
             raise NotImplementedError('only the float32 carrier is ported '
                                       '(bf16 is item 13 in ROADMAP.md)')
-        if classes is None or class_rows is None:
-            raise NotImplementedError(
-                f'a server needs classes and class_rows (see '
-                f'multi_envelope): {_CSR_TODO}')
-        if len(classes) != len(class_rows):
-            raise ValueError('classes and class_rows differ in length')
+        if (classes is None) != (class_rows is None):
+            raise ValueError('pass classes and class_rows together (see '
+                             'multi_envelope)')
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.max_nodes = int(max_nodes)
@@ -85,16 +83,24 @@ class GraphServer:
         self.d_edge = int(d_edge)
         self.dtype = dtype
         self.assume_uniform_w = bool(assume_uniform_w)
-        self.classes = [int(c) for c in classes]
-        self.class_rows = [int(r) for r in class_rows]
         self.fallbacks = 0            # requests outside the envelope
         self.uniform_w_fallbacks = 0  # assume_uniform_w requests that
         #                               failed the host check
+        E, R, de = self.max_edges, self.max_nodes, self.d_edge
+        self._li_csr = 4 * E + R + 1   # src, dst, row_ptr, order, sorted
+        self._lf_csr = E + R + E * de         # weight, in_degrees, edge_feat
+        self.classes = self.class_rows = None
+        if classes is None:
+            return
+        if len(classes) != len(class_rows):
+            raise ValueError('classes and class_rows differ in length')
+        self.classes = [int(c) for c in classes]
+        self.class_rows = [int(r) for r in class_rows]
         sizes = [rc * bc for rc, bc in zip(self.class_rows, self.classes)]
         self._offsets = np.cumsum([0] + sizes)
         tot = int(self._offsets[-1])
         self._li = tot + sum(self.class_rows)          # idx + row_ids
-        self._lf = tot + self.max_nodes + tot * self.d_edge
+        self._lf = tot + R + tot * de
 
     # ---- host side ------------------------------------------------------
 
@@ -108,29 +114,40 @@ class GraphServer:
                              minlength=len(self.classes))
         return bool(np.all(counts <= np.asarray(self.class_rows)))
 
-    def _pack(self, mt: MultiTable, Xp: np.ndarray) -> torch.Tensor:
-        """The int32 carrier, written straight into a pinned host buffer
-        when serving on the card."""
-        li, lf = self._li, self._lf
-        n = li + lf + Xp.size
-        host = torch.empty(n, dtype=torch.int32,
+    def _carrier(self, ints, floats, Xp, li, lf) -> torch.Tensor:
+        """The int32 carrier [ints | float bits | X bits], written straight
+        into a pinned host buffer when serving on the card."""
+        host = torch.empty(li + lf + Xp.size, dtype=torch.int32,
                            pin_memory=self.device.type == 'cuda')
         buf = host.numpy()
-        ints = [t.idx.ravel() for t in mt.tables] + list(mt.row_ids)
-        floats = [t.weight.ravel() for t in mt.tables] + [mt.in_degrees]
-        if self.d_edge:
-            floats += [t.edge_feat.ravel() for t in mt.tables]
         np.concatenate(ints, out=buf[:li], casting='unsafe')
         fview = buf[li:].view(np.float32)
         np.concatenate(floats, out=fview[:lf], casting='same_kind')
         fview[lf:] = Xp.ravel()
         return host
 
+    def _pack(self, mt: MultiTable, Xp: np.ndarray) -> torch.Tensor:
+        """The MultiTable request's carrier."""
+        ints = [t.idx.ravel() for t in mt.tables] + list(mt.row_ids)
+        floats = [t.weight.ravel() for t in mt.tables] + [mt.in_degrees]
+        if self.d_edge:
+            floats += [t.edge_feat.ravel() for t in mt.tables]
+        return self._carrier(ints, floats, Xp, self._li, self._lf)
+
+    def _pack_csr(self, g: Graph, Xp: np.ndarray) -> torch.Tensor:
+        """The CSR request's carrier."""
+        ints = [g.src, g.dst, g.row_ptr, g.src_order, g.src_sorted]
+        floats = [g.weight, g.in_degrees]
+        if self.d_edge:
+            floats.append(g.edge_feat.ravel())
+        return self._carrier(ints, floats, Xp, self._li_csr, self._lf_csr)
+
     # ---- device side ----------------------------------------------------
 
     def _unpack(self, buf: torch.Tensor):
-        """Carrier on the device -> (X, MultiTable) by slices and bit
-        views; nothing is copied but the int32 -> int64 index widening."""
+        """MultiTable carrier on the device -> (X, MultiTable) by slices
+        and bit views; nothing is copied but the int32 -> int64 index
+        widening."""
         R, de, li, lf = self.max_nodes, self.d_edge, self._li, self._lf
         off = self._offsets
         tot = int(off[-1])
@@ -158,9 +175,25 @@ class GraphServer:
                         num_recipients=R, num_edges=self.max_edges)
         return X, mt
 
+    def _unpack_csr(self, buf: torch.Tensor):
+        """CSR carrier on the device -> (X, Graph), as `_unpack`."""
+        E, R, de = self.max_edges, self.max_nodes, self.d_edge
+        li, lf = self._li_csr, self._lf_csr
+        ib = buf[:li].long()
+        fb = buf[li:li + lf].view(torch.float32)
+        X = buf[li + lf:].view(torch.float32).reshape(R, -1)
+        g = Graph(src=ib[:E], dst=ib[E:2 * E], weight=fb[:E],
+                  row_ptr=ib[2 * E:2 * E + R + 1], in_degrees=fb[E:E + R],
+                  edge_feat=(fb[E + R:E + R + E * de].reshape(E, de) if de
+                             else None),
+                  src_order=ib[2 * E + R + 1:3 * E + R + 1],
+                  src_sorted=ib[3 * E + R + 1:4 * E + R + 1],
+                  num_nodes=R, num_recipients=R, num_edges=E)
+        return X, g
+
     def _dispatch(self, edge_index, features, edge_features=None):
-        """Build, pad, check and ship one request and launch its forward
-        without waiting for it; returns (device output, N)."""
+        """Build, pad, check, route and ship one request and launch its
+        forward without waiting for it; returns (device output, N)."""
         features = np.asarray(features)
         N = features.shape[0]
         E = np.asarray(edge_index).shape[1]
@@ -175,24 +208,22 @@ class GraphServer:
         g = from_edge_index(edge_index, self.max_nodes,
                             edge_features=edge_features,
                             pad_to=self.max_edges, dtype=np.float32)
-        if not self._fits_envelope(g):
+        host = None
+        if self.classes is not None and self._fits_envelope(g):
+            mt = to_multi_table(g, classes=self.classes,
+                                class_rows=self.class_rows)
+            if not self.assume_uniform_w or all(t.uniform_w
+                                                for t in mt.tables):
+                host, unpack = self._pack(mt, Xp), self._unpack
+            else:
+                self.uniform_w_fallbacks += 1
+        elif self.classes is not None:
             self.fallbacks += 1
-            raise NotImplementedError(
-                f'the request does not fit the degree-class envelope: '
-                f'{_CSR_TODO}')
-        mt = to_multi_table(g, classes=self.classes,
-                            class_rows=self.class_rows)
-        if self.assume_uniform_w and not all(t.uniform_w
-                                             for t in mt.tables):
-            self.uniform_w_fallbacks += 1
-            raise NotImplementedError(
-                f'assume_uniform_w is set but the request has rows with '
-                f'unequal weights (e.g. a duplicate edge): {_CSR_TODO}')
-        host = self._pack(mt, Xp)
+        if host is None:
+            host, unpack = self._pack_csr(g, Xp), self._unpack_csr
         buf = host.to(self.device, non_blocking=True)
         with torch.inference_mode():
-            X, mt_dev = self._unpack(buf)
-            out = self.model(X, mt_dev)
+            out = self.model(*unpack(buf))
         return out, N
 
     def predict(self, edge_index, features, edge_features=None) -> np.ndarray:
@@ -218,10 +249,21 @@ class GraphServer:
         return results
 
     def warmup(self, d_in: int) -> None:
-        """Serve one synthetic one-node request before real traffic, so the
-        kernels are built and loaded and the first real request pays none
-        of it.  `d_in` is the real traffic's feature width."""
+        """Serve one synthetic request through each route before real
+        traffic, so the kernels are built and loaded and the first real
+        request pays none of it: a one-node request, and with an envelope a
+        star that overflows it (not counted in `fallbacks`).  `d_in` is the
+        real traffic's feature width."""
         ef = (np.zeros((1, self.d_edge), np.float32) if self.d_edge
               else None)
         self.predict(np.zeros((2, 1), np.int64),
                      np.zeros((1, d_in), np.float32), edge_features=ef)
+        if self.classes is not None:
+            d = min(self.max_nodes - 1, self.max_edges)
+            star = np.stack([np.arange(1, d + 1), np.zeros(d, np.int64)])
+            efs = (np.zeros((d, self.d_edge), np.float32) if self.d_edge
+                   else None)
+            fb = self.fallbacks
+            self.predict(star, np.zeros((d + 1, d_in), np.float32),
+                         edge_features=efs)
+            self.fallbacks = fb

@@ -172,8 +172,12 @@ def test_unported_routes_raise():
     g = T.from_edge_index(ei, 16)
     X = torch.from_numpy(rng.standard_normal((16, 4)).astype(np.float32))
     conv = T.FSWConv(4, 4, minimize_slice_coherence=False, device='cpu')
-    with pytest.raises(NotImplementedError, match='item 7'):
-        conv(X, g)                                   # CSR Graph
+    # a CSR Graph takes the CSR path: the same function as the tables'
+    # rank route, up to float32 rounding
+    with torch.no_grad():
+        want = conv(X, T.to_multi_table(g))
+        torch.testing.assert_close(conv(X, g), want, rtol=1e-4,
+                                   atol=1e-5 * want.abs().max().item())
     # a graph given, W is ignored, as in the JAX package
     assert conv.fsw_embed(X, torch.ones(16, 16),
                           graph=T.to_multi_table(g)).shape == (

@@ -300,3 +300,117 @@ def test_rank2_autograd_and_width_limits(cuda_device):
         fsw_rank_aggregate_proj_bwd(Z, wn, pad, freqs, V,
                                     torch.zeros((2, 8), device=cuda_device),
                                     with_dw=False)
+
+
+# ---- K3: the segmented cumsum ------------------------------------------------
+
+def _segments(rng, n, avg):
+    """Sorted int32 segment ids of average length `avg` (1: singletons),
+    with empty ids skipped, as a CSR graph's recipients give them."""
+    if avg == 1:
+        return np.arange(n, dtype=np.int32)
+    return np.sort(rng.integers(0, max(n // avg, 1), n)).astype(np.int32)
+
+
+def _k3_close(got, values, ids):
+    """Per element |kernel - plain| <= 8 eps (the segment's prefix of
+    |v|): both restart at every segment, so each error is a few roundings
+    of partial sums no larger than that prefix."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum_plain
+    want = segcumsum_plain(values, ids)
+    prefix = segcumsum_plain(values.abs().double(), ids)
+    eps = torch.finfo(values.dtype).eps
+    err = (got.double() - want.double()).abs()
+    assert bool(torch.all(err <= 8 * eps * prefix)), float(
+        (err / prefix.clamp(min=1e-300)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,avg', [(1, 1), (1000, 27), (2048, 2048),
+                                   (2049, 7), (70000, 14000), (4096, 1),
+                                   (1 << 20, 32), (1 << 20, 4096)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_segcumsum_kernel_matches_plain(cuda_device, n, avg, dtype):
+    """K3 with the ids and with the mask against the plain version, across
+    tile edges, singletons and segments spanning many tiles; the kernel
+    gives the same bits twice and counts one launch a call."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum, segment_boundaries
+    rng = np.random.default_rng(n + avg)
+    ids = torch.from_numpy(_segments(rng, n, avg)).to(cuda_device)
+    v = torch.from_numpy(rng.standard_normal(n)).to(cuda_device, dtype)
+    before = segcumsum.launches
+    got = segcumsum(v, ids)
+    again = segcumsum(v, ids)
+    by_mask = segcumsum(v, boundaries=segment_boundaries(ids))
+    torch.cuda.synchronize()
+    assert segcumsum.launches == before + 3
+    assert torch.equal(got, again) and torch.equal(got, by_mask)
+    _k3_close(got, v, ids)
+
+
+@pytest.mark.cuda
+def test_segcumsum_kernel_backward_and_refusals(cuda_device):
+    """The backward is the reversed segmented cumsum of the cotangent, by
+    the kernel (one more launch), with ids and with the mask; what the
+    kernel does not take raises."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import (segcumsum, segcumsum_plain,
+                                                 segment_boundaries)
+    rng = np.random.default_rng(3)
+    n = 50000
+    ids = torch.from_numpy(_segments(rng, n, 300)).to(cuda_device)
+    g = torch.from_numpy(rng.standard_normal(n)).to(cuda_device)
+    for kw in (dict(segment_ids=ids),
+               dict(boundaries=segment_boundaries(ids))):
+        v = torch.from_numpy(rng.standard_normal(n)).to(
+            cuda_device).requires_grad_(True)
+        before = segcumsum.launches
+        (segcumsum(v, **kw) * g).sum().backward()
+        assert segcumsum.launches == before + 2
+        want = segcumsum_plain(g.flip(0), -ids.flip(0)).flip(0)
+        torch.testing.assert_close(v.grad, want, rtol=1e-12, atol=1e-9)
+    with pytest.raises(TypeError, match='float32 or float64'):
+        segcumsum(torch.ones(4, device=cuda_device, dtype=torch.float16),
+                  ids[:4])
+    with pytest.raises(ValueError, match='contiguous'):
+        segcumsum(torch.ones(8, device=cuda_device)[::2], ids[:4])
+    with pytest.raises(ValueError, match='exactly one'):
+        segcumsum(torch.ones(4, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_csr_fswconv_matches_cpu(cuda_device):
+    """FSWConv on a CSR Graph on the card (K3 once a forward) against the
+    CPU, forward and gradients, including the gradient of the edge
+    weights (K3 again in the backward).  Every in-degree is 4 and the
+    features and slice vectors are dyadic, so every projection and every
+    cumulative weight is exact in any order and both sides sort alike."""
+    import fsw_gnn_tpu_torch as T
+    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum
+    rng = np.random.default_rng(1)
+    n = 300
+    src = np.concatenate([rng.choice(np.delete(np.arange(n), v), 4,
+                                     replace=False) for v in range(n)])
+    ei = np.stack([src, np.repeat(np.arange(n), 4)])
+    g = T.from_edge_index(ei, n)
+    cpu = T.FSWConv(16, 16, mlp_layers=3, minimize_slice_coherence=False,
+                    device='cpu')
+    X = torch.from_numpy(rng.standard_normal((n, 16)).astype(np.float32))
+    with torch.no_grad():
+        X, Vq = dyadic(X[None], cpu.fsw_embed.proj_vecs.t())
+        X = X[0]
+        cpu.fsw_embed.proj_vecs.copy_(Vq.t())
+    gpu = copy.deepcopy(cpu).to(cuda_device)
+    res = []
+    for model, dev in ((cpu, 'cpu'), (gpu, cuda_device)):
+        gd = g.to(dev)
+        gd.weight = gd.weight.clone().requires_grad_(True)
+        before = segcumsum.launches
+        out = model(X.to(dev), gd)
+        (out * out).sum().backward()
+        if dev != 'cpu':
+            assert segcumsum.launches == before + 2
+        res.append([out.detach().cpu(), gd.weight.grad.cpu()] + [
+            p.grad.detach().cpu() for p in model.parameters()])
+    for got, want in zip(res[1], res[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * want.abs().max().item())

@@ -222,8 +222,10 @@ def test_auto_layout_picks_jax_layout(case):
     else:
         assert tl.idx.shape == tuple(jl.idx.shape)
     if ei.shape[1]:             # a degree above max_bucket: the CSR route
-        with pytest.raises(NotImplementedError, match='item 7'):
-            T.auto_layout(T.from_edge_index(ei, n), max_bucket=1)
+        g = T.from_edge_index(ei, n)
+        assert T.auto_layout(g, max_bucket=1) is g
+        assert isinstance(J.auto_layout(J.from_edge_index(ei, n),
+                                        max_bucket=1), J.Graph)
 
 
 def _same_data(a, b):

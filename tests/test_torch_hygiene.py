@@ -20,7 +20,8 @@ def test_import_pulls_in_no_jax():
     code = ('import sys, fsw_gnn_tpu_torch, fsw_gnn_tpu_torch.serving, '
             'fsw_gnn_tpu_torch.bridge, fsw_gnn_tpu_torch.kernels, '
             'fsw_gnn_tpu_torch.models.gnn, fsw_gnn_tpu_torch.data.datasets, '
-            'fsw_gnn_tpu_torch.train.trainer, fsw_gnn_tpu_torch.cli; '
+            'fsw_gnn_tpu_torch.train.trainer, fsw_gnn_tpu_torch.cli, '
+            'fsw_gnn_tpu_torch.ops.segment, fsw_gnn_tpu_torch.ops.segcumsum; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "flax", "optax", "orbax", "fsw_gnn_tpu")]; '
             'assert not bad, bad')
@@ -45,9 +46,12 @@ def test_entry_points_default_to_the_card():
                   lambda: T.FSWConv(4, 4, minimize_slice_coherence=False,
                                     device='cuda'),
                   lambda: T.resolve_device(None),
-                  lambda: T.FSWGNN(4, (4,), minimize_slice_coherence=False)):
+                  lambda: T.FSWGNN(4, (4,), minimize_slice_coherence=False),
+                  lambda: T.FSWGraphClassifier(
+                      4, (4,), 2, minimize_slice_coherence=False)):
         with pytest.raises(RuntimeError, match='no CUDA device'):
             build()
     conv = T.FSWConv(4, 4, minimize_slice_coherence=False, device='cpu')
-    with pytest.raises(RuntimeError, match='no CUDA device'):
-        T.GraphServer(conv, 16, 64, classes=[8], class_rows=[16])
+    for env in ({}, dict(classes=[8], class_rows=[16])):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            T.GraphServer(conv, 16, 64, **env)

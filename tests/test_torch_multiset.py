@@ -230,8 +230,8 @@ def test_graph_dense_f64_matches_jax(d_edge, edge_shape, slice_chunk):
 def test_fswembedding_module_matches_jax():
     """A JAX FSWEmbedding's variables (learnable slices and a learnable
     total-mass scale: both collections) carried into the port by
-    `fswembedding_from_jax`: the multiset, W=None and graph_mode calls
-    agree in float64, and a NeighborTable call runs."""
+    `fswembedding_from_jax`: the multiset, W=None, graph_mode,
+    NeighborTable and CSR Graph calls agree in float64."""
     rng = np.random.default_rng(8)
     kw = dict(d_in=3, d_out=11, encode_total_mass=True,
               learnable_slices=True,
@@ -267,8 +267,12 @@ def test_fswembedding_module_matches_jax():
     want = jm.apply(variables, jnp.asarray(Xn), graph=jt, aggregate='sort')
     _close(tm(torch.from_numpy(Xn), graph=table, aggregate='sort'), want,
            1e-10, 1e-12)
-    with pytest.raises(NotImplementedError, match='item 7'):
-        tm(torch.from_numpy(Xn), graph=T.from_edge_index(ei, 4))
+    # a CSR Graph takes the CSR path, as in the JAX module
+    want = jax.jit(lambda x, g: jm.apply(variables, x, graph=g))(
+        jnp.asarray(Xn), J.from_edge_index(ei, 4, dtype=jnp.float64))
+    _close(tm(torch.from_numpy(Xn),
+              graph=T.from_edge_index(ei, 4, dtype=np.float64)), want,
+           1e-10, 1e-12)
     with pytest.raises(NotImplementedError, match='item 14'):
         tm(torch.from_numpy(Xn), graph=table, proj_gather_fn=lambda x: x)
     with pytest.raises(ValueError, match='missing'):

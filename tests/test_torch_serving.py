@@ -10,6 +10,7 @@ route with exact period reduction; three Linear layers follow.
 """
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -83,31 +84,34 @@ def test_server_matches_jax_server(servers):
 
 def test_duplicate_edge_is_counted_then_raises(servers):
     """A duplicate edge coalesces to weight 2: the row is no longer
-    row-constant, the host check catches it, the request is counted and,
-    with no CSR route to take it, refused."""
-    _, ts, d_edge = servers
+    row-constant, the host check catches it, and the request is counted
+    and served through the CSR route, as the JAX server serves it."""
+    js, ts, d_edge = servers
     ei, X, ef = _request(4, 30, d_edge)
     ei = np.concatenate([ei, ei[:, :1]], axis=1)
     if ef is not None:
         ef = np.concatenate([ef, ef[:1]], axis=0)
-    before = ts.uniform_w_fallbacks
-    with pytest.raises(NotImplementedError, match='item 7'):
-        ts.predict(ei, X, edge_features=ef)
-    assert ts.uniform_w_fallbacks == before + 1
+    before = ts.uniform_w_fallbacks, js.uniform_w_fallbacks
+    got = ts.predict(ei, X, edge_features=ef)
+    _close(got, js.predict(ei, X, edge_features=ef))
+    assert (ts.uniform_w_fallbacks, js.uniform_w_fallbacks) == (
+        before[0] + 1, before[1] + 1)
 
 
 def test_envelope_overflow_raises(servers):
     """A hub whose degree exceeds the widest class overflows the
-    envelope: counted in `fallbacks` and refused."""
-    _, ts, d_edge = servers
+    envelope: counted in `fallbacks` and served through the CSR route, as
+    the JAX server serves it."""
+    js, ts, d_edge = servers
     d = ts.classes[-1] + 1
     ei = np.stack([np.arange(1, d + 1), np.zeros(d, np.int64)])
-    X = np.zeros((d + 1, D_IN), np.float32)
-    ef = np.zeros((d, d_edge), np.float32) if d_edge else None
-    before = ts.fallbacks
-    with pytest.raises(NotImplementedError, match='CSR'):
-        ts.predict(ei, X, edge_features=ef)
-    assert ts.fallbacks == before + 1
+    X = np.random.default_rng(d).standard_normal((d + 1, D_IN)).astype(
+        np.float32)
+    ef = np.ones((d, d_edge), np.float32) if d_edge else None
+    before = ts.fallbacks, js.fallbacks
+    got = ts.predict(ei, X, edge_features=ef)
+    _close(got, js.predict(ei, X, edge_features=ef))
+    assert (ts.fallbacks, js.fallbacks) == (before[0] + 1, before[1] + 1)
 
 
 def test_warmup_and_request_checks(servers):
@@ -119,6 +123,19 @@ def test_warmup_and_request_checks(servers):
 
 
 def test_server_needs_an_envelope():
+    """Without classes every request takes the CSR route; classes without
+    class_rows are refused."""
     conv = T.FSWConv(4, 4, minimize_slice_coherence=False, device='cpu')
-    with pytest.raises(NotImplementedError, match='item 7'):
-        T.GraphServer(conv, 16, 64, device='cpu')
+    server = T.GraphServer(conv, 16, 64, device='cpu')
+    ei = np.array([[1, 2, 3], [0, 0, 1]])
+    X = np.random.default_rng(0).standard_normal((4, 4)).astype(np.float32)
+    g = T.from_edge_index(ei, 16, pad_to=64)
+    Xp = np.zeros((16, 4), np.float32)
+    Xp[:4] = X
+    with torch.no_grad():
+        want = conv.eval()(torch.from_numpy(Xp), g)[:4].numpy()
+    np.testing.assert_allclose(server.predict(ei, X), want, rtol=1e-6,
+                               atol=1e-6)
+    assert server.fallbacks == 0
+    with pytest.raises(ValueError, match='together'):
+        T.GraphServer(conv, 16, 64, classes=[8], device='cpu')
