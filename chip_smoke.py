@@ -94,11 +94,39 @@ Phases (any failure exits non-zero before the last line is printed):
      requests of 4096-8192 nodes; a classes server takes a hub request
      (`fallbacks`) and a duplicate-edge request under assume_uniform_w
      (`uniform_w_fallbacks`) through CSR; outputs against the CPU;
- 17. one JSON line listing the five kernels with their launches, errors,
+ 17. K4f (`fsw_rank_cart_fwd`) and K4b (`fsw_rank_cart_bwd`) alone at the
+     JAX package's cartesian benchmark shape (`benchmarks/bench_cart_dw.py`:
+     R = 8192 rows, B = 32, S = 128 slices, F = 8 frequencies, P ~ N(0, 1)
+     of 134 MB, a fifth of the weights zero, frequencies |N(0, 1)| + 0.1
+     as an (S, F) matrix whose rows differ) against their plain versions
+     in five variants: with_dw on and off, uniform_w, ties with an f = 0
+     column, a phantom mass; each timed beside its bound, its plain
+     version and the sort route (`bucket_quadrature(..., 'sort')`),
+     forward and forward + backward with every input taking a gradient;
+     then the same with weight gradients at B = 128, the widest 'auto'
+     sends to K4;
+ 18. the cartesian MultiTable: FSWEmbedding(FSWConfig(d_in=64,
+     n_slices=128, n_freqs=8, collapse_freqs=True), learnable slices and
+     frequencies) on the bench graph (`multi` layout): 'auto' takes K4 on
+     every degree class (the captured calls; K4 held against its plain
+     version on each, in four variants as phase 9's K2); forward and
+     backward with weights_grad False and True (the table weights taking
+     a gradient), one K4f and one K4b launch a class each; output and
+     every gradient against the CPU; forward and forward + backward timed
+     beside the sort route, and a kernel trace of the forward + backward;
+ 19. cartesian multisets: FSWEmbedding(FSWConfig(d_in=20, n_slices=128,
+     n_freqs=8)) on phase 8's 2048 multisets of n = 100 (P 105 MB), W
+     given and W = None, through 'auto' (K4, held against its plain
+     version on the captured calls); forward and backward, one K4f and
+     one K4b launch each; the first 128 multisets against the CPU;
+     forward and forward + backward timed beside the sort route, and a
+     kernel trace of the forward + backward;
+ 20. one JSON line listing the seven kernels with their launches, errors,
      times and bounds (the launches are those of the main-path runs 4, 6,
-     7, 8, 9, 10 and 12-16 together; K2's times and bounds at phase 8's
-     shape, K3's at phase 12's);
- 18. the last line: {"ok": true, "device": {...}}.
+     7, 8, 9, 10, 12-16, 18 and 19 together; K2's times and bounds at
+     phase 8's shape, K3's at phase 12's, K4's at phase 17's with B = 32,
+     K4b's with with_dw);
+ 21. the last line: {"ok": true, "device": {...}}.
 
 Tolerances:
   * K1f against its plain version, both on the card in float32:
@@ -124,10 +152,15 @@ Tolerances:
     layer's scale) is all that differs, through three layers.
   * K2f and K2b against their plain versions: as K1f and K1b.  P is given,
     so no dyadic rounding is needed for both sides to rank alike.
-  * multisets, table K2 and hub graph against the CPU, output and every
-    gradient: |gpu - cpu| <= 1e-4 * max|cpu| + 1e-4 * |cpu|, with the
-    features and the slice vectors on the dyadic grid, and the multisets'
-    weights on multiples of 2^-20 (see `multiset_setup`).
+  * K4f and K4b against their plain versions: as K2f and K2b, each output
+    on its own scale; K4b sums dp, dc and dwn over the F frequencies in
+    another rounding (fused multiply-adds) and df over the rows in
+    another order.
+  * multisets, table K2, hub graph and the cartesian phases 18 and 19
+    against the CPU, output and every gradient: |gpu - cpu| <= 1e-4 *
+    max|cpu| + 1e-4 * |cpu|, with the features and the slice vectors on
+    the dyadic grid, and the multisets' weights on multiples of 2^-20
+    (see `multiset_setup`).
   * K3 against its plain version, per element: |kernel - plain| <=
     8 eps * (the segment's prefix of |v|) (its suffix of |g| for the
     backward).  Both restart at every segment; each sums a prefix in a few
@@ -158,8 +191,12 @@ B x B rank loop does 3 d^2 instead), so a row with d real entries needs
        the training path does not use, a reverse cumsum adds d more);
   K2f: S * (20 d + d log2 d + d) operations: K1f's without the projection;
   K2b: S * (45 d + d log2 d + d) operations, plus d with with_dw: K1b's
-       without the three products.
-At the multiset shape K2's operations take less time than its bytes.  The
+       without the three products;
+  K4f: S * (20 F d + d log2 d + d) operations: one ranking serves the F
+       frequencies, whose trig is K2f's each;
+  K4b: S * (45 F d + d log2 d + d) operations, plus d with with_dw.
+At the multiset shape K2's operations take less time than its bytes; at
+phase 17's shape K4's bytes take less time than its operations.  The
 bound of the padded shapes (every table entry counted) is printed beside
 K1f's.
 K3 needs one add an element and moves 12 bytes an element in float32
@@ -203,7 +240,9 @@ HUB_NODES, HUB_IN = 2000, 1024
 MS_LEAD, MS_N, MS_D, MS_S, MS_CPU_SETS = (8, 16, 16), 100, 20, 1000, 128
 TABLE_CHUNK = 64
 KERNEL_NAMES = ('fsw_rank_fwdp', 'fsw_rank_bwdp', 'fsw_rank_fwd',
-                'fsw_rank_bwd', 'segcumsum')
+                'fsw_rank_bwd', 'segcumsum', 'fsw_rank_cart_fwd',
+                'fsw_rank_cart_bwd')
+CART_R, CART_B, CART_S, CART_F, CART_ZERO = 8192, 32, 128, 8, 0.2
 K3_N, K3_ULPS = 1 << 24, 8
 K3_CASES = (('avg 32', 32, 'float32'), ('avg 4096', 4096, 'float32'),
             ('singletons', 1, 'float32'), ('avg 32, float64', 32, 'float64'))
@@ -355,28 +394,30 @@ def rank_bwd_bound_ms(wn, D, S):
     return _bound(ops, nbytes)
 
 
-def rank2_bound_ms(wn, S, bwd=False, with_dw=False):
+def rank2_bound_ms(wn, S, bwd=False, with_dw=False, F=1):
     """(bound ms, 'operations' or 'bytes') of one K2f call, or K2b call
     with or without with_dw, on (R, B) normalized weights wn, zero at the
-    padding (see the module docstring).  K2f reads P, wn, pad, freqs and
-    writes out; K2b reads those and the cotangent and writes dP, df (and
-    dwn, dpad)."""
+    padding (see the module docstring); with F frequency columns, of K4f
+    or K4b.  The forward reads P, wn, pad, freqs and writes out; the
+    backward reads those and the cotangent and writes dP, df (and dwn,
+    dpad)."""
     R, B = wn.shape
     deg = (wn > 0).sum(dim=1).double()
-    per = (BWD_TRIG_OPS + (1 if with_dw else 0)) if bwd else TRIG_OPS
+    per = (BWD_TRIG_OPS * F + (1 if with_dw else 0)) if bwd else TRIG_OPS * F
     ops = S * float((deg * per + rank_ops(deg)).sum())
     if bwd:
-        nbytes = 4 * (2 * R * B * S + R * S + R * B + R + 2 * S
+        nbytes = 4 * (2 * R * B * S + R * S * F + R * B + R + 2 * S * F
                       + (R * B + R if with_dw else 0))
     else:
-        nbytes = 4 * (R * B * S + R * B + R + S + R * S)
+        nbytes = 4 * (R * B * S + R * B + R + S * F + R * S * F)
     return _bound(ops, nbytes)
 
 
 def capture_rank_calls(run, name='fsw_rank_aggregate_proj'):
     """Run `run()` with one of the rank route's entry points (`name` in
-    fsw_gnn_tpu_torch.embedding: the fused K1 `fsw_rank_aggregate_proj`
-    or the unfused K2 `fsw_rank_aggregate`) wrapped, and return the
+    fsw_gnn_tpu_torch.embedding: the fused K1 `fsw_rank_aggregate_proj`,
+    the unfused K2 `fsw_rank_aggregate` or the cartesian K4
+    `fsw_rank_aggregate_cart`) wrapped, and return the
     arguments of every call it made, in order: a list of (args, uniform_w,
     with_dw), the args detached copies.  The checks and timings replay
     exactly what the path passes.  Launches made here count as usual:
@@ -397,14 +438,18 @@ def capture_rank_calls(run, name='fsw_rank_aggregate_proj'):
     return calls
 
 
-def rank_fns(unfused):
+def rank_fns(kind):
     """(forward label, backward label, kernel, plain, backward kernel,
-    backward plain, backward output names) of K2 (unfused) or K1."""
+    backward plain, backward output names) of K1, K2 or K4 (`kind`)."""
     from fsw_gnn_tpu_torch.ops import fsw_rank as R
-    if unfused:
+    if kind == 'K2':
         return ('K2f', 'K2b', R.fsw_rank_aggregate, R.fsw_rank_aggregate_plain,
                 R.fsw_rank_aggregate_bwd, R.fsw_rank_aggregate_bwd_plain,
                 BWD2_NAMES)
+    if kind == 'K4':
+        return ('K4f', 'K4b', R.fsw_rank_aggregate_cart,
+                R.fsw_rank_aggregate_cart_plain, R.fsw_rank_aggregate_cart_bwd,
+                R.fsw_rank_aggregate_cart_bwd_plain, BWD2_NAMES)
     return ('K1f', 'K1b', R.fsw_rank_aggregate_proj,
             R.fsw_rank_aggregate_proj_plain, R.fsw_rank_aggregate_proj_bwd,
             R.fsw_rank_aggregate_proj_bwd_plain, BWD_NAMES)
@@ -414,11 +459,11 @@ def tables_of(graph):
     return graph.tables if hasattr(graph, 'tables') else [graph]
 
 
-def check_fwd(torch, label, args, unif, unfused=False):
-    """K1f (or K2f) against its plain version on one input; returns the
-    largest absolute error and the largest error relative to the output's
-    scale."""
-    name, _, kernel, plain, _, _, _ = rank_fns(unfused)
+def check_fwd(torch, label, args, unif, kind='K1'):
+    """K1f (or K2f, K4f) against its plain version on one input; returns
+    the largest absolute error and the largest error relative to the
+    output's scale."""
+    name, _, kernel, plain, _, _, _ = rank_fns(kind)
     # with_dw=False: the wrapper passes uniform_w to the kernel only then
     got = kernel(*args, uniform_w=unif, with_dw=False)
     torch.cuda.synchronize()
@@ -433,11 +478,11 @@ def check_fwd(torch, label, args, unif, unfused=False):
     return err.max().item(), err.max().item() / max(scale, 1e-30)
 
 
-def check_bwd(torch, label, args, G, unif, with_dw, unfused=False):
-    """K1b (or K2b) against its plain version on one input; returns the
-    largest absolute error and the largest error relative to its output's
-    scale."""
-    _, name, _, _, kernel, plain, names = rank_fns(unfused)
+def check_bwd(torch, label, args, G, unif, with_dw, kind='K1'):
+    """K1b (or K2b, K4b) against its plain version on one input; returns
+    the largest absolute error and the largest error relative to its
+    output's scale."""
+    _, name, _, _, kernel, plain, names = rank_fns(kind)
     got = kernel(*args, G, uniform_w=unif, with_dw=with_dw)
     torch.cuda.synchronize()
     want = plain(*args, G, uniform_w=unif, with_dw=with_dw)
@@ -986,12 +1031,16 @@ def trainer_phase(torch, T, dev, counts, errs):
     print('trainer: ' + json.dumps(res), flush=True)
 
 
-def check_rank2_calls(torch, dev, calls, cfg, where, errs, extra=True):
-    """K2f and K2b against their plain versions on captured K2 calls, at
-    the shapes the path gave them: K2f on the arguments as passed, K2b in
-    the path's variant and with with_dw on and random weights, and with
-    `extra` also with uniform_w off and with ties and an f = 0 slice."""
+def check_rank2_calls(torch, dev, calls, cfg, where, errs, extra=True,
+                      kind='K2'):
+    """K2f and K2b (or with kind='K4' K4f and K4b) against their plain
+    versions on captured calls, at the shapes the path gave them: the
+    forward on the arguments as passed, the backward in the path's variant
+    and with with_dw on and random weights, and with `extra` also with
+    uniform_w off and with ties and an f = 0 slice (K4: an f = 0 column)."""
     from fsw_gnn_tpu_torch.embedding import table_weights
+    names = {'K2': ('fsw_rank_fwd', 'fsw_rank_bwd'),
+             'K4': ('fsw_rank_cart_fwd', 'fsw_rank_cart_bwd')}[kind]
     gen = torch.Generator(device=dev).manual_seed(5)
     fwd = [0.0, 0.0]
     bwd = [0.0, 0.0]
@@ -1000,7 +1049,7 @@ def check_rank2_calls(torch, dev, calls, cfg, where, errs, extra=True):
             P, wn, pad, freqs = args
             R, B, S = P.shape
             shape = f'{where}, B={B} R={R} S={S}'
-            e = check_fwd(torch, f'{shape}, path', args, unif, unfused=True)
+            e = check_fwd(torch, f'{shape}, path', args, unif, kind)
             fwd = [max(a, b) for a, b in zip(fwd, e)]
             w = torch.rand((R, B), generator=gen, device=dev) * (wn > 0)
             _, wn_r, pad_r = table_weights(w, cfg)
@@ -1009,38 +1058,44 @@ def check_rank2_calls(torch, dev, calls, cfg, where, errs, extra=True):
                          pad_r.contiguous(), freqs, False, True)]
             if extra:
                 f_zero = freqs.clone()
-                f_zero[1 % S] = 0.0
+                if kind == 'K4':
+                    f_zero[:, 1 % freqs.shape[1]] = 0.0
+                else:
+                    f_zero[1 % S] = 0.0
                 Pt = P.clone()
                 Pt[:, 1::2] = Pt[:, 0:B - 1:2]
                 variants += [('uniform_w off', P, wn, pad, freqs, False, dw),
                              ('ties, f=0', Pt, wn, pad, f_zero, unif, dw)]
-            G = torch.randn((R, S), generator=gen, device=dev)
+            G = torch.randn((R,) + tuple(freqs.shape), generator=gen,
+                            device=dev)
             for label, p_, a, pd, f, u, d in variants:
                 if label == 'ties, f=0':
                     e = check_fwd(torch, f'{shape}, {label}', (p_, a, pd, f),
-                                  u, unfused=True)
+                                  u, kind)
                     fwd = [max(x, y) for x, y in zip(fwd, e)]
                 e = check_bwd(torch, f'{shape}, {label}', (p_, a, pd, f), G,
-                              u, d, unfused=True)
+                              u, d, kind)
                 bwd = [max(x, y) for x, y in zip(bwd, e)]
             del variants
-    errs['fsw_rank_fwd'] = max(errs['fsw_rank_fwd'], fwd[0])
-    errs['fsw_rank_bwd'] = max(errs['fsw_rank_bwd'], bwd[0])
-    print(f'{where}: K2f and K2b checked on {len(calls)} calls: ok; K2f max '
-          f'abs err {fwd[0]:.3e} ({fwd[1]:.3e} of the output scale), K2b '
-          f'{bwd[0]:.3e} ({bwd[1]:.3e} of an output\'s scale)', flush=True)
+    errs[names[0]] = max(errs[names[0]], fwd[0])
+    errs[names[1]] = max(errs[names[1]], bwd[0])
+    print(f'{where}: {kind}f and {kind}b checked on {len(calls)} calls: ok; '
+          f'{kind}f max abs err {fwd[0]:.3e} ({fwd[1]:.3e} of the output '
+          f'scale), {kind}b {bwd[0]:.3e} ({bwd[1]:.3e} of an output\'s '
+          f'scale)', flush=True)
 
 
-def multiset_setup(torch, T, dev):
+def multiset_setup(torch, T, dev, cfg=None):
     """The reference demo's FSWEmbedding (d = 20, n = 100, 1000 slices,
-    random frequencies; `examples/demo_fsw_embedding.py`) from seed 0 on a
-    batch of 8 x 16 x 16 = 2048 multisets: X ~ N(0, 1), W a softmax of
-    N(0, 1) values, a N(0, 1) cotangent.  X and the slice vectors are put
-    on the dyadic grid (so the CPU ranks as the card does) and W on
-    multiples of 2^-20 (so both sum it exactly: the random frequencies
-    reach about 2400, and the phase pi f (2c - w) turns one ulp of c into
-    about 1e-3 of the output's scale)."""
-    model = T.FSWEmbedding(T.FSWConfig(d_in=MS_D, d_out=MS_S), device='cpu',
+    random frequencies; `examples/demo_fsw_embedding.py`; or `cfg`) from
+    seed 0 on a batch of 8 x 16 x 16 = 2048 multisets: X ~ N(0, 1), W a
+    softmax of N(0, 1) values, a N(0, 1) cotangent.  X and the slice
+    vectors are put on the dyadic grid (so the CPU ranks as the card does)
+    and W on multiples of 2^-20 (so both sum it exactly: the random
+    frequencies reach about 2400, and the phase pi f (2c - w) turns one
+    ulp of c into about 1e-3 of the output's scale)."""
+    cfg = cfg or T.FSWConfig(d_in=MS_D, d_out=MS_S)
+    model = T.FSWEmbedding(cfg, device='cpu',
                            generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
     X = torch.from_numpy(rng.standard_normal(MS_LEAD + (MS_N, MS_D))
@@ -1050,7 +1105,10 @@ def multiset_setup(torch, T, dev):
     # multiples of 2^-20 below 1: every partial sum of a multiset's weights
     # is exact in float32, so the card and the CPU normalize alike
     W = torch.round(W * 2.0 ** 20) / 2.0 ** 20
-    G = torch.from_numpy(rng.standard_normal(MS_LEAD + (MS_S,))
+    out_shape = ((cfg.nSlices, cfg.nFreqs)
+                 if cfg.cartesian_mode and not cfg.collapse_freqs
+                 else (cfg.out_dim,))
+    G = torch.from_numpy(rng.standard_normal(MS_LEAD + out_shape)
                          .astype(np.float32))
     with torch.no_grad():
         X, Vq = dyadic(X.to(dev), model.proj_vecs.t().to(dev))
@@ -1783,6 +1841,310 @@ def csr_server_phase(torch, T, dev, model, counts):
     print('CSR server: ' + json.dumps(res), flush=True)
 
 
+def cart_inputs(torch, gen, dev, R, B, S, F):
+    """The inputs of the JAX package's cartesian benchmark
+    (`benchmarks/bench_cart_dw.py`), drawn on the card: P ~ N(0, 1)
+    (R, B, S); weights |N(0, 1)| with a fifth of them zero, normalized by
+    max(total, 1), and the phantom mass max(1 - total, 0) in the same
+    units; frequencies |N(0, 1)| + 0.1 as an (S, F) matrix."""
+    P = torch.randn((R, B, S), generator=gen, device=dev)
+    w = torch.randn((R, B), generator=gen, device=dev).abs()
+    w = w * (torch.rand((R, B), generator=gen, device=dev) >= CART_ZERO)
+    ws = w.sum(dim=1)
+    wsp = ws.clamp(min=1.0)
+    freqs = torch.randn((S, F), generator=gen, device=dev).abs() + 0.1
+    return (P, (w / wsp[:, None]).contiguous(),
+            ((1.0 - ws).clamp(min=0.0) / wsp).contiguous(), freqs)
+
+
+def cart_kernel_phase(torch, T, dev, errs):
+    """Phase 17: K4f and K4b alone at the JAX package's cartesian
+    benchmark shape (R = 8192, B = 32, S = 128, F = 8), against their
+    plain versions in five variants (with_dw on and off, uniform_w, ties
+    with an f = 0 column, a phantom mass), each timed beside its bound,
+    its plain version and the sort route, forward and forward + backward
+    (every input taking a gradient); then with weight gradients at
+    B = 128, the widest 'auto' sends to K4.  Returns the times and bounds
+    of both widths."""
+    from fsw_gnn_tpu_torch.embedding import (
+        RANK_AGGREGATE_MAX_BUCKET_NO_DW, bucket_quadrature, table_weights)
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    cfg = T.FSWConfig(d_in=1, n_slices=CART_S, n_freqs=CART_F)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    res = {}
+    for B in (CART_B, RANK_AGGREGATE_MAX_BUCKET_NO_DW):
+        P, wn, pad, freqs = cart_inputs(torch, gen, dev, CART_R, B, CART_S,
+                                        CART_F)
+        G = torch.randn((CART_R, CART_S, CART_F), generator=gen, device=dev)
+        variants = [('with_dw', P, wn, pad, freqs, False, True)]
+        if B == CART_B:
+            _, wn_u, pad_u = table_weights((wn > 0).float(), cfg)
+            _, wn_l, pad_l = table_weights(0.02 * wn, cfg)
+            if not bool((pad_l > 0).all()):
+                fail('cart K4: the light rows have no phantom mass')
+            Pt = P.clone()
+            Pt[:, 1::2] = Pt[:, 0:B - 1:2]
+            f0 = freqs.clone()
+            f0[:, 1] = 0.0
+            variants += [
+                ('without with_dw', P, wn, pad, freqs, False, False),
+                ('uniform_w', P, wn_u.contiguous(), pad_u.contiguous(),
+                 freqs, True, False),
+                ('ties, f=0 column', Pt, wn, pad, f0, False, True),
+                ('phantom mass', P, wn_l.contiguous(), pad_l.contiguous(),
+                 freqs, False, True)]
+        fwd = bwd = (0.0, 0.0)
+        with torch.no_grad():
+            for label, *args, u, d in variants:
+                where = f'cart K4, B={B}, {label}'
+                fwd = tuple(map(max, fwd, check_fwd(torch, where,
+                                                    tuple(args), u, 'K4')))
+                bwd = tuple(map(max, bwd, check_bwd(torch, where,
+                                                    tuple(args), G, u, d,
+                                                    'K4')))
+        del variants
+        errs['fsw_rank_cart_fwd'] = max(errs['fsw_rank_cart_fwd'], fwd[0])
+        errs['fsw_rank_cart_bwd'] = max(errs['fsw_rank_cart_bwd'], bwd[0])
+        args = (P, wn, pad, freqs)
+        t = {'R': CART_R, 'B': B, 'S': CART_S, 'F': CART_F,
+             'real_entries': int((wn > 0).sum()),
+             'k4f_max_abs_err': fwd[0], 'k4f_max_rel_err': fwd[1],
+             'k4b_max_abs_err': bwd[0], 'k4b_max_rel_err': bwd[1]}
+        with torch.no_grad():
+            t['k4f_ms'], _ = device_ms(torch, lambda: R.fsw_rank_aggregate_cart(
+                *args, with_dw=False), 20)
+            t['k4b_ms'], _ = device_ms(
+                torch, lambda: R.fsw_rank_aggregate_cart_bwd(*args, G), 10)
+            if B == CART_B:
+                t['k4b_no_dw_ms'], _ = device_ms(
+                    torch, lambda: R.fsw_rank_aggregate_cart_bwd(
+                        *args, G, with_dw=False), 10)
+            t['k4f_plain_ms'], _ = device_ms(
+                torch, lambda: R.fsw_rank_aggregate_cart_plain(*args), 2, 2)
+            t['k4b_plain_ms'], _ = device_ms(
+                torch, lambda: R.fsw_rank_aggregate_cart_bwd_plain(*args, G),
+                1, 2)
+            t['sort_fwd_ms'], _ = device_ms(torch, lambda: bucket_quadrature(
+                *args, cfg, 'sort'), 3)
+
+        def fwd_bwd(agg):
+            leaves = [a.detach().requires_grad_(True) for a in args]
+            bucket_quadrature(*leaves, cfg, agg).backward(G)
+        t['rank_fwd_bwd_ms'], _ = device_ms(torch, lambda: fwd_bwd('rank'), 3)
+        t['sort_fwd_bwd_ms'], _ = device_ms(torch, lambda: fwd_bwd('sort'), 3)
+        t['k4f_bound_ms'], t['k4f_bound_by'] = rank2_bound_ms(
+            wn, CART_S, F=CART_F)
+        t['k4b_bound_ms'], t['k4b_bound_by'] = rank2_bound_ms(
+            wn, CART_S, bwd=True, with_dw=True, F=CART_F)
+        res[B] = t
+        print('cart K4: ' + json.dumps(t), flush=True)
+        del args, P, wn, pad, freqs, G
+        torch.cuda.empty_cache()
+    return res
+
+
+def cart_table_phase(torch, T, dev, counts, errs):
+    """Phase 18: FSWEmbedding(FSWConfig(d_in=64, n_slices=128, n_freqs=8,
+    collapse_freqs=True), learnable slices and frequencies) on the bench
+    graph's MultiTable: 'auto' takes K4 on every degree class (the
+    captured calls, K4 held against its plain version on each); forward
+    and backward with weights_grad False and True (the table weights then
+    take a gradient), one K4f and one K4b launch a class each; the output
+    and every gradient against the CPU (X and the slice vectors dyadic);
+    forward and forward + backward timed beside the sort route, and the
+    forward + backward's kernels from a trace."""
+    import dataclasses
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    cfg = T.FSWConfig(d_in=D_IN, n_slices=CART_S, n_freqs=CART_F,
+                      collapse_freqs=True, learnable_slices=True,
+                      learnable_freqs=True)
+    ei, rng = simple_graph(0, N_NODES)
+    X = torch.from_numpy(rng.standard_normal((N_NODES, D_IN))
+                         .astype(np.float32))
+    cpu_emb = T.FSWEmbedding(cfg, device='cpu',
+                             generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        X, Vq = dyadic(X, cpu_emb.proj_vecs.t())
+        cpu_emb.proj_vecs.copy_(Vq.t())
+    emb = copy.deepcopy(cpu_emb).to(dev)
+    mt = T.to_multi_table(T.from_edge_index(ei, N_NODES))
+    layouts = {'cuda': mt.to(dev), 'cpu': mt.to('cpu')}
+    n_classes = len(mt.tables)
+    Xd, md = X.to(dev), layouts['cuda']
+
+    k1, k2 = [], []
+    with torch.no_grad():
+        calls = capture_rank_calls(lambda: k2.extend(capture_rank_calls(
+            lambda: k1.extend(capture_rank_calls(
+                lambda: emb(Xd, graph=md, weights_grad=False))),
+            'fsw_rank_aggregate')), 'fsw_rank_aggregate_cart')
+    widths = sorted(c[0][0].shape[1] for c in calls)
+    if k1 or k2 or widths != sorted(t.bucket_size for t in mt.tables):
+        fail(f'cart table: K4 calls at widths {widths}, K1 {len(k1)}, K2 '
+             f'{len(k2)}, for the classes {[t.bucket_size for t in mt.tables]}')
+    check_rank2_calls(torch, dev, calls, cfg, 'cart table', errs, kind='K4')
+    del calls
+
+    G = torch.from_numpy(np.random.default_rng(18).standard_normal(
+        (N_NODES, cfg.out_dim)).astype(np.float32))
+
+    def with_leaf_weights(layout):
+        ws = [t.weight.clone().requires_grad_(True) for t in layout.tables]
+        return ws, dataclasses.replace(layout, tables=tuple(
+            dataclasses.replace(t, weight=w)
+            for t, w in zip(layout.tables, ws)))
+
+    err = {}
+    launched = {}
+    for wg in (False, True):
+        grads = []
+        for m, d in ((emb, dev), (cpu_emb, torch.device('cpu'))):
+            m.zero_grad(set_to_none=True)
+            Xl = X.to(d).clone().requires_grad_(True)
+            ws, lay = (with_leaf_weights(layouts[d.type]) if wg
+                       else ([], layouts[d.type]))
+            R.fsw_rank_aggregate_cart.launches = 0
+            R.fsw_rank_aggregate_cart_bwd.launches = 0
+            out = m(Xl, graph=lay, weights_grad=wg)
+            (out * G.to(d)).sum().backward()
+            if d.type == 'cuda':
+                torch.cuda.synchronize()
+                n = (R.fsw_rank_aggregate_cart.launches,
+                     R.fsw_rank_aggregate_cart_bwd.launches)
+                if n != (n_classes, n_classes):
+                    fail(f'cart table (weights_grad={wg}): K4f, K4b launched '
+                         f'{n}, expected {n_classes} each')
+                counts['fsw_rank_cart_fwd'] += n[0]
+                counts['fsw_rank_cart_bwd'] += n[1]
+                launched[f'weights_grad={wg}'] = n
+                if out.shape != (N_NODES, cfg.out_dim):
+                    fail(f'cart table: output shape {tuple(out.shape)}')
+            grads.append([('out', out), ('X', Xl.grad)]
+                         + [(k, p.grad) for k, p in m.named_parameters()]
+                         + [(f'table weights {t.bucket_size}', w.grad)
+                            for t, w in zip(lay.tables, ws)])
+        for (k, got), (_, want) in zip(*grads):
+            err[f'{k}, weights_grad={wg}'] = close_to_cpu(
+                torch, f'cart table (weights_grad={wg}): {k}', got, want,
+                GRAD_RTOL, SERVE_ATOL_REL if k == 'out' else GRAD_ATOL_REL)
+        del grads
+
+    t = {}
+    Gd = G.to(dev)
+    with torch.no_grad():
+        for agg in ('auto', 'sort'):
+            t[f'{agg}_forward_ms'], _ = device_ms(torch, lambda: emb(
+                Xd, graph=md, aggregate=agg, weights_grad=False), 5)
+    for wg in (False, True):
+        ws, lay = with_leaf_weights(md) if wg else ([], md)
+        for agg in ('auto', 'sort'):
+            def fwd_bwd():
+                emb.zero_grad(set_to_none=True)
+                Xq = Xd.detach().requires_grad_(True)
+                (emb(Xq, graph=lay, aggregate=agg, weights_grad=wg)
+                 * Gd).sum().backward()
+            t[f'{agg}_fwd_bwd_weights_grad_{wg}_ms'], _ = device_ms(
+                torch, fwd_bwd, 3)
+            if agg == 'auto' and not wg:
+                t['auto_fwd_bwd_busy_ms'], t['auto_fwd_bwd_top'] = \
+                    traced_top_kernels(torch, fwd_bwd, 3)
+    e_real = int(mt.num_edges)
+    res = {'nodes': N_NODES, 'edges': e_real, 'classes': n_classes,
+           'class_widths': [tb.bucket_size for tb in mt.tables],
+           'launches': launched, 'cpu_max_rel_err': err,
+           'auto_fwd_edges_per_s': e_real / (t['auto_forward_ms'] * 1e-3),
+           **t}
+    print('cart table: ' + json.dumps(res), flush=True)
+
+
+def cart_multiset_phase(torch, T, dev, counts, errs):
+    """Phase 19: FSWEmbedding(FSWConfig(d_in=20, n_slices=128,
+    n_freqs=8)) on the demo's 2048 multisets of n = 100 (P 105 MB): K4
+    held against its plain version on the arguments 'auto' passes with W
+    given and W = None; forward and backward through the module with W
+    given (gradients of X and W) and with W = None (of X), one K4f and
+    one K4b launch each; the first 128 multisets against the CPU; forward
+    and forward + backward timed beside the sort route, and the forward +
+    backward's kernels from a trace."""
+    from fsw_gnn_tpu_torch.embedding import _resolve_aggregate
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    cfg = T.FSWConfig(d_in=MS_D, n_slices=CART_S, n_freqs=CART_F)
+    cpu_model, X, W, G = multiset_setup(torch, T, dev, cfg)
+    model = copy.deepcopy(cpu_model).to(dev)
+    if _resolve_aggregate('auto', cfg, MS_N) != 'rank':
+        fail(f"cart multisets: 'auto' does not take K4 at n = {MS_N}")
+    Xd, Wd, Gd = X.to(dev), W.to(dev), G.to(dev)
+    n_sets = int(np.prod(MS_LEAD))
+    for label, run in (('W given', lambda: model(Xd, Wd)),
+                       ("W=None, w_mode='unit'",
+                        lambda: model(Xd, w_mode='unit'))):
+        with torch.no_grad():
+            calls = capture_rank_calls(run, 'fsw_rank_aggregate_cart')
+        if len(calls) != 1 or calls[0][0][0].shape != (n_sets, MS_N, CART_S):
+            fail(f'cart multisets ({label}): K4 calls '
+                 f'{[tuple(c[0][0].shape) for c in calls]}')
+        check_rank2_calls(torch, dev, calls, cfg, f'cart multisets, {label}',
+                          errs, extra=label == 'W given', kind='K4')
+        del calls
+
+    def run_path(m, Xs, Ws, Gs):
+        """Forward and backward with W given, then with W = None (unit
+        weights): the outputs and the gradients of X, W and X."""
+        Xg = Xs.clone().requires_grad_(True)
+        Wg = Ws.clone().requires_grad_(True)
+        Xu = Xs.clone().requires_grad_(True)
+        out = m(Xg, Wg)
+        (out * Gs).sum().backward()
+        out_u = m(Xu, w_mode='unit')
+        (out_u * Gs).sum().backward()
+        return [('out', out), ('grad_X', Xg.grad), ('grad_W', Wg.grad),
+                ('out W=None', out_u), ('grad_X W=None', Xu.grad)]
+    R.fsw_rank_aggregate_cart.launches = 0
+    R.fsw_rank_aggregate_cart_bwd.launches = 0
+    got = run_path(model, Xd, Wd, Gd)
+    torch.cuda.synchronize()
+    n = (R.fsw_rank_aggregate_cart.launches,
+         R.fsw_rank_aggregate_cart_bwd.launches)
+    if n != (2, 2):
+        fail(f'cart multisets: K4f, K4b launched {n}, expected 2 each')
+    counts['fsw_rank_cart_fwd'] += n[0]
+    counts['fsw_rank_cart_bwd'] += n[1]
+    if got[0][1].shape != MS_LEAD + (CART_S, CART_F):
+        fail(f'cart multisets: output shape {tuple(got[0][1].shape)}')
+    k = MS_CPU_SETS
+    want = run_path(cpu_model, X.reshape(-1, MS_N, MS_D)[:k],
+                    W.reshape(-1, MS_N)[:k],
+                    G.reshape((-1,) + G.shape[len(MS_LEAD):])[:k])
+    err = {}
+    for (name, g), (_, w) in zip(got, want):
+        err[name] = close_to_cpu(
+            torch, f'cart multisets: {name}', g.reshape((-1,) + w.shape[1:])[:k],
+            w, GRAD_RTOL, SERVE_ATOL_REL if name.startswith('out')
+            else GRAD_ATOL_REL)
+    del got, want
+
+    t = {}
+    with torch.no_grad():
+        for agg in ('auto', 'sort'):
+            t[f'{agg}_forward_ms'], _ = device_ms(
+                torch, lambda: model(Xd, Wd, aggregate=agg), 5)
+    for agg in ('auto', 'sort'):
+        def fwd_bwd():
+            Xq = Xd.detach().requires_grad_(True)
+            Wq = Wd.detach().requires_grad_(True)
+            (model(Xq, Wq, aggregate=agg) * Gd).sum().backward()
+        t[f'{agg}_fwd_bwd_ms'], _ = device_ms(torch, fwd_bwd, 3)
+        if agg == 'auto':
+            t['auto_fwd_bwd_busy_ms'], t['auto_fwd_bwd_top'] = \
+                traced_top_kernels(torch, fwd_bwd, 3)
+    res = {'multisets': n_sets, 'n': MS_N, 'd': MS_D, 'slices': CART_S,
+           'freqs': CART_F, 'P_bytes': 4 * n_sets * MS_N * CART_S,
+           'launches': n, 'cpu_sets': k, 'cpu_max_rel_err': err,
+           'auto_multisets_per_s_fwd_bwd': n_sets / (t['auto_fwd_bwd_ms']
+                                                     * 1e-3), **t}
+    print('cart multisets: ' + json.dumps(res), flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1846,7 +2208,12 @@ def main():
     csr_hub_phase(torch, T, dev, counts)
     csr_server_phase(torch, T, dev, model, counts)
 
-    # ---- 17. kernels line, 18. last line ------------------------------------
+    # ---- 17. K4 alone, 18. the cartesian MultiTable, 19. multisets --------
+    k4 = cart_kernel_phase(torch, T, dev, errs)[CART_B]
+    cart_table_phase(torch, T, dev, counts, errs)
+    cart_multiset_phase(torch, T, dev, counts, errs)
+
+    # ---- 20. kernels line, 21. last line ------------------------------------
     src = 'fsw_gnn_tpu_torch/csrc/'
     pallas = 'fsw_gnn_tpu/ops/fsw_rank_pallas.py:'
     line = {'kernels': [
@@ -1880,6 +2247,21 @@ def main():
          'launches': counts['segcumsum'], 'max_abs_err': errs['segcumsum'],
          'ms': k3['k3_ms'], 'plain_ms': k3['k3_plain_ms'],
          'bound_ms': k3['k3_bound_ms'], 'bound_by': 'bytes',
+         'library_ms': None},
+        {'name': 'fsw_rank_cart_fwd', 'route': 'cuda',
+         'source': src + 'fsw_rank_cart_fwd.cu', 'replaces': pallas + '878',
+         'launches': counts['fsw_rank_cart_fwd'],
+         'max_abs_err': errs['fsw_rank_cart_fwd'],
+         'ms': k4['k4f_ms'], 'plain_ms': k4['k4f_plain_ms'],
+         'bound_ms': k4['k4f_bound_ms'], 'bound_by': k4['k4f_bound_by'],
+         'library_ms': None},
+        {'name': 'fsw_rank_cart_bwd', 'route': 'cuda',
+         'source': src + 'fsw_rank_cart_bwd.cu', 'replaces': pallas + '897',
+         'replaces_mask_body': pallas + '966',
+         'launches': counts['fsw_rank_cart_bwd'],
+         'max_abs_err': errs['fsw_rank_cart_bwd'],
+         'ms': k4['k4b_ms'], 'plain_ms': k4['k4b_plain_ms'],
+         'bound_ms': k4['k4b_bound_ms'], 'bound_by': k4['k4b_bound_by'],
          'library_ms': None}]}
     if not all(k['launches'] > 0 for k in line['kernels']):
         fail(f'a kernel was not launched on its path: {counts}')

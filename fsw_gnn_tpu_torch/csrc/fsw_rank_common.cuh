@@ -1,8 +1,10 @@
 // Device code shared by the weighted-rank FSW kernels: the fused-projection
-// pair K1f / K1b (fsw_rank_fwdp.cu, fsw_rank_bwdp.cu) and the unfused pair
-// K2f / K2b (fsw_rank_fwd.cu, fsw_rank_bwd.cu).  One copy of the rank loop,
-// the trig and the deterministic column sums, so the four kernels compute
-// the same bits from the same projections.
+// pair K1f / K1b (fsw_rank_fwdp.cu, fsw_rank_bwdp.cu), the unfused pair
+// K2f / K2b (fsw_rank_fwd.cu, fsw_rank_bwd.cu) and the cartesian pair
+// K4f / K4b (fsw_rank_cart_fwd.cu, fsw_rank_cart_bwd.cu).  One copy of the
+// rank loop, the trig, the transposed-mask loop and the deterministic
+// column sums, so the kernels compute the same bits from the same
+// projections.
 //
 // For a table row r with weights wn[0 .. B-1], phantom mass pad and one
 // slice of frequency f, every thread owns one slice and holds its column
@@ -139,6 +141,72 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 constexpr int WARPS = TS / 32;     // warps of an entry block
 
+// The with_dw backward's transposed-mask loop on thread tid's column: entry
+// j collects the dc of every i it precedes, in the order i = 0 .. B-1, NI
+// entries j a pass, summed over the warp's slices (warp_sum) and added to
+// d_sm[warp][j] by lane 0.  The tie rule by ranges as in rank_group (an i
+// below the group is preceded on <, an i above it on <=).  Every lane of
+// the warp must call it (the shuffles).
+__device__ __forceinline__ void mask_consume(const float* p_sm,
+                                             const float* dc_sm, float* d_sm,
+                                             int B, int tid, int lane,
+                                             int warp) {
+  for (int j0 = 0; j0 < B; j0 += NI) {
+    float p[NI], acc[NI];
+#pragma unroll
+    for (int k = 0; k < NI; ++k) {
+      p[k] = (j0 + k < B) ? p_sm[(j0 + k) * TS + tid] : 0.f;
+      acc[k] = 0.f;
+    }
+    int i = 0;
+    for (; i < j0; ++i) {
+      const float p_i = p_sm[i * TS + tid], dc_i = dc_sm[i * TS + tid];
+#pragma unroll
+      for (int k = 0; k < NI; ++k) acc[k] += (p[k] < p_i) ? dc_i : 0.f;
+    }
+    for (const int i1 = min(j0 + NI, B); i < i1; ++i) {
+      const float p_i = p_sm[i * TS + tid], dc_i = dc_sm[i * TS + tid];
+#pragma unroll
+      for (int k = 0; k < NI; ++k)
+        acc[k] += (p[k] < p_i || (p[k] == p_i && j0 + k <= i)) ? dc_i : 0.f;
+    }
+    for (; i < B; ++i) {
+      const float p_i = p_sm[i * TS + tid], dc_i = dc_sm[i * TS + tid];
+#pragma unroll
+      for (int k = 0; k < NI; ++k) acc[k] += (p[k] <= p_i) ? dc_i : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < NI; ++k) {
+      if (j0 + k < B) {
+        const float t = warp_sum(acc[k]);
+        if (lane == 0) d_sm[warp * B + j0 + k] += t;
+      }
+    }
+  }
+}
+
+// The with_dw backward's block sums, called by every thread of the block:
+// dwn_part[st, r, :] = the warps' d_sm rows added in warp order, and
+// dpad_part[st, r] = the threads' dpad terms added in the order
+// t = 0 .. TS-1 (r_sm holds TS floats of scratch).
+__device__ __forceinline__ void write_entry_partials(
+    const float* d_sm, float* r_sm, float dpad_acc, float* dwn_part,
+    float* dpad_part, int R, int B, int r, int st, int tid) {
+  r_sm[tid] = dpad_acc;
+  __syncthreads();
+  float* wp = dwn_part + ((size_t)st * R + r) * B;
+  for (int j = tid; j < B; j += TS) {
+    float acc = 0.f;
+    for (int w = 0; w < WARPS; ++w) acc += d_sm[w * B + j];
+    wp[j] = acc;
+  }
+  if (tid == 0) {
+    float acc = 0.f;
+    for (int t = 0; t < TS; ++t) acc += r_sm[t];
+    dpad_part[(size_t)st * R + r] = acc;
+  }
+}
+
 // Dynamic shared memory of rank_bwd_entry_kernel at width B.
 inline size_t entry_smem_bytes(int B, int with_dw) {
   return sizeof(float) * ((size_t)B * TS * (with_dw ? 2 : 1) +
@@ -252,63 +320,13 @@ __global__ void rank_bwd_entry_kernel(const float* P, float* dP,
       }
     }
     if (live) dfr[(size_t)r * S + s] = g * (q + (1.f + f) * qf);
-    if (with_dw) {
-      // transposed mask: entry j collects the dc of every i it precedes,
-      // in the order i = 0 .. B-1, NI entries j a pass; the tie rule by
-      // ranges as in rank_group (an i below the group is preceded on <,
-      // an i above it on <=)
-      for (int j0 = 0; j0 < B; j0 += NI) {
-        float p[NI], acc[NI];
-#pragma unroll
-        for (int k = 0; k < NI; ++k) {
-          p[k] = (j0 + k < B) ? p_sm[(j0 + k) * TS + tid] : 0.f;
-          acc[k] = 0.f;
-        }
-        int i = 0;
-        for (; i < j0; ++i) {
-          const float p_i = p_sm[i * TS + tid], dc_i = dc_sm[i * TS + tid];
-#pragma unroll
-          for (int k = 0; k < NI; ++k) acc[k] += (p[k] < p_i) ? dc_i : 0.f;
-        }
-        for (const int i1 = min(j0 + NI, B); i < i1; ++i) {
-          const float p_i = p_sm[i * TS + tid], dc_i = dc_sm[i * TS + tid];
-#pragma unroll
-          for (int k = 0; k < NI; ++k)
-            acc[k] += (p[k] < p_i || (p[k] == p_i && j0 + k <= i)) ? dc_i
-                                                                   : 0.f;
-        }
-        for (; i < B; ++i) {
-          const float p_i = p_sm[i * TS + tid], dc_i = dc_sm[i * TS + tid];
-#pragma unroll
-          for (int k = 0; k < NI; ++k) acc[k] += (p[k] <= p_i) ? dc_i : 0.f;
-        }
-#pragma unroll
-        for (int k = 0; k < NI; ++k) {
-          if (j0 + k < B) {
-            const float t = warp_sum(acc[k]);
-            if (lane == 0) d_sm[warp * B + j0 + k] += t;
-          }
-        }
-      }
-    }
+    if (with_dw) mask_consume(p_sm, dc_sm, d_sm, B, tid, lane, warp);
   } else if (with_dw && lane == 0) {
     for (int j = 0; j < B; ++j) d_sm[warp * B + j] = 0.f;
   }
   if (!with_dw) return;
-  r_sm[tid] = dpad_acc;
-  __syncthreads();
-  // sums over the block's warps and slices, in a fixed order
-  float* wp = dwn_part + ((size_t)st * R + r) * B;
-  for (int j = tid; j < B; j += TS) {
-    float acc = 0.f;
-    for (int w = 0; w < WARPS; ++w) acc += d_sm[w * B + j];
-    wp[j] = acc;
-  }
-  if (tid == 0) {
-    float acc = 0.f;
-    for (int t = 0; t < TS; ++t) acc += r_sm[t];
-    dpad_part[(size_t)st * R + r] = acc;
-  }
+  write_entry_partials(d_sm, r_sm, dpad_acc, dwn_part, dpad_part, R, B, r,
+                       st, tid);
 }
 
 // Launch rank_bwd_entry_kernel on a (R, cdiv(S, TS)) grid; returns the

@@ -21,15 +21,17 @@ Aggregations:
           compute in float32 and cast back: the fused-projection pair K1
           on tables where d_in + d_edge is below the slice width of one
           pass, the unfused pair K2 on projected entries elsewhere (tables
-          and multisets).
-'auto' takes 'rank' for a non-cartesian aggregation whose width (a table's
-bucket size, a multiset's n) is at most RANK_AGGREGATE_MAX_BUCKET_NO_DW,
-and 'sort' beyond it and in cartesian mode, on the CPU and on the card
+          and multisets), and in cartesian mode the pair K4 on projected
+          entries (tables and multisets), which ranks once for all the
+          frequencies of a slice.
+'auto' takes 'rank' for an aggregation whose width (a table's bucket
+size, a multiset's n) is at most RANK_AGGREGATE_MAX_BUCKET_NO_DW, and
+'sort' beyond it, in cartesian mode too, on the CPU and on the card
 alike, whether or not the weights take a gradient.  The crossover rules
 the JAX package measured on its own hardware are not carried over; the
 width cap is the widest it ever routes to its rank kernels.  On an H100
-the unfused pair's forward and backward with weight gradients beat the
-sort route at n = 100 and at the cap (`chip_smoke.py`'s multiset phase).
+the rank kernels' forward and backward with weight gradients beat the
+sort route at the widths `chip_smoke.py` measures (PERF.md).
 
 The CSR graph path (`fsw_embed_graph`) sorts every slice's projections
 within each recipient's segment and takes c with the segmented cumsum,
@@ -45,7 +47,8 @@ from typing import Optional, Tuple, Union
 import torch
 
 from .graph import Graph
-from .ops.fsw_rank import fsw_rank_aggregate, fsw_rank_aggregate_proj
+from .ops.fsw_rank import (fsw_rank_aggregate, fsw_rank_aggregate_cart,
+                           fsw_rank_aggregate_proj)
 from .ops.segcumsum import segcumsum, segment_boundaries
 from .ops.segment import segment_argsort, segment_sum
 
@@ -53,9 +56,6 @@ from .ops.segment import segment_argsort, segment_sum
 # `RANK_AGGREGATE_MAX_BUCKET_NO_DW`): the kernels hold a whole row in a
 # block's shared memory, and their B x B rank loop outgrows a sort
 RANK_AGGREGATE_MAX_BUCKET_NO_DW = 128
-
-_K4_TODO = ('the cartesian rank kernel (K4 in ROADMAP.md, '
-            'fsw_rank_aggregate_cart) is not ported yet')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,27 +212,25 @@ def _finalize(emb, w_sum, cfg: FSWConfig, bias, total_mass_scale):
 def _resolve_aggregate(aggregate: str, cfg: FSWConfig, bucket_size: int,
                        s_eff: Optional[int] = None) -> str:
     """The route of one aggregation of width `bucket_size` (a table's
-    bucket, a multiset's n): 'sort', 'rank' (the unfused kernels K2) or
-    'rank_proj' (the fused-projection kernels K1, tables only: pass the
-    slice width of one pass as `s_eff`, and K1 is taken where
-    d_in + d_edge < s_eff).
+    bucket, a multiset's n): 'sort', 'rank' (the unfused kernels K2, or K4
+    in cartesian mode) or 'rank_proj' (the fused-projection kernels K1,
+    tables outside cartesian mode only: pass the slice width of one pass
+    as `s_eff`, and K1 is taken where d_in + d_edge < s_eff).
 
-    'auto' is 'rank' / 'rank_proj' for a non-cartesian aggregation of width
-    at most RANK_AGGREGATE_MAX_BUCKET_NO_DW, 'sort' otherwise.  An
-    explicit 'rank' is honoured at any width, as in the JAX package (on
-    the card a width whose row does not fit a block's shared memory then
-    raises); in cartesian mode it needs K4, which is not ported."""
+    'auto' is 'rank' / 'rank_proj' for an aggregation of width at most
+    RANK_AGGREGATE_MAX_BUCKET_NO_DW, 'sort' otherwise.  An explicit 'rank'
+    is honoured at any width, as in the JAX package (on the card a width
+    whose row does not fit a block's shared memory then raises)."""
     if aggregate not in ('auto', 'sort', 'rank'):
         raise ValueError(f"aggregate must be 'auto'|'sort'|'rank', "
                          f"got {aggregate!r}")
     if aggregate == 'auto':
-        narrow = bucket_size <= RANK_AGGREGATE_MAX_BUCKET_NO_DW
-        aggregate = 'rank' if narrow and not cfg.cartesian_mode else 'sort'
+        aggregate = ('rank' if bucket_size <= RANK_AGGREGATE_MAX_BUCKET_NO_DW
+                     else 'sort')
     if aggregate == 'sort':
         return 'sort'
-    if cfg.cartesian_mode:
-        raise NotImplementedError(_K4_TODO)
-    fused = s_eff is not None and cfg.proj_dim < s_eff
+    fused = (not cfg.cartesian_mode and s_eff is not None
+             and cfg.proj_dim < s_eff)
     return 'rank_proj' if fused else 'rank'
 
 
@@ -258,18 +256,22 @@ def bucket_quadrature(P, wn, pad_norm, f_block, cfg: FSWConfig, agg: str,
 
     P (R, B, S_blk); wn (R, B); pad_norm (R,); f_block (S_blk,) (or
     (F,) or (S_blk, F) in cartesian mode).  `agg` is resolved: 'sort'
-    (stable sort + cumsum) or 'rank' (kernel K2, in float32, cast back;
-    cartesian mode's K4 is not ported).  `uniform_w` declares row-constant
-    weights (see `fsw_rank_aggregate`).  Returns (R, S_blk) (or
-    (R, S_blk, F))."""
+    (stable sort + cumsum) or 'rank' (kernel K2, or in cartesian mode K4
+    on the (S_blk, F) frequency matrix, in float32, cast back).
+    `uniform_w` declares row-constant weights (see `fsw_rank_aggregate`).
+    Returns (R, S_blk) (or (R, S_blk, F))."""
     if agg == 'rank':
-        if cfg.cartesian_mode:
-            raise NotImplementedError(_K4_TODO)
         f32 = torch.float32
-        out = fsw_rank_aggregate(
-            P.to(f32).contiguous(), wn.to(f32).contiguous(),
-            pad_norm.to(f32).contiguous(), f_block.to(f32).contiguous(),
-            uniform_w=uniform_w, with_dw=weights_grad)
+        a32 = (P.to(f32).contiguous(), wn.to(f32).contiguous(),
+               pad_norm.to(f32).contiguous())
+        fb = f_block.to(f32)
+        aggregate = fsw_rank_aggregate
+        if cfg.cartesian_mode:
+            aggregate = fsw_rank_aggregate_cart
+            if fb.dim() == 1:       # the grid every slice shares
+                fb = fb.expand(P.shape[2], fb.shape[0])
+        out = aggregate(*a32, fb.contiguous(), uniform_w=uniform_w,
+                        with_dw=weights_grad)
         return out.to(P.dtype)
     return _sort_quadrature(P.transpose(1, 2), wn, pad_norm, f_block, cfg)
 
@@ -414,9 +416,10 @@ def fsw_embed_multiset(X, W, projVecs, freqs, cfg: FSWConfig,
 
     Each multiset is one neighborhood of width n, routed as a table class
     (`_resolve_aggregate`, bucket n): 'rank' projects with a matmul and
-    runs kernel K2 on the (R, n, S) projections (R = the leading dims
-    flattened); 'sort' sorts, except that synthesized weights (W=None)
-    outside cartesian mode take the static-grid quadrature: the sorted
+    runs kernel K2 (K4 in cartesian mode) on the (R, n, S) projections
+    (R = the leading dims flattened); 'sort' sorts, except that
+    synthesized weights (W=None) outside cartesian mode take the
+    static-grid quadrature: the sorted
     cumulative weight is then the fixed grid c_j = (j + 1) wc (+ the
     phantom mass above zero), so only the keys are sorted and the trig is
     one (S, n) matrix.  Synthesized weights are never differentiated."""

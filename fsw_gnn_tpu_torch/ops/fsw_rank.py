@@ -1,14 +1,19 @@
 """FSW aggregation by weighted ranks: the CUDA kernels and their plain
 PyTorch versions.
 
-Two kernel pairs, replacing the two rank aggregations of
+Three kernel pairs, replacing the three rank aggregations of
 fsw_gnn_tpu/ops/fsw_rank_pallas.py:
 
   * K2 `fsw_rank_aggregate` on projections P (R, B, S) already computed:
     forward K2f (TPU `_fwd_kernel`), backward K2b (TPU `_bwd_kernel`);
   * K1 `fsw_rank_aggregate_proj` on sender rows Z (R, B, D) and the slice
     matrix V (D, S), projecting P = Z V itself: forward K1f (TPU
-    `_fwdp_kernel`), backward K1b (TPU `_bwdp_kernel`).
+    `_fwdp_kernel`), backward K1b (TPU `_bwdp_kernel`);
+  * K4 `fsw_rank_aggregate_cart`, cartesian mode: K2 on P with an (S, F)
+    frequency matrix, out (R, S, F), the ranks computed once for all F
+    frequencies: forward K4f (TPU `_fwdc_kernel`), backward K4b (TPU
+    `_bwdc_kernel` and `_mask_consume_kernel`, fused).  K2's plain
+    versions are K4's with F = 1.
 
 For table rows r, entries i, j of width B and slices s:
 
@@ -30,12 +35,15 @@ everywhere), with g the output cotangent and A = pi f (2c - w):
     dwn_j  = sum_s (1 + f) g p_j 2 cos(A - pi f w) + sum_{i,s} dc_i M_ij
     dpad   = sum_{i,s} dc_i 1[p_i > 0]
     K1 only: dZ = dP V^T, dV = Z^T dP (summed over every row and entry).
+    K4: every term for each frequency column k, dp, dc and dwn summed
+    over k, df (S, F) per column.
 
 The kernel sources (csrc/fsw_rank_fwd.cu, fsw_rank_bwd.cu,
-fsw_rank_fwdp.cu, fsw_rank_bwdp.cu, sharing csrc/fsw_rank_common.cuh) say
-what bounds them on an H100 and what their design does about it.
+fsw_rank_fwdp.cu, fsw_rank_bwdp.cu, fsw_rank_cart_fwd.cu,
+fsw_rank_cart_bwd.cu, sharing csrc/fsw_rank_common.cuh) say what bounds
+them on an H100 and what their design does about it.
 
-Both public functions are `torch.autograd.Function`s: on CPU tensors their
+The public functions are `torch.autograd.Function`s: on CPU tensors their
 forward and backward are the plain versions, on CUDA tensors the kernels.
 On the card they never fall back.  Like the TPU kernels they save only
 their inputs and recompute the ranks (and K1 the projection) in the
@@ -110,15 +118,75 @@ def _freq_consts(freqs):
     return fz, inv_f
 
 
-def fsw_rank_aggregate_plain(P, wn, pad_norm, freqs, uniform_w: bool = False):
-    """Plain PyTorch forward of K2 (the formulas of `_fwd_kernel`): the
-    B-step masked rank loop, then the quadrature.  Any float dtype."""
+def _acc(total, term):
+    return term if total is None else total + term
+
+
+def fsw_rank_aggregate_cart_plain(P, wn, pad_norm, freqs,
+                                  uniform_w: bool = False):
+    """Plain PyTorch forward of K4 (the formulas of `_fwdc_kernel`): the
+    B-step masked rank loop once, then the quadrature for every column of
+    the (S, F) frequency matrix.  Returns (R, S, F).  Any float dtype."""
     c = _rank(P, wn, pad_norm)
-    sin_fw, _, _, cos_t = _trig(wn, c, freqs, uniform_w)
-    fz, inv_f = _freq_consts(freqs)
-    sd = torch.where(fz, 2.0 * wn[:, :, None],
-                     (2.0 / math.pi) * inv_f * sin_fw) * cos_t
-    return (1.0 + freqs) * torch.sum(P * sd, dim=1)
+    outs = []
+    for k in range(freqs.shape[1]):
+        f = freqs[:, k]
+        sin_fw, _, _, cos_t = _trig(wn, c, f, uniform_w)
+        fz, inv_f = _freq_consts(f)
+        sd = torch.where(fz, 2.0 * wn[:, :, None],
+                         (2.0 / math.pi) * inv_f * sin_fw) * cos_t
+        outs.append((1.0 + f) * torch.sum(P * sd, dim=1))
+    return torch.stack(outs, dim=-1)
+
+
+def fsw_rank_aggregate_cart_bwd_plain(P, wn, pad_norm, freqs, g,
+                                      uniform_w: bool = False,
+                                      with_dw: bool = True):
+    """Plain PyTorch backward of K4 (the formulas of `_bwdc_kernel` and
+    `_mask_consume_kernel`): returns (dP, dwn, dpad, df) for the output
+    cotangent g (R, S, F), df of shape (S, F); dwn and dpad are None when
+    with_dw is False.  The uniform_w trig is used only without with_dw,
+    as the TPU kernel does."""
+    c = _rank(P, wn, pad_norm)
+    ws = wn[:, :, None]
+    two_c_w = 2.0 * c - ws
+    dP = dc = dwn = None
+    dfs = []
+    for k in range(freqs.shape[1]):
+        f, gk = freqs[:, k], g[:, :, k]
+        sin_fw, cos_fw, sin_t, cos_t = _trig(wn, c, f,
+                                             uniform_w and not with_dw)
+        fz, inv_f = _freq_consts(f)
+        sd = torch.where(fz, 2.0 * ws,
+                         (2.0 / math.pi) * inv_f * sin_fw) * cos_t
+        g1 = ((1.0 + f) * gk)[:, None, :]                    # (R, 1, S)
+        dP = _acc(dP, g1 * sd)
+        phi_f = 2.0 * inv_f * (ws * cos_fw * cos_t
+                               - (inv_f / math.pi) * sin_fw * cos_t
+                               - two_c_w * sin_fw * sin_t)
+        q = torch.sum(P * sd, dim=1)
+        dfs.append(torch.sum(gk * (q + (1.0 + f) * torch.sum(P * phi_f,
+                                                             dim=1)), dim=0))
+        if with_dw:
+            dc = _acc(dc, g1 * P * (-4.0) * sin_fw * sin_t)
+            dwn = _acc(dwn, torch.sum(
+                g1 * P * 2.0 * (cos_fw * cos_t + sin_fw * sin_t), dim=2))
+    df = torch.stack(dfs, dim=1)
+    if not with_dw:
+        return dP, None, None, df
+    zero = torch.zeros((), dtype=P.dtype, device=P.device)
+    dpad = torch.sum(torch.where(P > 0, dc, zero), dim=(1, 2))
+    pos = torch.arange(P.shape[1], device=P.device).view(1, -1, 1)
+    cols = [torch.sum(torch.where(_precedes(P, pos, j), dc, zero), dim=(1, 2))
+            for j in range(P.shape[1])]
+    return dP, dwn + torch.stack(cols, dim=1), dpad, df
+
+
+def fsw_rank_aggregate_plain(P, wn, pad_norm, freqs, uniform_w: bool = False):
+    """Plain PyTorch forward of K2 (the formulas of `_fwd_kernel`): K4's
+    with the one frequency column f_s per slice.  Any float dtype."""
+    return fsw_rank_aggregate_cart_plain(P, wn, pad_norm, freqs[:, None],
+                                         uniform_w)[..., 0]
 
 
 def fsw_rank_aggregate_bwd_plain(P, wn, pad_norm, freqs, g,
@@ -126,33 +194,10 @@ def fsw_rank_aggregate_bwd_plain(P, wn, pad_norm, freqs, g,
                                  with_dw: bool = True):
     """Plain PyTorch backward of K2 (the formulas of `_bwd_kernel`):
     returns (dP, dwn, dpad, df) for the output cotangent g (R, S); dwn and
-    dpad are None when with_dw is False.  The uniform_w trig is used only
-    without with_dw, as the TPU kernel does."""
-    c = _rank(P, wn, pad_norm)
-    ws = wn[:, :, None]
-    sin_fw, cos_fw, sin_t, cos_t = _trig(wn, c, freqs,
-                                         uniform_w and not with_dw)
-    fz, inv_f = _freq_consts(freqs)
-    sd = torch.where(fz, 2.0 * ws, (2.0 / math.pi) * inv_f * sin_fw) * cos_t
-    g1 = ((1.0 + freqs) * g)[:, None, :]                     # (R, 1, S)
-    dP = g1 * sd
-    two_c_w = 2.0 * c - ws
-    phi_f = 2.0 * inv_f * (ws * cos_fw * cos_t
-                           - (inv_f / math.pi) * sin_fw * cos_t
-                           - two_c_w * sin_fw * sin_t)
-    q = torch.sum(P * sd, dim=1)
-    df = torch.sum(g * (q + (1.0 + freqs) * torch.sum(P * phi_f, dim=1)),
-                   dim=0)
-    if not with_dw:
-        return dP, None, None, df
-    dc = g1 * P * (-4.0) * sin_fw * sin_t
-    zero = torch.zeros((), dtype=P.dtype, device=P.device)
-    dpad = torch.sum(torch.where(P > 0, dc, zero), dim=(1, 2))
-    dwn = torch.sum(g1 * P * 2.0 * (cos_fw * cos_t + sin_fw * sin_t), dim=2)
-    pos = torch.arange(P.shape[1], device=P.device).view(1, -1, 1)
-    cols = [torch.sum(torch.where(_precedes(P, pos, j), dc, zero), dim=(1, 2))
-            for j in range(P.shape[1])]
-    return dP, dwn + torch.stack(cols, dim=1), dpad, df
+    dpad are None when with_dw is False.  K4's with one frequency column."""
+    dP, dwn, dpad, df = fsw_rank_aggregate_cart_bwd_plain(
+        P, wn, pad_norm, freqs[:, None], g[..., None], uniform_w, with_dw)
+    return dP, dwn, dpad, df[:, 0]
 
 
 def fsw_rank_aggregate_proj_plain(Z, wn, pad_norm, freqs, V,
@@ -190,6 +235,11 @@ _SIGNATURES = {
     'fsw_rank_bwd': ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5,
                      {'workspace_bytes': [ctypes.c_int] * 4,
                       'smem_bytes': [ctypes.c_int] * 2}),
+    'fsw_rank_cart_fwd': ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5,
+                          {'smem_bytes': [ctypes.c_int] * 2}),
+    'fsw_rank_cart_bwd': ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6,
+                          {'workspace_bytes': [ctypes.c_int] * 5,
+                           'smem_bytes': [ctypes.c_int] * 4}),
 }
 
 
@@ -361,6 +411,115 @@ def fsw_rank_aggregate(P, wn, pad_norm, freqs, uniform_w: bool = False,
                        bool(uniform_w) and not with_dw, bool(with_dw))
 
 
+# ---- K4: the cartesian weighted-rank aggregation ---------------------------
+
+def _fwd4(P, wn, pad_norm, freqs, uniform_w):
+    """K4's forward on P's device: plain on the CPU, K4f on the card."""
+    if _device(P) == 'cpu':
+        return fsw_rank_aggregate_cart_plain(P, wn, pad_norm, freqs,
+                                             uniform_w)
+    R, B, S = P.shape
+    F = freqs.shape[1]
+    _check(list(zip(('P', 'wn', 'pad_norm', 'freqs'),
+                    (P, wn, pad_norm, freqs))),
+           {'wn': (R, B), 'pad_norm': (R,), 'freqs': (S, F)})
+    out = torch.empty((R, S, F), dtype=torch.float32, device=P.device)
+    if R == 0 or S == 0 or F == 0:
+        return out
+    if B == 0:
+        return out.zero_()
+    _fits('fsw_rank_cart_fwd', B, B, F)
+    _launch('fsw_rank_cart_fwd', _kernel('fsw_rank_cart_fwd')[0], P, wn,
+            pad_norm, freqs, out, R, B, S, F, int(bool(uniform_w)))
+    fsw_rank_aggregate_cart.launches += 1
+    return out
+
+
+def fsw_rank_aggregate_cart_bwd(P, wn, pad_norm, freqs, g,
+                                uniform_w: bool = False,
+                                with_dw: bool = True):
+    """K4's backward on P's device: (dP, dwn, dpad, df), df (S, F), dwn and
+    dpad None without with_dw.  CPU tensors: the plain version.  CUDA
+    tensors: kernel K4b (float32, contiguous), or an error; each call adds
+    one to `fsw_rank_aggregate_cart_bwd.launches`."""
+    if _device(P) == 'cpu':
+        return fsw_rank_aggregate_cart_bwd_plain(
+            P, wn, pad_norm, freqs, g, uniform_w=uniform_w, with_dw=with_dw)
+    R, B, S = P.shape
+    F = freqs.shape[1]
+    _check(list(zip(('P', 'wn', 'pad_norm', 'freqs', 'g'),
+                    (P, wn, pad_norm, freqs, g))),
+           {'wn': (R, B), 'pad_norm': (R,), 'freqs': (S, F),
+            'g': (R, S, F)})
+    unif = bool(uniform_w) and not with_dw
+    f32 = dict(dtype=torch.float32, device=P.device)
+    dP = torch.empty((R, B, S), **f32)
+    df = torch.empty((S, F), **f32)
+    dwn = torch.empty((R, B), **f32) if with_dw else None
+    dpad = torch.empty((R,), **f32) if with_dw else None
+    if R == 0 or B == 0 or S == 0 or F == 0:
+        for t in (dP, df, dwn, dpad):
+            if t is not None:
+                t.zero_()
+        return dP, dwn, dpad, df
+    fn, aux = _kernel('fsw_rank_cart_bwd')
+    _fits('fsw_rank_cart_bwd', B, B, F, int(with_dw), int(unif))
+    ws = torch.empty((aux['workspace_bytes'](R, B, S, F, int(with_dw)),),
+                     dtype=torch.uint8, device=P.device)
+    _launch('fsw_rank_cart_bwd', fn, P, wn, pad_norm, freqs, g, dP,
+            dwn if with_dw else None, dpad if with_dw else None, df, ws,
+            R, B, S, F, int(unif), int(bool(with_dw)))
+    fsw_rank_aggregate_cart_bwd.launches += 1
+    return dP, dwn, dpad, df
+
+
+class _RankCart(torch.autograd.Function):
+    """K4f forward, K4b backward (their plain versions on the CPU).  Saves
+    the inputs only; the backward recomputes the ranks, as `_fswc_fwd`
+    does."""
+
+    @staticmethod
+    def forward(ctx, P, wn, pad_norm, freqs, uniform_w, with_dw):
+        ctx.save_for_backward(P, wn, pad_norm, freqs)
+        ctx.uniform_w, ctx.with_dw = uniform_w, with_dw
+        if P.device.type == 'cuda' and any(ctx.needs_input_grad[:4]):
+            # refuse now a width the backward could not take
+            dw = with_dw and any(ctx.needs_input_grad[1:3])
+            _fits('fsw_rank_cart_bwd', P.shape[1], P.shape[1],
+                  freqs.shape[1], int(dw), int(uniform_w and not dw))
+        return _fwd4(P, wn, pad_norm, freqs, uniform_w)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        need = ctx.needs_input_grad
+        if not any(need[:4]):
+            return (None,) * 6
+        with_dw = ctx.with_dw and (need[1] or need[2])
+        grads = fsw_rank_aggregate_cart_bwd(
+            *ctx.saved_tensors, g.contiguous(), uniform_w=ctx.uniform_w,
+            with_dw=with_dw)
+        return tuple(t if n else None for t, n in zip(grads, need)) + (
+            None, None)
+
+
+def fsw_rank_aggregate_cart(P, wn, pad_norm, freqs, uniform_w: bool = False,
+                            with_dw: bool = True):
+    """Cartesian mode: P (R, B, S) per-entry projections; wn (R, B)
+    normalized weights; pad_norm (R,) phantom-mass shift; freqs (S, F) the
+    frequency rows of the slices (usually identical; per-slice rows work
+    too).  Returns (R, S, F) including the (1 + f) factor, differentiable
+    in P, wn, pad_norm and freqs.  The rank loop runs once and serves all
+    F frequencies.
+
+    CPU tensors: the plain versions.  CUDA tensors: kernels K4f and K4b
+    (float32, contiguous), or an error; each forward launch adds one to
+    `fsw_rank_aggregate_cart.launches`.  with_dw and uniform_w as in
+    `fsw_rank_aggregate`."""
+    return _RankCart.apply(P, wn, pad_norm, freqs,
+                           bool(uniform_w) and not with_dw, bool(with_dw))
+
+
 # ---- K1: the fused-projection weighted-rank aggregation --------------------
 
 def _fwd(Z, wn, pad_norm, freqs, V, uniform_w):
@@ -468,3 +627,5 @@ fsw_rank_aggregate.launches = 0
 fsw_rank_aggregate_bwd.launches = 0
 fsw_rank_aggregate_proj.launches = 0
 fsw_rank_aggregate_proj_bwd.launches = 0
+fsw_rank_aggregate_cart.launches = 0
+fsw_rank_aggregate_cart_bwd.launches = 0

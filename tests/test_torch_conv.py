@@ -137,7 +137,7 @@ def test_fswconv_grads_f64_sort_match_jax():
 def test_embed_multi_table_sort_variants_match_jax(cfg_kw):
     """The embedding alone on the sort route, float64, rtol 1e-10: the
     total-mass encodings and cartesian mode, which FSWConv's defaults do
-    not reach (the rank kernels of cartesian mode are not ported)."""
+    not reach (cartesian mode's rank route: tests/test_torch_cart.py)."""
     from fsw_gnn_tpu import embedding as JE
     from fsw_gnn_tpu_torch import embedding as TE
     rng = np.random.default_rng(6)

@@ -414,3 +414,134 @@ def test_csr_fswconv_matches_cpu(cuda_device):
     for got, want in zip(res[1], res[0]):
         torch.testing.assert_close(got, want, rtol=1e-4,
                                    atol=1e-4 * want.abs().max().item())
+
+
+# ---- K4: the cartesian rank aggregation --------------------------------------
+
+def _args4(rng, R, B, S, F, uniform_w, dev):
+    """K4's float32 inputs on the card: K2's (`_args2`) with an (S, F)
+    frequency matrix whose rows differ, an f = 0 column and one
+    'spread'-range frequency."""
+    P, wn, pad, _ = _args2(rng, R, B, S, uniform_w, dev)
+    freqs = np.abs(rng.standard_normal((S, F))) + 0.1
+    freqs[:, 1 % F] = 0.0
+    freqs[-1, -1] = 2.0 * S - 1.0
+    return [P, wn, pad, torch.from_numpy(freqs.astype(np.float32)).to(dev)]
+
+
+CART_SHAPES = [(8, 127, 8), (32, 128, 8), (100, 130, 3), (128, 200, 8),
+               (13, 7, 1), (300, 65, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,S,F', CART_SHAPES)
+@pytest.mark.parametrize('uniform_w', [False, True])
+def test_rank_cart_kernel_matches_plain(cuda_device, B, S, F, uniform_w):
+    """K4f against its plain version: |kernel - plain| <= 2e-5 *
+    max|plain| + 1e-5 * |plain| (as K2f: the ranks agree to the bit, the
+    trig differs)."""
+    from fsw_gnn_tpu_torch.ops.fsw_rank import (
+        fsw_rank_aggregate_cart, fsw_rank_aggregate_cart_plain)
+    args = _args4(np.random.default_rng(B + F), 37, B, S, F, uniform_w,
+                  cuda_device)
+    before = fsw_rank_aggregate_cart.launches
+    with torch.no_grad():
+        got = fsw_rank_aggregate_cart(*args, uniform_w=uniform_w,
+                                      with_dw=False)
+    torch.cuda.synchronize()
+    assert fsw_rank_aggregate_cart.launches == before + 1
+    assert got.shape == (37, S, F)
+    want = fsw_rank_aggregate_cart_plain(*args, uniform_w=uniform_w)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=2e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,S,F', CART_SHAPES)
+@pytest.mark.parametrize('with_dw', [False, True])
+def test_rank_cart_bwd_kernel_matches_plain(cuda_device, B, S, F, with_dw):
+    """K4b against its plain version, each output within 1e-4 of its
+    largest plain entry + 1e-4 * |plain| (the trig, and the summation
+    orders over the frequencies, of df over R and of dwn over S);
+    zero-weight entries get exactly dP = 0; two calls give the same
+    bits."""
+    from fsw_gnn_tpu_torch.ops.fsw_rank import (
+        fsw_rank_aggregate_cart_bwd, fsw_rank_aggregate_cart_bwd_plain)
+    rng = np.random.default_rng(3000 + B + F)
+    for uniform_w in (False, True):
+        args = _args4(rng, 37, B, S, F, uniform_w, cuda_device)
+        G = torch.from_numpy(rng.standard_normal((37, S, F)).astype(
+            np.float32)).to(cuda_device)
+        before = fsw_rank_aggregate_cart_bwd.launches
+        got = fsw_rank_aggregate_cart_bwd(*args, G, uniform_w=uniform_w,
+                                          with_dw=with_dw)
+        torch.cuda.synchronize()
+        assert fsw_rank_aggregate_cart_bwd.launches == before + 1
+        want = fsw_rank_aggregate_cart_bwd_plain(
+            *args, G, uniform_w=uniform_w, with_dw=with_dw)
+        assert got[3].shape == (S, F)
+        for g, w, name in zip(got, want, ('dP', 'dwn', 'dpad', 'df')):
+            if w is None:
+                assert g is None and not with_dw
+                continue
+            assert torch.isfinite(g).all(), name
+            torch.testing.assert_close(g, w, rtol=1e-4,
+                                       atol=1e-4 * w.abs().max().item(),
+                                       msg=name)
+        assert torch.all(got[0][args[1] == 0] == 0)
+        again = fsw_rank_aggregate_cart_bwd(*args, G, uniform_w=uniform_w,
+                                            with_dw=with_dw)
+        for a, b in zip(got, again):
+            assert a is None or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_rank_cart_autograd_and_width_limits(cuda_device):
+    """The autograd Function runs K4f and K4b on the card and its
+    gradients equal the plain backward's; a width whose row K4b cannot
+    hold raises a ValueError naming it before anything is launched, also
+    through an explicit aggregate='rank' of the embedding."""
+    import fsw_gnn_tpu_torch as T
+    from fsw_gnn_tpu_torch.ops.fsw_rank import (
+        fsw_rank_aggregate_cart, fsw_rank_aggregate_cart_bwd,
+        fsw_rank_aggregate_cart_bwd_plain)
+    rng = np.random.default_rng(9)
+    args = _args4(rng, 11, 24, 40, 8, False, cuda_device)
+    G = torch.from_numpy(rng.standard_normal((11, 40, 8)).astype(
+        np.float32)).to(cuda_device)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    before = (fsw_rank_aggregate_cart.launches,
+              fsw_rank_aggregate_cart_bwd.launches)
+    (fsw_rank_aggregate_cart(*leaves) * G).sum().backward()
+    torch.cuda.synchronize()
+    assert (fsw_rank_aggregate_cart.launches,
+            fsw_rank_aggregate_cart_bwd.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = fsw_rank_aggregate_cart_bwd_plain(*args, G, with_dw=True)
+    for t, w in zip(leaves, want):
+        torch.testing.assert_close(t.grad, w, rtol=1e-4,
+                                   atol=1e-4 * w.abs().max().item())
+
+    # with_dw at 8 frequencies: K4b holds B up to 423
+    wide = _args4(rng, 2, 424, 8, 8, False, cuda_device)
+    Gw = torch.zeros((2, 8, 8), device=cuda_device)
+    before = (fsw_rank_aggregate_cart.launches,
+              fsw_rank_aggregate_cart_bwd.launches)
+    with pytest.raises(ValueError, match='bucket width 424'):
+        fsw_rank_aggregate_cart_bwd(*wide, Gw, with_dw=True)
+    with pytest.raises(ValueError, match='bucket width 424'):
+        fsw_rank_aggregate_cart(*[a.requires_grad_(True) for a in wide])
+    cfg = T.FSWConfig(d_in=3, n_slices=8, n_freqs=8)
+    emb = T.FSWEmbedding(cfg, device=cuda_device)
+    X = torch.randn((2, 424, 3), device=cuda_device)
+    W = torch.rand((2, 424), device=cuda_device).requires_grad_(True)
+    with pytest.raises(ValueError, match='bucket width 424'):
+        emb(X, W, aggregate='rank')
+    assert (fsw_rank_aggregate_cart.launches,
+            fsw_rank_aggregate_cart_bwd.launches) == before
+    assert fsw_rank_aggregate_cart_bwd(
+        *[a.detach() for a in wide], Gw, with_dw=False)[0].shape == (
+            2, 424, 8)
+    huge = _args4(rng, 1, 4096, 8, 8, False, cuda_device)
+    with pytest.raises(ValueError, match='bucket width 4096'):
+        fsw_rank_aggregate_cart(*huge)
