@@ -7,7 +7,8 @@ Phases (any failure exits non-zero before the last line is printed):
   1. the card's name, and its name and power limit from nvidia-smi;
   2. build every CUDA kernel of the package from its sources (nvcc,
      sm_90a, all sources at once), with the seconds it took and ptxas'
-     resource report;
+     resource report, and K1's shared memory a block and blocks an SM (from
+     that report);
   3. K1f (`fsw_rank_fwdp`) against its plain PyTorch version on the card,
      at every degree-class shape of the served envelope, and both timed;
   4. serving: the bench FSWConv (in = out = 64 channels, 127 slices,
@@ -38,13 +39,14 @@ Phases (any failure exits non-zero before the last line is printed):
      is absent: 2708 nodes, 1433 features, 7 classes) with
      TrainConfig(hidden_dims=(64, 64), epochs=30, eval_every=10).  Before
      `fit`, the rank route's arguments of one forward are captured and
-     both kernels held against their plain versions on every (layer,
+     the kernels held against their plain versions on every (layer,
      degree class) table at its full size (layer 0: D = 1433, S = 2865,
-     2712 and 8 rows): K1f on the arguments as passed, K1b on the dyadic
-     grid with with_dw off (the path's) and on.  Then `fit`: the initial
-     loss against a CPU forward of the same model, the loss falling, the
-     final train accuracy above 0.9, K1f and K1b launched
-     (layers x classes x passes) times; then one epoch's parts timed;
+     2712 and 8 rows; the route sends the 2712-row class to K2 and the
+     rest to K1): K1f and K2f on the arguments as passed, K1b on the
+     dyadic grid and K2b with with_dw off (the path's) and on.  Then
+     `fit`: the initial loss against a CPU forward of the same model, the
+     loss falling, the final train accuracy above 0.9, each kernel
+     launched (its tables x passes) times; then one epoch's parts timed;
   8. multisets: the reference demo's FSWEmbedding (d = 20, n = 100, 1000
      slices, random frequencies, seed 0) on 8 x 16 x 16 = 2048 multisets
      (X normal, W a softmax of normal values), so K2 sees P of 819 MB.
@@ -121,19 +123,38 @@ Phases (any failure exits non-zero before the last line is printed):
      one K4b launch each; the first 128 multisets against the CPU;
      forward and forward + backward timed beside the sort route, and a
      kernel trace of the forward + backward;
- 20. one JSON line listing the seven kernels with their launches, errors,
+ 20. Citeseer (`citeseer_phase`): the Trainer on the Citeseer stand-in
+     (3327 nodes, 3703 features), hidden (64, 64), 10 epochs at learning
+     rate 1e-3: the initial loss against a CPU forward, the loss finite
+     and falling, every rank call of one forward held against its plain
+     version; then FSWConv(3703, 64) forward and backward on a 1024-node
+     graph (classes 8 and 16 wide, one routed to K1 at D = 3703, one to
+     K2), output and every gradient against the CPU;
+ 21. the K1 crossover (`routing_phase`): the fused route (K1) against the
+     unfused route (X @ V, the gather, K2) through `fsw_embed_table` with
+     the route forced, forward and forward + backward, in turns, on every
+     class of the bench graph at D = 64 .. 1024 and of Cora's layer 0;
+     a `routing:` line with the rule's pick beside each measurement;
+ 22. where K1's time goes (`k1_ab_phase`) on a served request, a bench
+     step and Cora's layer 0: K1f's projection alone, K1b's step 1 alone
+     and torch.matmul of the same product; and, when the previous
+     design's sources are unpacked under chip_ab/ (`git archive 75b358f
+     fsw_gnn_tpu_torch/csrc | tar -x -C chip_ab`), K1f and K1b against
+     them in turns;
+ 23. one JSON line listing the seven kernels with their launches, errors,
      times and bounds (the launches are those of the main-path runs 4, 6,
-     7, 8, 9, 10, 12-16, 18 and 19 together; K2's times and bounds at
+     7, 8, 9, 10, 12-16, 18, 19 and 20 together; K2's times and bounds at
      phase 8's shape, K3's at phase 12's, K4's at phase 17's with B = 32,
      K4b's with with_dw);
- 21. the last line: {"ok": true, "device": {...}}.
+ 24. the last line: {"ok": true, "device": {...}}.
 
 Tolerances:
   * K1f against its plain version, both on the card in float32:
     |kernel - plain| <= 2e-5 * max|plain| + 1e-5 * |plain|.  The weighted
     ranks agree to the bit wherever the projections do; the projections
-    differ by summation order (sequential FMAs against cuBLAS) and the
-    trig by sincospi against the plain version's libm-style sin/cos.
+    differ by rounding (3xTF32 on the tensor cores, within about 1e-7 of
+    sum |z v|, against cuBLAS in float32) and the trig by sincospi against
+    the plain version's libm-style sin/cos.
   * K1b against its plain version, each output on its own scale:
     |kernel - plain| <= 1e-4 * max|plain| + 1e-4 * |plain|.  The backward
     jumps where two projections swap order, so Z and V are first rounded
@@ -176,19 +197,25 @@ Tolerances:
     the gradient, so its gradients are compared in float64.
 
 Bounds: the least time the card could take for a kernel's work, the
-larger of (bytes that must move) / 3.35 TB/s and (float32 operations) /
-67 TFLOP/s, the H100 SXM's published peaks at 700 W.  Bytes: every input
-tensor read once and every output written once.  Operations: the least
-that this run's data needs.  Zero-weight (padding) entries and rows
-contribute exactly 0, and ranking d entries of one slice needs no more
-than a stable sort and a cumsum, d log2 d + d operations (the kernels'
-B x B rank loop does 3 d^2 instead), so a row with d real entries needs
+largest of (bytes that must move) / 3.35 TB/s, (float32 operations
+outside the tensor cores) / 67 TFLOP/s and, for K1's projections,
+(their operations) / (495 / 3) TFLOP/s: the H100 SXM's published peaks
+at 700 W, TF32 on the tensor cores taken three times a float32 product
+(the 3xTF32 split K1 runs; the pipes overlap, so the largest time
+bounds).  Bytes: every input tensor read once and every output written
+once.  Operations: the least that this run's data needs.  Zero-weight
+(padding) entries and rows contribute exactly 0, and ranking d entries
+of one slice needs no more than a stable sort and a cumsum, d log2 d + d
+operations (the kernels' B x B rank loop does 3 d^2 instead), so a row
+with d real entries needs
   K1f: S * (d (2 D + 20) + d log2 d + d) operations: 2 D an entry for the
-       projection, about 20 for the trig of one entry-slice;
+       projection (on the tensor cores), about 20 for the trig of one
+       entry-slice;
   K1b: S * (d (6 D + 45) + d log2 d + d) operations: 2 D each for the
-       recomputed projection, dZ and dV, about 45 for the two sincospi,
-       the dp, phi_f and df terms of one entry-slice (with with_dw, which
-       the training path does not use, a reverse cumsum adds d more);
+       recomputed projection, dZ and dV (on the tensor cores), about 45
+       for the two sincospi, the dp, phi_f and df terms of one
+       entry-slice (with with_dw, which the training path does not use, a
+       reverse cumsum adds d more);
   K2f: S * (20 d + d log2 d + d) operations: K1f's without the projection;
   K2b: S * (45 d + d log2 d + d) operations, plus d with with_dw: K1b's
        without the three products;
@@ -232,8 +259,10 @@ N_STEPS, STEP_LR = 60, 1e-3
 TRAIN_EPOCHS, TRAIN_EVAL_EVERY, TRAIN_ACC_MIN = 30, 10, 0.9
 LOSS0_RTOL = 1e-4
 PEAK_F32_OPS = 67e12
+PEAK_TF32_OPS = 495e12
 PEAK_BYTES = 3.35e12
 TRIG_OPS, BWD_TRIG_OPS = 20, 45
+MMA_THREADS = 128  # a block of K1's products (csrc/fsw_rank_common.cuh)
 BWD_NAMES = ('dZ', 'dwn', 'dpad', 'df', 'dV')
 BWD2_NAMES = ('dP', 'dwn', 'dpad', 'df')
 HUB_NODES, HUB_IN = 2000, 1024
@@ -250,6 +279,11 @@ CSR_CHECK_DEG = 16
 CLS_GRAPHS, CLS_NODES, CLS_DEGS, CLS_STEPS, CLS_LR = 256, 64, (4, 8), 5, 1e-4
 CSR_HUB_NODES, CSR_HUB_IN, CSR_HUB_DEG = 16384, 8192, 4
 CSR_REQUESTS, CSR_SERVE_HUB_IN, CSR_CLASSES_NODES = 20, 256, 2048
+CITESEER_EPOCHS, CITESEER_LR = 10, 1e-3
+CITESEER_SUB_NODES, CITESEER_SUB_HUBS = 1024, 8
+ROUTE_DS, ROUTE_BENCH_S = (64, 128, 256, 512, 1024), 127
+CORA_D, CORA_S = 1433, 2865
+AB_DIR = os.path.join(ROOT, 'chip_ab')
 
 
 def fail(msg):
@@ -356,8 +390,49 @@ def device_ms(torch, fn, n, reps=5):
     return float(np.median(times)), 1e3 * host
 
 
-def _bound(ops, nbytes):
-    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+def ptxas_kernels(log):
+    """{kernel: (registers, static shared bytes)} of every entry function
+    in nvcc's `-Xptxas -v` report `log`, each named by the last component
+    of its mangled name (`<1>` after a template instantiated with true)."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            sym, i, parts = m.group(1), 3 if m.group(1)[2:3] == 'N' else 2, []
+            while (d := re.match(r'\d+', sym[i:])):
+                n = int(d.group())
+                parts.append(sym[i + d.end():i + d.end() + n])
+                i += d.end() + n
+            name = ((parts[-1] if parts else sym)
+                    + ('<1>' if sym[i:i + 5] == 'ILb1E' else ''))
+            continue
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name is not None:
+            sm = re.search(r'(\d+) bytes smem', line)
+            out[name] = (int(m.group(1)), int(sm.group(1)) if sm else 0)
+            name = None
+    return out
+
+
+def blocks_per_sm(regs, smem, threads):
+    """Blocks of `threads` threads, `regs` registers a thread and `smem`
+    bytes of shared memory that one H100 SM holds at once: the least of
+    its limits on registers (65536, allocated 256 a warp), shared memory
+    (233472, 1024 of it reserved a block), threads (2048) and blocks
+    (32)."""
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // 256) * 256
+    return min(65536 // (per_warp * warps), 233472 // (smem + 1024),
+               2048 // threads, 32)
+
+
+def _bound(ops, nbytes, mma_ops=0.0):
+    """(bound ms, 'operations' or 'bytes') of `ops` float32 operations,
+    `mma_ops` more as 3xTF32 products on the tensor cores, and `nbytes`
+    (see the module docstring)."""
+    t_ops = max(ops / PEAK_F32_OPS, 3 * mma_ops / PEAK_TF32_OPS)
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes
                                        else 'bytes')
 
@@ -375,12 +450,13 @@ def rank_bound_ms(wn, D, S):
     module docstring)."""
     R, B = wn.shape
     deg = (wn > 0).sum(dim=1).double()
-    ops = S * float((deg * (2 * D + TRIG_OPS) + rank_ops(deg)).sum())
-    ops_padded = R * S * (B * (2 * D + TRIG_OPS) + B * np.log2(max(B, 1))
-                          + B)
+    ops = S * float((deg * TRIG_OPS + rank_ops(deg)).sum())
+    mma = S * float(deg.sum()) * 2 * D
     nbytes = 4 * (R * B * D + R * B + R + S + D * S + R * S)
-    ms, by = _bound(ops, nbytes)
-    return ms, by, 1e3 * max(ops_padded / PEAK_F32_OPS, nbytes / PEAK_BYTES)
+    ms, by = _bound(ops, nbytes, mma)
+    padded = _bound(R * S * (B * TRIG_OPS + B * np.log2(max(B, 1)) + B),
+                    nbytes, R * S * B * 2 * D)[0]
+    return ms, by, padded
 
 
 def rank_bwd_bound_ms(wn, D, S):
@@ -389,9 +465,10 @@ def rank_bwd_bound_ms(wn, D, S):
     output cotangent, writes dZ, df and dV (see the module docstring)."""
     R, B = wn.shape
     deg = (wn > 0).sum(dim=1).double()
-    ops = S * float((deg * (6 * D + BWD_TRIG_OPS) + rank_ops(deg)).sum())
+    ops = S * float((deg * BWD_TRIG_OPS + rank_ops(deg)).sum())
+    mma = S * float(deg.sum()) * 6 * D
     nbytes = 4 * (2 * R * B * D + R * B + R + 2 * S + 2 * D * S + R * S)
-    return _bound(ops, nbytes)
+    return _bound(ops, nbytes, mma)
 
 
 def rank2_bound_ms(wn, S, bwd=False, with_dw=False, F=1):
@@ -508,11 +585,10 @@ def check_bwd(torch, label, args, G, unif, with_dw, kind='K1'):
     return max_err, worst_rel
 
 
-def time_rank_kernels(torch, calls, per_layer, gen, n=10, plain_reps=0):
-    """Device ms of K1f and K1b on the captured rank calls of one pass
-    (`per_layer` calls a layer), summed, with the plain versions when
-    plain_reps > 0, and the bound ms of K1b.  Launches made here are not
-    counted as the path's."""
+def time_rank_kernels(torch, calls, gen, n=10, plain_reps=0):
+    """Device ms of K1f and K1b on the captured rank calls of one pass,
+    summed, with the plain versions when plain_reps > 0, and the bound ms
+    of K1b.  Launches made here are not counted as the path's."""
     from fsw_gnn_tpu_torch.ops.fsw_rank import (
         fsw_rank_aggregate_proj, fsw_rank_aggregate_proj_bwd,
         fsw_rank_aggregate_proj_bwd_plain, fsw_rank_aggregate_proj_plain)
@@ -520,7 +596,7 @@ def time_rank_kernels(torch, calls, per_layer, gen, n=10, plain_reps=0):
     bound_by = set()
     rows = []
     with torch.no_grad():
-        for i, (args, unif, dw) in enumerate(calls):
+        for args, unif, dw in calls:
             Z, wn, _, _, V = args
             R, B, D = Z.shape
             S = V.shape[1]
@@ -531,7 +607,7 @@ def time_rank_kernels(torch, calls, per_layer, gen, n=10, plain_reps=0):
                 *args, G, uniform_w=unif, with_dw=dw), n)
             bm, by = rank_bwd_bound_ms(wn, D, S)
             bound_by.add(by)
-            row = dict(layer=i // per_layer, B=B, R=R, D=D, S=S, k1f_ms=f_ms,
+            row = dict(B=B, R=R, D=D, S=S, k1f_ms=f_ms,
                        k1b_ms=b_ms, k1b_bound_ms=bm, k1b_bound_by=by)
             if plain_reps:
                 row['k1f_plain_ms'], _ = device_ms(
@@ -619,7 +695,8 @@ def step_parts_ms(torch, forward, loss_of, opt):
 
 
 def serve_and_check_k1f(torch, T, dev, model, counts, errs):
-    """Phases 3 and 4.  Returns K1f's entry for the kernels line."""
+    """Phases 3 and 4.  Returns the rank calls of one request and K1f's
+    entry for the kernels line."""
     from fsw_gnn_tpu_torch.embedding import table_weights
     from fsw_gnn_tpu_torch.ops.fsw_rank import (
         fsw_rank_aggregate_proj, fsw_rank_aggregate_proj_plain)
@@ -756,7 +833,7 @@ def serve_and_check_k1f(torch, T, dev, model, counts, errs):
                          'rank_kernels_device': k_ms},
     }
     print('serving: ' + json.dumps(main), flush=True)
-    return {'name': 'fsw_rank_fwdp', 'route': 'cuda',
+    return calls, {'name': 'fsw_rank_fwdp', 'route': 'cuda',
             'source': 'fsw_gnn_tpu_torch/csrc/fsw_rank_fwdp.cu',
             'replaces': 'fsw_gnn_tpu/ops/fsw_rank_pallas.py:588',
             'ms': k_ms, 'plain_ms': p_ms,
@@ -847,8 +924,8 @@ def check_rank_calls(torch, dev, calls, cfg, where, errs, all_variants):
 
 
 def bench_step(torch, T, dev, counts, errs):
-    """Phases 5 and 6.  Returns the K1b entry's timing fields and prints
-    the step's numbers."""
+    """Phases 5 and 6.  Returns the rank calls of one forward and the K1b
+    entry's timing fields, and prints the step's numbers."""
     from fsw_gnn_tpu_torch.ops.fsw_rank import (fsw_rank_aggregate_proj,
                                                 fsw_rank_aggregate_proj_bwd)
     cpu_model, X, graph = bench_setup(torch, T)
@@ -914,8 +991,7 @@ def bench_step(torch, T, dev, counts, errs):
         opt.step()
     busy = traced_busy_ms(torch, full_step, 10)
     gen = torch.Generator(device=dev).manual_seed(2)
-    kern, rows = time_rank_kernels(torch, calls, len(calls), gen,
-                                   plain_reps=3)
+    kern, rows = time_rank_kernels(torch, calls, gen, plain_reps=3)
     res = {
         'steps': N_STEPS + 1, 'edges': e_real, 'classes': n_classes,
         'launches_k1f': n_f, 'launches_k1b': n_b,
@@ -935,14 +1011,13 @@ def bench_step(torch, T, dev, counts, errs):
         'per_class': rows,
     }
     print('bench step: ' + json.dumps(res), flush=True)
-    return kern
+    return calls, kern
 
 
 def trainer_phase(torch, T, dev, counts, errs):
     """Phase 7: check the rank kernels on every table of the Trainer's
     path, fit the Trainer on the card, and print its numbers."""
-    from fsw_gnn_tpu_torch.ops.fsw_rank import (fsw_rank_aggregate_proj,
-                                                fsw_rank_aggregate_proj_bwd)
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
     from fsw_gnn_tpu_torch.data import load
     from fsw_gnn_tpu_torch.train import masked_softmax_cross_entropy
     data = load('cora')
@@ -962,30 +1037,42 @@ def trainer_phase(torch, T, dev, counts, errs):
 
     n_layers = len(tr.model.convs)
     n_classes = len(tables_of(tr.compute_graph))
-    # both kernels on every (layer, class) table, as one forward passes it
+    # the rank kernels on every (layer, class) table, as one forward passes
+    # it: K1 where the route takes the fused kernels, K2 where it takes the
+    # unfused ones (layer 0's 2712-row class, D = 1433)
     tr.model.eval()
+    run = lambda: tr.model(tr.X, tr.compute_graph)  # noqa: E731
     with torch.no_grad():
-        calls = capture_rank_calls(lambda: tr.model(tr.X, tr.compute_graph))
-    if len(calls) != n_layers * n_classes:
-        fail(f'trainer: one forward made {len(calls)} rank calls for '
-             f'{n_layers} layers x {n_classes} classes')
+        calls = capture_rank_calls(run)
+        calls2 = capture_rank_calls(run, 'fsw_rank_aggregate')
+    if len(calls) + len(calls2) != n_layers * n_classes:
+        fail(f'trainer: one forward made {len(calls)} K1 and {len(calls2)} '
+             f'K2 calls for {n_layers} layers x {n_classes} classes')
+    print(f'trainer: rank route per (layer, class): K1 on '
+          f'{[tuple(a[0].shape) for a, _, _ in calls]}, K2 on '
+          f'{[tuple(a[0].shape) for a, _, _ in calls2]}')
     check_rank_calls(torch, dev, calls, tr.model.convs[0].embed_cfg,
                      'trainer', errs, all_variants=False)
+    check_rank2_calls(torch, dev, calls2, tr.model.convs[0].embed_cfg,
+                      'trainer', errs, extra=False)
 
-    fsw_rank_aggregate_proj.launches = 0
-    fsw_rank_aggregate_proj_bwd.launches = 0
+    names = ('fsw_rank_aggregate_proj', 'fsw_rank_aggregate_proj_bwd',
+             'fsw_rank_aggregate', 'fsw_rank_aggregate_bwd')
+    for name in names:
+        getattr(R, name).launches = 0
     out = tr.fit()
     torch.cuda.synchronize()
-    n_f, n_b = (fsw_rank_aggregate_proj.launches,
-                fsw_rank_aggregate_proj_bwd.launches)
+    n_f, n_b, n_f2, n_b2 = (getattr(R, name).launches for name in names)
     n_evals = TRAIN_EPOCHS // TRAIN_EVAL_EVERY + 1     # and the final one
-    want_f = n_layers * n_classes * (TRAIN_EPOCHS + n_evals)
-    want_b = n_layers * n_classes * TRAIN_EPOCHS
-    if (n_f, n_b) != (want_f, want_b):
-        fail(f'trainer: K1f launched {n_f}, K1b {n_b} times; expected '
-             f'{want_f} and {want_b}')
+    want = [len(c) * k for c in (calls, calls2)
+            for k in (TRAIN_EPOCHS + n_evals, TRAIN_EPOCHS)]
+    if [n_f, n_b, n_f2, n_b2] != want:
+        fail(f'trainer: K1f, K1b, K2f, K2b launched {n_f}, {n_b}, {n_f2}, '
+             f'{n_b2} times; expected {want}')
     counts['fsw_rank_fwdp'] += n_f
     counts['fsw_rank_bwdp'] += n_b
+    counts['fsw_rank_fwd'] += n_f2
+    counts['fsw_rank_bwd'] += n_b2
     losses = [h['loss'] for h in tr.history]
     if not abs(losses[0] - loss0_cpu) <= LOSS0_RTOL * abs(loss0_cpu):
         fail(f'trainer: initial loss {losses[0]} differs from the CPU '
@@ -1010,13 +1097,22 @@ def trainer_phase(torch, T, dev, counts, errs):
     parts = step_parts_ms(torch, lambda: model(X, g, generator=tr.generator),
                           loss_of, tr.opt)
     gen = torch.Generator(device=dev).manual_seed(3)
-    kern, rows = time_rank_kernels(torch, calls, n_classes, gen, n=3)
+    kern, rows = time_rank_kernels(torch, calls, gen, n=3)
+    k2_ms = {'fwd': 0.0, 'bwd': 0.0}
+    with torch.no_grad():
+        for args, unif, dw in calls2:
+            G = torch.randn(args[0].shape[::2], generator=gen, device=dev)
+            k2_ms['fwd'] += device_ms(torch, lambda: R.fsw_rank_aggregate(
+                *args, uniform_w=unif, with_dw=dw), 3)[0]
+            k2_ms['bwd'] += device_ms(torch, lambda: R.fsw_rank_aggregate_bwd(
+                *args, G, uniform_w=unif, with_dw=dw), 3)[0]
     res = {
         'dataset': data.name, 'nodes': data.num_nodes,
         'features': int(data.features.shape[1]),
         'classes': data.num_classes, 'edges': int(tr.graph.num_edges),
         'layers': n_layers, 'degree_classes': n_classes,
         'launches_k1f': n_f, 'launches_k1b': n_b,
+        'launches_k2f': n_f2, 'launches_k2b': n_b2,
         'epochs': out['epochs_run'],
         'seconds_per_epoch_fit': out['seconds'] / out['epochs_run'],
         'epoch_ms_train_only': epoch_ms,
@@ -1025,6 +1121,7 @@ def trainer_phase(torch, T, dev, counts, errs):
         **parts,
         'device_idle_share': 1.0 - parts['step_device_ms'] / epoch_ms,
         'k1f_ms_per_epoch': kern['fwd'], 'k1b_ms_per_epoch': kern['bwd'],
+        'k2f_ms_per_epoch': k2_ms['fwd'], 'k2b_ms_per_epoch': k2_ms['bwd'],
         'k1b_bound_ms_per_epoch': kern['bwd_bound'],
         'per_layer_class': rows,
     }
@@ -1306,9 +1403,20 @@ def table_k2_phase(torch, T, dev, counts, errs):
     with torch.no_grad():
         fwd_ms, _ = device_ms(
             torch, lambda: model(Xd, gd, slice_chunk=TABLE_CHUNK), 5)
+        # K2f and K2b on each captured (class, chunk) call, summed: the
+        # per-launch time of this path's K2 launches
+        gen = torch.Generator(device=dev).manual_seed(9)
+        k2 = {'k2f_ms': 0.0, 'k2b_ms': 0.0}
+        for args, unif, dw in calls:
+            G = torch.randn(args[0].shape[::2], generator=gen, device=dev)
+            k2['k2f_ms'] += device_ms(torch, lambda: R.fsw_rank_aggregate(
+                *args, uniform_w=unif, with_dw=dw), 10)[0]
+            k2['k2b_ms'] += device_ms(torch, lambda: R.fsw_rank_aggregate_bwd(
+                *args, G, uniform_w=unif, with_dw=dw), 10)[0]
     res = {'classes': n_classes, 'chunks': n_chunks, 'launches_k2f': n_f,
            'launches_k2b': n_b, 'forward_ms': fwd_ms,
-           'cpu_max_rel_err': err}
+           'k2f_ms_per_forward': k2['k2f_ms'],
+           'k2b_ms_per_backward': k2['k2b_ms'], 'cpu_max_rel_err': err}
     print('table K2: ' + json.dumps(res), flush=True)
 
 
@@ -2145,6 +2253,370 @@ def cart_multiset_phase(torch, T, dev, counts, errs):
     print('cart multisets: ' + json.dumps(res), flush=True)
 
 
+def citeseer_phase(torch, T, dev, counts, errs):
+    """Phase 20: the Trainer on the Citeseer stand-in (3327 nodes, 3703
+    features, 6 classes; BASELINE config #3's other dataset), whose first
+    layer the fused kernel once could not hold.  Its initial loss
+    against a CPU forward of the same model, the rank calls of one forward
+    held against their plain versions, a fit of CITESEER_EPOCHS epochs at
+    learning rate 1e-3 with the loss finite and falling, every launch
+    counted.  (At the default 1e-2 this model's loss climbs for the first
+    epochs: 1.90 to 490 in four on an 800-node stand-in on the CPU.)  Then FSWConv(3703,
+    64) forward and backward on the card against the CPU, on a 1024-node
+    graph of in-degree 8 whose first 8 nodes take 8 more in-edges (classes
+    (1016, 8), routed to K2, and (8, 16), routed to K1 at D = 3703), with
+    the features and slice vectors on the dyadic grid."""
+    from fsw_gnn_tpu_torch import embedding as E
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    from fsw_gnn_tpu_torch.data import load
+    from fsw_gnn_tpu_torch.train import masked_softmax_cross_entropy
+    data = load('citeseer')
+    tr = T.Trainer(data, T.TrainConfig(
+        hidden_dims=(64, 64), epochs=CITESEER_EPOCHS,
+        eval_every=CITESEER_EPOCHS, learning_rate=CITESEER_LR), device=dev)
+    cpu_model = copy.deepcopy(tr.model).to('cpu').train()
+    with torch.no_grad():
+        logits = cpu_model(torch.from_numpy(data.features),
+                           T.auto_layout(tr.graph))
+        s_, c_ = masked_softmax_cross_entropy(
+            logits, torch.from_numpy(data.labels).long(),
+            torch.from_numpy(data.train_mask.astype(np.float32)))
+        loss0_cpu = (s_ / max(c_.item(), 1.0)).item()
+    del cpu_model, logits
+    n_classes = len(tables_of(tr.compute_graph))
+    tr.model.eval()
+    run = lambda: tr.model(tr.X, tr.compute_graph)  # noqa: E731
+    with torch.no_grad():
+        calls = capture_rank_calls(run)
+        calls2 = capture_rank_calls(run, 'fsw_rank_aggregate')
+    if len(calls) + len(calls2) != len(tr.model.convs) * n_classes:
+        fail(f'citeseer: one forward made {len(calls)} K1 and '
+             f'{len(calls2)} K2 calls')
+    routes = {'K1': [tuple(a[0].shape) for a, _, _ in calls],
+              'K2': [tuple(a[0].shape) for a, _, _ in calls2]}
+    print(f'citeseer: rank route per (layer, class): {routes}')
+    check_rank_calls(torch, dev, calls, tr.model.convs[0].embed_cfg,
+                     'citeseer', errs, all_variants=False)
+    check_rank2_calls(torch, dev, calls2, tr.model.convs[0].embed_cfg,
+                      'citeseer', errs, extra=False)
+    names = ('fsw_rank_aggregate_proj', 'fsw_rank_aggregate_proj_bwd',
+             'fsw_rank_aggregate', 'fsw_rank_aggregate_bwd')
+    for name in names:
+        getattr(R, name).launches = 0
+    t0 = time.perf_counter()
+    out = tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    got = [getattr(R, name).launches for name in names]
+    n_evals = 2                     # at epoch CITESEER_EPOCHS and the final
+    want = [len(c) * k for c in (calls, calls2)
+            for k in (CITESEER_EPOCHS + n_evals, CITESEER_EPOCHS)]
+    if got != want:
+        fail(f'citeseer: K1f, K1b, K2f, K2b launched {got}; expected {want}')
+    for key, n in zip(('fsw_rank_fwdp', 'fsw_rank_bwdp', 'fsw_rank_fwd',
+                       'fsw_rank_bwd'), got):
+        counts[key] += n
+    losses = [h['loss'] for h in tr.history]
+    if not abs(losses[0] - loss0_cpu) <= LOSS0_RTOL * abs(loss0_cpu):
+        fail(f'citeseer: initial loss {losses[0]} differs from the CPU '
+             f'forward {loss0_cpu}')
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f'citeseer: loss not finite and falling: {losses}')
+
+    # FSWConv(3703, 64) on a small graph, forward and backward, card and CPU
+    n, d = CITESEER_SUB_NODES, data.features.shape[1]
+    ei = regular_graph(20, n, 8)
+    rng = np.random.default_rng(21)
+    extra = [np.stack([(v + 1 + rng.permutation(n - 1)[:16]) % n,
+                       np.full(16, v)]) for v in range(CITESEER_SUB_HUBS)]
+    pairs = np.unique(np.concatenate([ei] + extra, axis=1), axis=1)
+    ei = pairs[:, :0]
+    for v in range(n):          # in-degree 8, or 16 for the first nodes
+        src = pairs[0][pairs[1] == v]
+        k = 16 if v < CITESEER_SUB_HUBS else 8
+        ei = np.concatenate([ei, np.stack([src[:k], np.full(k, v)])], axis=1)
+    mt = T.to_multi_table(T.from_edge_index(ei, n))
+    if sorted(t.bucket_size for t in mt.tables) != [8, 16]:
+        fail(f'citeseer: subgraph classes '
+             f'{[t.bucket_size for t in mt.tables]}')
+    cpu_conv = T.FSWConv(d, 64, minimize_slice_coherence=False,
+                         device='cpu',
+                         generator=torch.Generator().manual_seed(4))
+    X = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    with torch.no_grad():
+        X, Vq = dyadic(X, cpu_conv.fsw_embed.proj_vecs.t())
+        cpu_conv.fsw_embed.proj_vecs.copy_(Vq.t())
+    G = torch.from_numpy(rng.standard_normal((n, 64)).astype(np.float32))
+    conv = copy.deepcopy(cpu_conv).to(dev)
+    before = [getattr(R, name).launches for name in names]
+    Xd = X.to(dev).detach().requires_grad_(True)
+    out_d = conv(Xd, mt.to(dev))
+    (out_d * G.to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    sub = [getattr(R, name).launches - b for name, b in zip(names, before)]
+    cfg = conv.embed_cfg
+    fused = sum(E._resolve_aggregate('auto', cfg, t.bucket_size,
+                                     cfg.nSlices, False, t.idx.size / n)
+                == 'rank_proj' for t in mt.tables)
+    if sub != [fused, fused, 2 - fused, 2 - fused]:
+        fail(f'citeseer: K1f, K1b, K2f, K2b launched {sub} for the '
+             f'subgraph\'s two classes, {fused} of them routed to K1')
+    for key, k in zip(('fsw_rank_fwdp', 'fsw_rank_bwdp', 'fsw_rank_fwd',
+                       'fsw_rank_bwd'), sub):
+        counts[key] += k
+    Xc = X.detach().clone().requires_grad_(True)
+    out_c = cpu_conv(Xc, mt)
+    (out_c * G).sum().backward()
+    errs_rel = {'output': close_to_cpu(torch, 'citeseer conv output', out_d,
+                                       out_c, GRAD_RTOL, GRAD_ATOL_REL),
+                'X': close_to_cpu(torch, 'citeseer conv dX', Xd.grad,
+                                  Xc.grad, GRAD_RTOL, GRAD_ATOL_REL)}
+    for (k, p), q in zip(cpu_conv.named_parameters(), conv.parameters()):
+        errs_rel[k] = close_to_cpu(torch, f'citeseer conv d{k}', q.grad,
+                                   p.grad, GRAD_RTOL, GRAD_ATOL_REL)
+    res = {'dataset': data.name, 'nodes': data.num_nodes, 'features': d,
+           'routes': routes, 'launches_k1f_k1b_k2f_k2b': got,
+           'epochs': out['epochs_run'], 'fit_s': fit_s,
+           'seconds_per_epoch_fit': out['seconds'] / out['epochs_run'],
+           'loss_first': losses[0], 'loss_first_cpu': loss0_cpu,
+           'loss_last': losses[-1],
+           **{k: v for k, v in out['final'].items()},
+           'conv_3703_vs_cpu_max_rel_err': max(errs_rel.values())}
+    print('citeseer: ' + json.dumps(res), flush=True)
+
+
+def _route_case(torch, T, dev, mt, N, D, gen):
+    """The bench model's embedding widened to D features (FSWConv(D, 64):
+    S = 2 max(D, 64) - 1 slices, 'spread' frequencies, random unit slice
+    vectors from seed D), X ~ N(0, 1) on N nodes, both on the dyadic grid,
+    and a cotangent a class."""
+    conv = T.FSWConv(D, D_OUT, minimize_slice_coherence=False, device='cpu',
+                     generator=torch.Generator().manual_seed(D))
+    cfg = conv.embed_cfg
+    X = torch.randn((N, D), generator=gen, device=dev)
+    with torch.no_grad():
+        X, Vq = dyadic(X, conv.fsw_embed.proj_vecs.t().to(dev))
+    V = Vq.t().contiguous().requires_grad_(True)
+    freqs = conv.fsw_embed.freqs.detach().to(dev)
+    Gs = [torch.randn((t.idx.shape[0], cfg.nSlices), generator=gen,
+                      device=dev) for t in tables_of(mt)]
+    return cfg, X, V, freqs, Gs
+
+
+def routing_phase(torch, T, dev):
+    """Phase 21: the fused route (K1: the gather of Z, K1f; K1b) against the
+    unfused route (X @ V in float32, the gather of P, K2f; K2b and the
+    gather's and the product's backward) on every degree class, through
+    `fsw_embed_table` with the route forced, in turns (fused, unfused,
+    unfused, fused), forward and forward + backward (the slice vectors
+    taking the gradient, as in a first layer): the bench graph at D = 64
+    (S = 127) and at D = 128 .. 1024 (S = 2D - 1), and Cora's layer 0
+    (D = 1433, S = 2865, its (2712, 8) and (8, 16) classes).  Both routes'
+    outputs agree (dyadic inputs).  Prints a `routing:` line with the
+    rule's pick beside each measurement; returns K1's arguments at Cora's
+    layer 0 for phase 22."""
+    from fsw_gnn_tpu_torch import embedding as E
+    from fsw_gnn_tpu_torch.data import load
+    ei, _ = simple_graph(0, N_NODES)
+    bench_mt = T.to_multi_table(T.from_edge_index(ei, N_NODES)).to(dev)
+    cora = load('cora')
+    cora_mt = T.auto_layout(T.from_edge_index(
+        cora.edge_index, cora.num_nodes)).to(dev)
+    cases = [('bench', bench_mt, N_NODES, D) for D in ROUTE_DS]
+    cases.append(('cora', cora_mt, cora.num_nodes, CORA_D))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    real = E._k1_faster
+    rows, cora_calls = [], []
+    for graph, mt, N, D in cases:
+        cfg, X, V, freqs, Gs = _route_case(torch, T, dev, mt, N, D, gen)
+        S = cfg.nSlices
+        for tbl, G in zip(tables_of(mt), Gs):
+            rho = tbl.idx.numel() / N
+
+            def run(fused, bwd, tbl=tbl, G=G):
+                E._k1_faster = lambda d, r: fused
+                try:
+                    with torch.set_grad_enabled(bwd):
+                        out = E.fsw_embed_table(X, tbl, V, freqs, cfg,
+                                                return_raw=True,
+                                                weights_grad=False)[0]
+                        if bwd:
+                            torch.autograd.grad(out, V, G)
+                finally:
+                    E._k1_faster = real
+                return out
+            if graph == 'cora':
+                cora_calls += capture_rank_calls(lambda: run(True, False))
+            with torch.no_grad():
+                a, b = run(True, False), run(False, False)
+                torch.cuda.synchronize()
+                err = (a - b).abs()
+                if not bool(torch.all(err <= KERNEL_ATOL_REL * b.abs().max()
+                                      + KERNEL_RTOL * b.abs())):
+                    fail(f'routing: the fused and unfused routes disagree at '
+                         f'{graph} D={D} B={tbl.bucket_size}: max abs err '
+                         f'{err.max().item():.3e}')
+                del a, b, err
+            n = 3
+            t = {}
+            for key, bwd in (('fwd', False), ('fwd_bwd', True)):
+                order = (True, False, False, True)
+                ms = [device_ms(torch, lambda f=f: run(f, bwd), n, 3)[0]
+                      for f in order]
+                t['fused_' + key] = (ms[0] + ms[3]) / 2
+                t['unfused_' + key] = (ms[1] + ms[2]) / 2
+            rule = E._resolve_aggregate('auto', cfg, tbl.bucket_size, S,
+                                        False, rho)
+            rows.append(dict(graph=graph, D=D, S=S, B=tbl.bucket_size,
+                             R=int(tbl.idx.shape[0]), rho=rho, **t,
+                             rule=rule))
+            print(f'  routing {graph} D={D} S={S} B={tbl.bucket_size} '
+                  f'R={tbl.idx.shape[0]} rho={rho:.3f}: ' +
+                  ', '.join(f'{k} {v:.4f} ms' for k, v in t.items()) +
+                  f'; rule {rule}', flush=True)
+        del X, V, Gs
+        torch.cuda.empty_cache()
+    agree = sum((r['rule'] == 'rank_proj')
+                == (r['fused_fwd_bwd'] <= r['unfused_fwd_bwd']) for r in rows)
+    print('routing: ' + json.dumps({
+        'rows': rows, 'rule': {'K1_RHO0': E.K1_RHO0, 'K1_D0': E.K1_D0},
+        'rule_agrees_fwd_bwd': f'{agree} of {len(rows)}'}), flush=True)
+    return cora_calls
+
+
+def _parent_libs(torch):
+    """The previous design's K1f and K1b (chip_ab/fsw_gnn_tpu_torch/csrc,
+    unpacked there by `git archive`), built with the package's nvcc flags
+    under other names, loaded with their C signatures; None without
+    them."""
+    import ctypes
+    from fsw_gnn_tpu_torch import kernels
+    from fsw_gnn_tpu_torch.ops.fsw_rank import _SIGNATURES
+    src = os.path.join(AB_DIR, 'fsw_gnn_tpu_torch', 'csrc')
+    if not os.path.isdir(src):
+        return None
+    out = os.path.join(AB_DIR, '_build')
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for name in ('fsw_rank_fwdp', 'fsw_rank_bwdp'):
+        lib = os.path.join(out, f'libparent_{name}.so')
+        procs[name] = (lib, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, '-o', lib,
+             os.path.join(src, f'{name}.cu')], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f'the previous {name}.cu did not build:\n{log}')
+        for line in log.splitlines():
+            if 'registers' in line or 'spill' in line:
+                print(f'  previous {name}: {line.strip()}')
+        cdll = ctypes.CDLL(lib)
+        fn = getattr(cdll, f'{name}_f32')
+        fn.argtypes = _SIGNATURES[name][0] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        libs[name] = fn
+        if name == 'fsw_rank_bwdp':
+            ws = cdll.fsw_rank_bwdp_workspace_bytes
+            ws.argtypes = [ctypes.c_int] * 5
+            ws.restype = ctypes.c_size_t
+            libs['workspace_bytes'] = ws
+    return libs
+
+
+def k1_ab_phase(torch, dev, call_sets):
+    """Phase 22: where K1's time goes, and K1f and K1b against their
+    previous design, on the calls of a served request, a bench step and
+    Cora's layer 0.  Always: K1f's kernel up to its projection (written
+    out), K1b's step 1 alone and `torch.matmul` of the same product in
+    float32 (a reference the port never calls).  When the previous
+    design's sources (FFMA projections; commit 75b358f, unpacked into
+    chip_ab/ by `git archive 75b358f fsw_gnn_tpu_torch/csrc | tar -x -C
+    chip_ab`) are there, as they are not in a plain checkout: both K1f and
+    K1b against them in turns (previous, new, new, previous), K1f's
+    outputs checked against each other."""
+    from fsw_gnn_tpu_torch.ops.fsw_rank import (
+        _launch, fsw_rank_aggregate_proj, fsw_rank_aggregate_proj_bwd,
+        fsw_rank_proj_projections)
+    libs = _parent_libs(torch)
+    if libs is None:
+        print(f'k1 ab: no previous design under {AB_DIR}; K1 alone',
+              flush=True)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    keys = ('k1f_new_projection_only', 'k1b_new_step1_only',
+            'matmul_f32_projection')
+    if libs is not None:
+        keys += ('k1f_parent', 'k1f_new', 'k1b_parent', 'k1b_new')
+    res = {}
+    for label, calls in call_sets.items():
+        tot = dict.fromkeys(keys, 0.0)
+        with torch.no_grad():
+            for args, unif, dw in calls:
+                Z, wn, pad, freqs, V = args
+                R, B, D = Z.shape
+                S = V.shape[1]
+                n = 3 if D > 256 else 10
+                # K1f's own kernel up to its projection, K1b's step 1
+                # alone, and the library's product: where each one's time
+                # goes
+                for key, kern in (('k1f_new_projection_only',
+                                   'fsw_rank_fwdp'),
+                                  ('k1b_new_step1_only', 'fsw_rank_bwdp')):
+                    tot[key] += device_ms(torch, lambda: (
+                        fsw_rank_proj_projections(Z, V, kern)), n, 3)[0]
+                Z2 = Z.reshape(R * B, D)
+                tot['matmul_f32_projection'] += device_ms(
+                    torch, lambda: torch.matmul(Z2, V), n, 3)[0]
+                if libs is None:
+                    continue
+                G = torch.randn((R, S), generator=gen, device=dev)
+                out = torch.empty((R, S), device=dev)
+                f32 = dict(dtype=torch.float32, device=dev)
+                grads = [torch.empty((R, B, D), **f32),
+                         torch.empty((R, B), **f32), torch.empty((R,), **f32),
+                         torch.empty((S,), **f32), torch.empty((D, S), **f32)]
+                ws = torch.empty((libs['workspace_bytes'](R, B, D, S,
+                                                          int(dw)),),
+                                 dtype=torch.uint8, device=dev)
+                u = int(unif and not dw)
+
+                def old_f():
+                    _launch('parent K1f', libs['fsw_rank_fwdp'], Z, wn, pad,
+                            freqs, V, out, R, B, D, S, u)
+
+                def old_b():
+                    _launch('parent K1b', libs['fsw_rank_bwdp'], Z, wn, pad,
+                            freqs, V, G, grads[0], grads[1], grads[2],
+                            grads[3], grads[4], ws, R, B, D, S, u, int(dw))
+
+                def new_f():
+                    return fsw_rank_aggregate_proj(*args, uniform_w=unif,
+                                                   with_dw=dw)
+
+                def new_b():
+                    return fsw_rank_aggregate_proj_bwd(*args, G,
+                                                       uniform_w=unif,
+                                                       with_dw=dw)
+                old_f()
+                want = new_f()
+                torch.cuda.synchronize()
+                e = (out - want).abs().max().item()
+                if not e <= KERNEL_ATOL_REL * want.abs().max().item() * 4:
+                    fail(f'k1 ab: the previous K1f and the new one differ '
+                         f'by {e:.3e} ({label}, B={B} D={D})')
+                for key, old, new in (('k1f', old_f, new_f),
+                                      ('k1b', old_b, new_b)):
+                    ms = [device_ms(torch, fn, n, 3)[0]
+                          for fn in (old, new, new, old)]
+                    tot[key + '_parent'] += (ms[0] + ms[3]) / 2
+                    tot[key + '_new'] += (ms[1] + ms[2]) / 2
+        res[label] = tot
+        print(f'  k1 ab {label}: ' + ', '.join(
+            f'{k} {v:.4f} ms' for k, v in tot.items()), flush=True)
+    print('k1 ab: ' + json.dumps(res), flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2179,6 +2651,23 @@ def main():
                 print(f'  {name}: {line.strip()}')
     sys.stdout.flush()
 
+    # K1's blocks an SM from ptxas' report, and shared memory a block
+    from fsw_gnn_tpu_torch.ops.fsw_rank import smem_bytes
+    widths = (8, 16, 24, 32, 64, 128)
+    occ = {}
+    for lib, dyn in (('fsw_rank_fwdp', {B: smem_bytes('fsw_rank_fwdp', B)
+                                        for B in widths}),
+                     ('fsw_rank_bwdp', {0: 0})):
+        for kern, (regs, static) in ptxas_kernels(logs.get(lib, '')).items():
+            if 'fwdp_kernel' in kern or kern in (
+                    'bwdp_proj_kernel', 'bwdp_dz_kernel', 'bwdp_dv_kernel'):
+                occ[kern] = {B: blocks_per_sm(regs, static + d, MMA_THREADS)
+                             for B, d in dyn.items()}
+    print('occupancy: ' + json.dumps({
+        'blocks_per_sm': occ,
+        'k1f_smem_bytes': {B: smem_bytes('fsw_rank_fwdp', B)
+                           for B in widths}}), flush=True)
+
     counts = dict.fromkeys(KERNEL_NAMES, 0)
     errs = dict.fromkeys(KERNEL_NAMES, 0.0)
 
@@ -2187,10 +2676,11 @@ def main():
     model = T.FSWConv(D_IN, D_OUT, mlp_layers=3,
                       minimize_slice_coherence=False, dtype=torch.float32,
                       device=dev, generator=torch.Generator().manual_seed(0))
-    k1f = serve_and_check_k1f(torch, T, dev, model, counts, errs)
+    served_calls, k1f = serve_and_check_k1f(torch, T, dev, model, counts,
+                                            errs)
 
     # ---- 5., 6. the kernels on the bench graph, the bench training step ----
-    k1b_times = bench_step(torch, T, dev, counts, errs)
+    bench_calls, k1b_times = bench_step(torch, T, dev, counts, errs)
 
     # ---- 7. the Trainer -----------------------------------------------------
     trainer_phase(torch, T, dev, counts, errs)
@@ -2213,7 +2703,14 @@ def main():
     cart_table_phase(torch, T, dev, counts, errs)
     cart_multiset_phase(torch, T, dev, counts, errs)
 
-    # ---- 20. kernels line, 21. last line ------------------------------------
+    # ---- 20. Citeseer, 21. the K1 crossover, 22. K1 against its parent ------
+    citeseer_phase(torch, T, dev, counts, errs)
+    cora_calls = routing_phase(torch, T, dev)
+    k1_ab_phase(torch, dev, {'served request': served_calls,
+                             'bench step': bench_calls,
+                             "Cora's layer 0": cora_calls})
+
+    # ---- 23. kernels line, 24. last line ------------------------------------
     src = 'fsw_gnn_tpu_torch/csrc/'
     pallas = 'fsw_gnn_tpu/ops/fsw_rank_pallas.py:'
     line = {'kernels': [

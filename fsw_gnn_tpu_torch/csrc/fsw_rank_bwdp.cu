@@ -20,23 +20,23 @@
 // its output buffers from one row tile to the next.  No CUDA grid is
 // sequential, so the work is six launches on the caller's stream, every
 // sum in a fixed order (two runs give the same bits; no atomics):
-//   1. P = Z V: a 64 x 64 output tile per block, 256 threads of 4 x 4
-//      outputs, the feature axis walked in stages of 16 through shared
-//      memory.  Each output sums over d = 0 .. D-1 in order with fmaf from
-//      0, as the forward kernel's threads do, so P has the forward's bits
-//      and both rank alike.  P goes to the workspace that dp takes later.
+//   1. P = Z V: K1f's projection (`project_block`, fsw_rank_common.cuh) on
+//      K1f's blocks, written to the workspace that dp takes later.  Both
+//      kernels run the same 3xTF32 tensor-core product on the same row
+//      tiles, so P has the forward's bits and both rank alike.
 //   2. entry kernel, one block per (table row, tile of 64 slices), one
 //      thread per slice: its column of P, the rank loop in the order
 //      j = 0 .. B-1, the trig, then dp written over P (each thread owns
 //      its column) and this row's df term to (R, S).  With with_dw it also
 //      runs the transposed-mask loop and reduces dwn / dpad over the
 //      block's slices into per-tile partials.
-//   3. dZ = dP V^T: the same tiling, the slice axis walked in stages.
-//      Each block owns its tile: no cross-block sum.  The feature axis is
-//      tiled too, so any D fits (no B x D accumulator per block).
-//   4. dV = Z^T dP: the same tiling over (D, S), with the entry axis split
-//      into at most 256 chunks (enough blocks to fill the card when D and S
-//      are small); each chunk writes a partial (D, S).
+//   3. dZ = dP V^T: one 64 x 64 output tile (entries x features) a block,
+//      the slice axis walked in chunks, on the same tensor-core routine
+//      (`tile_product`, the same split and chunk order).  Each block owns
+//      its tile: no cross-block sum, and any D fits.
+//   4. dV = Z^T dP: the same routine over (D, S) tiles, with the entry axis
+//      split into at most 256 chunks (enough blocks to fill the card when D
+//      and S are small); each chunk writes a partial (D, S).
 //   5.-6. a column-sum kernel reduces the partials of dV, the (R, S) df
 //      terms (two passes when R > 256) and the dwn / dpad tiles.
 // The entry kernel and the column sums are fsw_rank_common.cuh's, shared
@@ -46,11 +46,11 @@
 // S d (6 D + log2 d + 46) float32 operations (three products of 2 D each:
 // the recomputed projection, dZ and dV; a sort and a cumsum to rank; trig
 // and the df, dp terms) against reading Z, V, G once and writing dZ, dV.
-// At the shapes of the training path the operations dominate.  This version
-// keeps the products in plain FMAs out of shared memory (no tensor cores,
-// no TF32), ranks by the B x B loop (3 d operations an entry) and pays HBM
-// round trips for P and dp; moving the products to wgmma and fusing them
-// with the entry kernel are the next steps.
+// The three products run on the tensor cores in 3xTF32 (three TF32
+// products for each float32 one), staged by `cp.async` through a two-stage
+// ring of 36 KB; the entry kernel ranks by the B x B loop (3 d operations an
+// entry) and P and dp make an HBM round trip.  Fusing step 1 into the entry
+// kernel, so that P never leaves the SM, is the next step.
 //
 // Padded (zero-weight) entries gather sender 0's row, which is not zero.
 // Their dp must be exactly 0, or the scatter-add of dZ into dX corrupts
@@ -68,9 +68,6 @@
 
 namespace {
 
-constexpr int GT = 64;          // output tile edge of the two products
-constexpr int GK = 16;          // reduction depth per shared-memory stage
-constexpr int GTHREADS = 256;   // threads of a product block (4 x 4 each)
 constexpr int FILL_BLOCKS = 264;  // 2 blocks per SM of an H100
 
 // Workspace layout, in floats; each region starts on a 256-byte boundary.
@@ -83,13 +80,13 @@ Plan make_plan(int R, int B, int D, int S, int with_dw) {
   Plan p;
   const long long N = (long long)R * B;
   p.n_st = cdiv(S, TS);
-  const int tiles = cdiv(D, GT) * cdiv(S, GT);
+  const int tiles = cdiv(D, MT) * cdiv(S, NT);
   int want = cdiv(FILL_BLOCKS, tiles);
   want = want < MAX_SPLIT ? want : MAX_SPLIT;
   const int most = cdiv(N, 256);  // at least 256 entries a chunk
   want = want < most ? want : most;
   want = want > 1 ? want : 1;
-  p.chunk = cdiv(cdiv(N, want), GK) * GK;
+  p.chunk = cdiv(cdiv(N, want), KC) * KC;
   p.n_split = cdiv(N, p.chunk);
   size_t off = 0;
   p.dp = off;    off += align64((size_t)N * S);
@@ -102,162 +99,84 @@ Plan make_plan(int R, int B, int D, int S, int with_dw) {
   return p;
 }
 
-// P[n, s] = sum_d Z[n, d] V[d, s]  (n over the R * B entries), each sum in
-// the order d = 0 .. D-1 with fmaf from 0: the forward kernel's bits
-__global__ void __launch_bounds__(GTHREADS)
+// Store one tile product's accumulators (the m16n8k8 layout, see
+// tile_product) to out[(i0 + row) * ld + j0 + col] for row < ni, col < nj.
+__device__ __forceinline__ void store_tile(const float (&acc)[8][4],
+                                           float* out, long long ld,
+                                           long long i0, int ni, int j0,
+                                           int nj) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = 16 * warp + g + (q >> 1) * 8;
+      const int col = 8 * j + 2 * t + (q & 1);
+      if (row < ni && col < nj)
+        out[(i0 + row) * ld + j0 + col] = acc[j][q];
+    }
+}
+
+// Step 1: P (R * B, S) = Z V on K1f's blocks (`project_block`), so every
+// element has K1f's bits.
+__global__ void __launch_bounds__(MMA_THREADS)
 bwdp_proj_kernel(const float* __restrict__ Z, const float* __restrict__ V,
-                 float* __restrict__ P, int N, int D, int S) {
-  __shared__ float a_sm[GK][GT];  // Z tile, [feature][entry]
-  __shared__ float b_sm[GK][GT];  // V tile, [feature][slice]
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const long long n0 = (long long)blockIdx.x * GT;
-  const int s0 = blockIdx.y * GT;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < D; k0 += GK) {
-    for (int e = tid; e < GT * GK; e += GTHREADS) {
-      const int row = e / GK, kk = e % GK, k = k0 + kk;
-      const long long n = n0 + row;
-      a_sm[kk][row] = (n < N && k < D) ? Z[(size_t)n * D + k] : 0.f;
-      const int kb = k0 + e / GT, col = e % GT;
-      b_sm[e / GT][col] =
-          (kb < D && s0 + col < S) ? V[(size_t)kb * S + s0 + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = a_sm[kk][ty * 4 + i];
-        b[i] = b_sm[kk][tx * 4 + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long n = n0 + ty * 4 + i;
-    if (n >= N) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int s = s0 + tx * 4 + j;
-      if (s < S) P[(size_t)n * S + s] = acc[i][j];
-    }
-  }
+                 float* __restrict__ P, int R, int B, int D, int S,
+                 int n_st) {
+  __shared__ __align__(16) float stage[STAGE_FLOATS];
+  const int rt = proj_rows(B);
+  const int s0 = (blockIdx.x % n_st) * TS;
+  const int r0 = (blockIdx.x / n_st) * rt;
+  const int E = min(rt, R - r0) * B;
+  float* pb = P + (size_t)r0 * B * S + s0;
+  project_block(Z + (size_t)r0 * B * D, V, E, D, S, s0, stage,
+                [&](int e, int col, float v) { pb[(size_t)e * S + col] = v; });
 }
 
-// dZ[n, d] = sum_s dp[n, s] V[d, s]  (n over the R * B entries)
-__global__ void __launch_bounds__(GTHREADS)
+// Step 3: dZ[n, d] = sum_s dp[n, s] V[d, s] (n over the R * B entries), one
+// 64 x 64 tile a block, feature tiles first.
+__global__ void __launch_bounds__(MMA_THREADS)
 bwdp_dz_kernel(const float* __restrict__ dp, const float* __restrict__ V,
-               float* __restrict__ dZ, int N, int D, int S) {
-  __shared__ float a_sm[GK][GT];  // dp tile, [slice][entry]
-  __shared__ float b_sm[GK][GT];  // V tile,  [slice][feature]
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const long long n0 = (long long)blockIdx.x * GT;
-  const int d0 = blockIdx.y * GT;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < S; k0 += GK) {
-    for (int e = tid; e < GT * GK; e += GTHREADS) {
-      const int row = e / GK, kk = e % GK, k = k0 + kk;
-      const long long n = n0 + row;
-      const int d = d0 + row;
-      a_sm[kk][row] = (n < N && k < S) ? dp[(size_t)n * S + k] : 0.f;
-      b_sm[kk][row] = (d < D && k < S) ? V[(size_t)d * S + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = a_sm[kk][ty * 4 + i];
-        b[i] = b_sm[kk][tx * 4 + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long n = n0 + ty * 4 + i;
-    if (n >= N) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = d0 + tx * 4 + j;
-      if (d < D) dZ[(size_t)n * D + d] = acc[i][j];
-    }
-  }
+               float* __restrict__ dZ, long long N, int D, int S,
+               int n_dt) {
+  __shared__ __align__(16) float stage[STAGE_FLOATS];
+  const int d0 = (blockIdx.x % n_dt) * NT;
+  const long long n0 = (long long)(blockIdx.x / n_dt) * MT;
+  const int ni = (int)min((long long)MT, N - n0);
+  float acc[8][4];
+  tile_product<true, true>(Operand{dp + n0 * S, S, ni},
+                           Operand{V + (size_t)d0 * S, S, min(NT, D - d0)},
+                           S, stage, acc);
+  store_tile(acc, dZ, D, n0, ni, d0, min(NT, D - d0));
 }
 
-// part[k, d, s] = sum over entries n of chunk k of Z[n, d] dp[n, s]
-__global__ void __launch_bounds__(GTHREADS)
+// Step 4: part[k, d, s] = sum over the entries n of chunk k of
+// Z[n, d] dp[n, s].
+__global__ void __launch_bounds__(MMA_THREADS)
 bwdp_dv_kernel(const float* __restrict__ Z, const float* __restrict__ dp,
-               float* __restrict__ part, int N, int D, int S, int chunk) {
-  __shared__ float a_sm[GK][GT];  // Z tile,  [entry][feature]
-  __shared__ float b_sm[GK][GT];  // dp tile, [entry][slice]
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int d0 = blockIdx.x * GT, s0 = blockIdx.y * GT;
+               float* __restrict__ part, long long N, int D, int S,
+               int chunk) {
+  __shared__ __align__(16) float stage[STAGE_FLOATS];
+  const int s0 = blockIdx.x * NT, d0 = blockIdx.y * MT;
   const long long lo = (long long)blockIdx.z * chunk;
-  const long long hi = min((long long)N, lo + chunk);
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (long long n0 = lo; n0 < hi; n0 += GK) {
-    for (int e = tid; e < GT * GK; e += GTHREADS) {
-      const int kk = e / GT, col = e % GT;
-      const long long n = n0 + kk;
-      a_sm[kk][col] = (n < hi && d0 + col < D)
-                          ? Z[(size_t)n * D + d0 + col] : 0.f;
-      b_sm[kk][col] = (n < hi && s0 + col < S)
-                          ? dp[(size_t)n * S + s0 + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = a_sm[kk][ty * 4 + i];
-        b[i] = b_sm[kk][tx * 4 + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* out = part + (size_t)blockIdx.z * D * S;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int d = d0 + ty * 4 + i;
-    if (d >= D) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int s = s0 + tx * 4 + j;
-      if (s < S) out[(size_t)d * S + s] = acc[i][j];
-    }
-  }
+  const int K = (int)(min(N, lo + chunk) - lo);
+  float acc[8][4];
+  tile_product<false, false>(Operand{Z + lo * D + d0, D, min(MT, D - d0)},
+                             Operand{dp + lo * S + s0, S, min(NT, S - s0)},
+                             K, stage, acc);
+  store_tile(acc, part + (size_t)blockIdx.z * D * S, S, d0,
+             min(MT, D - d0), s0, min(NT, S - s0));
+}
+
+cudaError_t launch_proj(const float* Z, const float* V, float* P, int R,
+                        int B, int D, int S, cudaStream_t st) {
+  const int n_st = cdiv(S, TS);
+  const long long blocks = (long long)cdiv(R, proj_rows(B)) * n_st;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  bwdp_proj_kernel<<<(unsigned)blocks, MMA_THREADS, 0, st>>>(Z, V, P, R, B,
+                                                             D, S, n_st);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -276,6 +195,13 @@ size_t fsw_rank_bwdp_workspace_bytes(int R, int B, int D, int S,
   return sizeof(float) * make_plan(R, B, D, S, with_dw).total;
 }
 
+// Step 1 alone: P (R * B, S) = Z V as K1b recomputes it (R, B, D, S > 0).
+int fsw_rank_bwdp_project_f32(const void* Z, const void* V, void* P, int R,
+                              int B, int D, int S, void* stream) {
+  return (int)launch_proj((const float*)Z, (const float*)V, (float*)P, R, B,
+                          D, S, (cudaStream_t)stream);
+}
+
 // Z (R, B, D), wn (R, B), pad (R,), freqs (S,), V (D, S), G (R, S) in;
 // dZ (R, B, D), df (S,), dV (D, S) out, and with with_dw dwn (R, B) and
 // dpad (R,) (else they may be null); ws the workspace.  Contiguous float32
@@ -288,17 +214,17 @@ int fsw_rank_bwdp_f32(const void* Z, const void* wn, const void* pad,
                       int with_dw, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const Plan p = make_plan(R, B, D, S, with_dw);
-  if (p.n_st > MAX_SPLIT || cdiv(S, GT) > 65535 || cdiv(D, GT) > 65535 ||
+  const long long N = (long long)R * B;
+  const int n_dt = cdiv(D, NT);
+  if (p.n_st > MAX_SPLIT || cdiv(S, NT) > 65535 || cdiv(D, MT) > 65535 ||
+      (long long)cdiv(N, MT) * n_dt > 0x7fffffffLL ||
       entry_smem_bytes(B, with_dw) > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   float* w = (float*)ws;
   float* dp = w + p.dp;
-  const long long N = (long long)R * B;
 
-  bwdp_proj_kernel<<<dim3((unsigned)cdiv(N, GT), (unsigned)cdiv(S, GT)),
-                     GTHREADS, 0, st>>>((const float*)Z, (const float*)V, dp,
-                                        (int)N, D, S);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_proj((const float*)Z, (const float*)V, dp, R, B, D,
+                              S, st);
   if (e != cudaSuccess) return (int)e;
 
   // P in the workspace becomes dp in place
@@ -308,14 +234,13 @@ int fsw_rank_bwdp_f32(const void* Z, const void* wn, const void* pad,
                                  uniform_w, with_dw, st)) != cudaSuccess)
     return (int)e;
 
-  bwdp_dz_kernel<<<dim3((unsigned)cdiv(N, GT), (unsigned)cdiv(D, GT)),
-                   GTHREADS, 0, st>>>(dp, (const float*)V, (float*)dZ,
-                                      (int)N, D, S);
+  bwdp_dz_kernel<<<(unsigned)((long long)cdiv(N, MT) * n_dt), MMA_THREADS, 0,
+                   st>>>(dp, (const float*)V, (float*)dZ, N, D, S, n_dt);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  bwdp_dv_kernel<<<dim3((unsigned)cdiv(D, GT), (unsigned)cdiv(S, GT),
-                        (unsigned)p.n_split), GTHREADS, 0, st>>>(
-      (const float*)Z, dp, w + p.dvp, (int)N, D, S, p.chunk);
+  bwdp_dv_kernel<<<dim3((unsigned)cdiv(S, NT), (unsigned)cdiv(D, MT),
+                        (unsigned)p.n_split), MMA_THREADS, 0, st>>>(
+      (const float*)Z, dp, w + p.dvp, N, D, S, p.chunk);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   if ((e = reduce_rows(w + p.dvp, (float*)dV, w + p.tmp, p.n_split,

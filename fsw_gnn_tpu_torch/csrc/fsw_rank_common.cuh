@@ -2,9 +2,9 @@
 // pair K1f / K1b (fsw_rank_fwdp.cu, fsw_rank_bwdp.cu), the unfused pair
 // K2f / K2b (fsw_rank_fwd.cu, fsw_rank_bwd.cu) and the cartesian pair
 // K4f / K4b (fsw_rank_cart_fwd.cu, fsw_rank_cart_bwd.cu).  One copy of the
-// rank loop, the trig, the transposed-mask loop and the deterministic
-// column sums, so the kernels compute the same bits from the same
-// projections.
+// rank loop, the trig, the transposed-mask loop, the deterministic column
+// sums and K1's tensor-core tile product (`tile_product`, at the end), so
+// the kernels compute the same bits from the same inputs.
 //
 // For a table row r with weights wn[0 .. B-1], phantom mass pad and one
 // slice of frequency f, every thread owns one slice and holds its column
@@ -42,7 +42,9 @@ constexpr int MAX_SPLIT = 256;     // partials a single reduction pass sums
 constexpr int RED_THREADS = 256;   // threads of a column-sum block
 constexpr size_t SMEM_LIMIT = 232448;  // shared memory a block may use
 
-inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
+__host__ __device__ inline int cdiv(long long a, long long b) {
+  return (int)((a + b - 1) / b);
+}
 
 inline size_t align64(size_t n) { return (n + 63) / 64 * 64; }
 
@@ -401,6 +403,227 @@ inline cudaError_t reduce_entry_partials(const float* dfr,
                        stream)) != cudaSuccess)
     return e;
   return reduce_rows(dpad_part, dpad, tmp, n_st, R, stream);
+}
+
+// ---- K1's products on the tensor cores ------------------------------------
+//
+// C (64 x 64) = A (64 x K) B (K x 64) for one output tile, by the block's
+// MMA_THREADS = 128 threads: warp w owns rows 16 w .. 16 w + 15 and all 64
+// columns (eight m16n8k8 tiles, `mma.sync` on TF32).  K is walked in chunks
+// of KC = 32, staged by `cp.async` (4-byte copies: the row strides D and S
+// are any integers, so 16-byte alignment is not given) into a two-stage ring
+// in shared memory; chunk c + 1 is in flight while chunk c is multiplied.
+//
+// Accuracy: every operand x is split as hi = tf32(x), lo = tf32(x - hi)
+// (3xTF32), and each k-step adds lo_a hi_b, then hi_a lo_b, then hi_a hi_b
+// (the lo_a lo_b term, 2^-22 of the product, is dropped).  A chunk's 12
+// products go into an accumulator of their own, started at 0, which is then
+// added to the tile's running sum with one float32 add: the tensor cores'
+// own additions truncate, and this keeps them to the 12 additions inside a
+// chunk, relative to the chunk's partial sum.  The result is float32's
+// accuracy (tests/test_torch_tf32.py emulates the split against float64);
+// a plain TF32 product keeps about three decimal digits, which moves ranks
+// at near-ties and the 'spread' frequencies' outputs (f up to 2S - 1).
+//
+// Determinism: every element sums its chunks in the order c = 0, 1, ... and
+// its k-steps in a fixed order, from 0, and its value depends only on its
+// row of A and column of B, so two calls give the same bits and K1b's
+// recomputed projection (fsw_rank_bwdp.cu, step 1) has K1f's bits: both
+// project with `project_block` on the same row tiles (`proj_rows`).
+//
+// Operands are given as a pointer to the tile's element (0, 0), a leading
+// stride and the valid extent; rows, columns and k past the extent are read
+// as zeros (the copies' zero fill), so ragged tiles need no other care.
+// K_CONTIG says that k is the contiguous axis in global memory (element
+// (i, k) at p[i * ld + k]); otherwise i is (element (i, k) at p[k * ld + i]).
+// Shared layouts, padded so that every fragment load is free of bank
+// conflicts: [64][KC + 4] for a k-contiguous operand, [KC][64 + 8] for the
+// other; both are 2304 floats.
+
+constexpr int MT = 64;                  // rows of an output tile
+constexpr int NT = 64;                  // columns of an output tile
+constexpr int KC = 32;                  // depth of one staged chunk
+constexpr int MMA_THREADS = 128;        // 4 warps: 16 rows x 64 columns each
+constexpr int LD_K = KC + 4;            // row stride, [64][KC] layout
+constexpr int LD_I = 64 + 8;            // row stride, [KC][64] layout
+constexpr int OP_FLOATS = 64 * LD_K;    // == KC * LD_I == 2304
+constexpr int STAGE_FLOATS = 2 * 2 * OP_FLOATS;  // 2 stages x (A, B)
+static_assert(KC * LD_I == OP_FLOATS, "both layouts must have one size");
+
+struct Operand {
+  const float* p;   // element (0, 0) of the tile
+  long long ld;     // stride between rows (K_CONTIG) or between k
+  int n;            // valid rows (i < n)
+};
+
+__device__ __forceinline__ unsigned smem_addr(const float* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Stage chunk k0 .. k0 + KC - 1 of one 64-row operand into `dst`.
+template <bool K_CONTIG>
+__device__ __forceinline__ void stage_operand(float* dst, const Operand& op,
+                                              int k0, int K, int tid) {
+#pragma unroll 4
+  for (int e = tid; e < 64 * KC; e += MMA_THREADS) {
+    int i, k, s;
+    if (K_CONTIG) {
+      i = e / KC; k = e % KC; s = i * LD_K + k;
+    } else {
+      k = e / 64; i = e % 64; s = k * LD_I + i;
+    }
+    const bool ok = i < op.n && k0 + k < K;
+    const float* src = ok ? (K_CONTIG ? op.p + i * op.ld + (k0 + k)
+                                      : op.p + (long long)(k0 + k) * op.ld + i)
+                          : op.p;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst + s)),
+                 "l"(src), "r"(ok ? 4 : 0));
+  }
+}
+
+// Element (i, k) of a staged operand.
+template <bool K_CONTIG>
+__device__ __forceinline__ float staged(const float* op, int i, int k) {
+  return K_CONTIG ? op[i * LD_K + k] : op[k * LD_I + i];
+}
+
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);   // exact
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The tile product: acc[j][q] gets C at row 16 warp + g (+ 8 for q >= 2),
+// column 8 j + 2 t (+ 1 for odd q), with g = lane / 4 and t = lane % 4 (the
+// m16n8k8 accumulator layout).  `stage` holds STAGE_FLOATS floats; every
+// thread of the block must call it.  A is (64 x K) and B is (K x 64): B's
+// "rows" are its 64 columns n (element (n, k)).
+template <bool A_K, bool B_K>
+__device__ __forceinline__ void tile_product(const Operand& A,
+                                             const Operand& B, int K,
+                                             float* stage, float (&acc)[8][4]) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+  const int nk = cdiv(K, KC);
+  if (nk == 0) return;
+  stage_operand<A_K>(stage, A, 0, K, tid);
+  stage_operand<B_K>(stage + OP_FLOATS, B, 0, K, tid);
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int c = 0; c < nk; ++c) {
+    if (c + 1 < nk) {
+      float* nxt = stage + ((c + 1) & 1) * 2 * OP_FLOATS;
+      stage_operand<A_K>(nxt, A, (c + 1) * KC, K, tid);
+      stage_operand<B_K>(nxt + OP_FLOATS, B, (c + 1) * KC, K, tid);
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    const float* As = stage + (c & 1) * 2 * OP_FLOATS;
+    const float* Bs = As + OP_FLOATS;
+    float part[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[j][q] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 8) {
+      unsigned ahi[4], alo[4];
+      split_tf32(staged<A_K>(As, r0, kk + t), ahi[0], alo[0]);
+      split_tf32(staged<A_K>(As, r0 + 8, kk + t), ahi[1], alo[1]);
+      split_tf32(staged<A_K>(As, r0, kk + t + 4), ahi[2], alo[2]);
+      split_tf32(staged<A_K>(As, r0 + 8, kk + t + 4), ahi[3], alo[3]);
+      // four column tiles at a time, their three products interleaved, so
+      // that no product waits on the one just issued to its accumulator
+#pragma unroll
+      for (int j0 = 0; j0 < 8; j0 += 4) {
+        unsigned bhi[4][2], blo[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = 8 * (j0 + j) + g;
+          split_tf32(staged<B_K>(Bs, n, kk + t), bhi[j][0], blo[j][0]);
+          split_tf32(staged<B_K>(Bs, n, kk + t + 4), bhi[j][1], blo[j][1]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_tf32(part[j0 + j], alo, bhi[j][0], bhi[j][1]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_tf32(part[j0 + j], ahi, blo[j][0], blo[j][1]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_tf32(part[j0 + j], ahi, bhi[j][0], bhi[j][1]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] += part[j][q];
+    __syncthreads();  // the buffer is staged again two chunks on
+  }
+}
+
+// Table rows a K1 block projects: enough that a block holds at least 64
+// entries when B <= 64 (8 rows at B = 8), one row above.
+__host__ __device__ inline int proj_rows(int B) {
+  return (B >= 64 || B <= 0) ? 1 : 64 / B;
+}
+
+// Dynamic shared memory of K1f at width B: the staging ring, the block's
+// projections [rows * B][TS] and its weights [rows * B].  Where the block
+// projects in one pass (rows * B <= MT, every B <= 64) the projections and
+// weights reuse the ring once the product is done, so the block needs no
+// more than K1b's product kernels; wider rows add them beside the ring.
+// It does not depend on the feature width D.
+inline size_t fwdp_smem_bytes(int B) {
+  const size_t e = (size_t)proj_rows(B) * B, own = e * TS + e;
+  return sizeof(float) * (e <= (size_t)MT
+                              ? (own > STAGE_FLOATS ? own : STAGE_FLOATS)
+                              : STAGE_FLOATS + own);
+}
+
+// K1's projection of one block's entries: P[e, s] = sum_d Z[e, d] V[d, s]
+// for the E entries of the block (consecutive in Z, from `z`) and its
+// columns s0 .. s0 + 63 (< S), in passes of MT entries; each value goes to
+// store(e, col, value).  The one copy of the projection K1f and K1b run.
+template <typename Store>
+__device__ __forceinline__ void project_block(const float* z, const float* V,
+                                              int E, int D, int S, int s0,
+                                              float* stage, Store store) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  for (int m0 = 0; m0 < E; m0 += MT) {
+    float acc[8][4];
+    tile_product<true, false>(Operand{z + (long long)m0 * D, D, min(MT, E - m0)},
+                              Operand{V + s0, S, min(NT, S - s0)}, D, stage,
+                              acc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int e = m0 + 16 * warp + g + (q >> 1) * 8;
+        const int col = 8 * j + 2 * t + (q & 1);
+        if (e < E && s0 + col < S) store(e, col, acc[j][q]);
+      }
+  }
 }
 
 }  // namespace

@@ -15,107 +15,133 @@
 // `_rank_c` does, so it agrees with the plain version to the bit wherever
 // the projections agree.
 //
-// Design: one block per (table row, tile of TS slices), one thread per
-// slice.  The block stages BC rows of Z[r] at a time in shared memory; each
-// thread projects them onto its own slice with sequential full-float32 FMAs
-// (no TF32, no tensor cores) and keeps its column of P in shared memory,
-// laid out [b][thread] so a warp's accesses fall on consecutive banks.  The
-// B x B rank loop and the quadrature then run per thread out of shared
-// memory (`rank_fwd_slice` in fsw_rank_common.cuh, shared with K2f, which
-// also holds the notes on trig accuracy and padding).  Nothing crosses
-// blocks, so there are no atomics.
+// Design: one block of 128 threads per (tile of table rows, tile of TS = 64
+// slices).  The tile holds proj_rows(B) rows (8 at B = 8, so at least 64
+// entries up to B = 64; one row above), and the block projects its entries
+// onto its slices as one product on the tensor cores (`project_block`,
+// fsw_rank_common.cuh: 3xTF32 `mma.sync`, Z and V staged by `cp.async` in
+// chunks of 32 features through a two-stage ring; V's chunk serves every
+// row of the tile).  The projections go into shared memory laid out
+// [entry][slice], so each (row, slice) pair's column is the [b][thread]
+// layout that the rank loop and the quadrature read (`rank_fwd_slice`,
+// shared with K2f, which also holds the notes on trig accuracy and
+// padding); the block's threads take the tile's rows x 64 pairs in turn.
+// Shared memory is the staging ring (36 KB), which the tile's projections
+// and weights (4 (65 rows B) bytes) reuse when they fit in one pass of 64
+// entries (every B <= 64) and sit beside above, whatever the feature width
+// D: B up to 752.
+// Nothing crosses blocks, so there are no atomics.  Blocks are numbered
+// slice tile first, so the blocks that read one tile of Z run together and
+// Z comes from device memory about once; V stays in L2.
 //
-// What bounds it on an H100: per entry-slice about 2D float32 operations
-// for the projection, a sort and a cumsum's worth of ranking (log2 B + 1)
-// and a trig tail, against reading Z once and writing the (R, S) output.
-// At the served shapes (D = 64, B = 8 .. 64) the operations dominate, so the
-// design keeps every operand of the two inner loops in shared memory or
-// registers, ranks by the B x B loop NI entries a pass (3 B operations an
-// entry, no sort) and keeps the trig to one sincospi pair per entry (one
-// per row and slice for sin(pi f w) when the weights are row-constant).
+// What bounds it on an H100: per entry-slice 2 D operations for the
+// projection, a sort and a cumsum's worth of ranking (log2 B + 1) and a trig
+// tail, against reading Z once and writing the (R, S) output.  The
+// projection is a product of (R B) x D by D x S, so it runs on the tensor
+// cores; 3xTF32 costs three TF32 products (495 TFLOP/s dense) for each
+// float32 one.  The rank loop (3 B operations an entry, no sort) and the
+// trig stay on the float32 units.  With WRITE_P the kernel stores the
+// projections to P (R B, S) instead of ranking them: the check that K1b's
+// step 1 gets K1f's bits.
 
 #include "fsw_rank_common.cuh"
 
 namespace {
 
-constexpr int BC = 16;  // table entries projected per pass
+template <bool WRITE_P>
+__global__ void __launch_bounds__(MMA_THREADS)
+fsw_rank_fwdp_kernel(const float* __restrict__ Z, const float* __restrict__ wn,
+                     const float* __restrict__ pad,
+                     const float* __restrict__ freqs,
+                     const float* __restrict__ V, float* __restrict__ out,
+                     int R, int B, int D, int S, int n_st, int uniform_w) {
+  extern __shared__ __align__(16) float smem[];
+  const int rt = proj_rows(B);
+  float* stage = smem;                       // the staging ring
+  // [rt * B][TS] projections, then [rt * B] weights: over the ring when
+  // the block projects in one pass (see fwdp_smem_bytes)
+  float* p_sm = rt * B <= MT ? smem : smem + STAGE_FLOATS;
+  float* w_sm = p_sm + (size_t)rt * B * TS;
 
-__global__ void fsw_rank_fwdp_kernel(const float* __restrict__ Z,
-                                     const float* __restrict__ wn,
-                                     const float* __restrict__ pad,
-                                     const float* __restrict__ freqs,
-                                     const float* __restrict__ V,
-                                     float* __restrict__ out,
-                                     int B, int D, int S, int uniform_w) {
-  extern __shared__ float smem[];
-  float* p_sm = smem;               // [B][TS]   projections, own column
-  float* z_sm = p_sm + B * TS;      // [BC][D]   staged rows of Z[r]
-  float* w_sm = z_sm + BC * D;      // [B]       wn[r]
-
-  const int r = blockIdx.x;
+  const int st = blockIdx.x % n_st;
+  const int r0 = (blockIdx.x / n_st) * rt;
+  const int rows = min(rt, R - r0);
+  const int E = rows * B;
+  const int s0 = st * TS;
   const int tid = threadIdx.x;
-  const int s = blockIdx.y * TS + tid;
-  const bool live = s < S;
-  const float* zr = Z + (size_t)r * B * D;
 
-  for (int b = tid; b < B; b += TS) w_sm[b] = wn[(size_t)r * B + b];
-
-  for (int b0 = 0; b0 < B; b0 += BC) {
-    const int nb = min(BC, B - b0);
-    __syncthreads();  // the previous pass has finished reading z_sm
-    for (int k = tid; k < nb * D; k += TS) z_sm[k] = zr[(size_t)b0 * D + k];
-    __syncthreads();
-    if (live) {
-      float acc[BC];
-#pragma unroll
-      for (int bb = 0; bb < BC; ++bb) acc[bb] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float v = V[(size_t)d * S + s];
-#pragma unroll
-        for (int bb = 0; bb < BC; ++bb) {
-          if (bb < nb) acc[bb] = fmaf(z_sm[bb * D + d], v, acc[bb]);
-        }
-      }
-#pragma unroll
-      for (int bb = 0; bb < BC; ++bb) {
-        if (bb < nb) p_sm[(b0 + bb) * TS + tid] = acc[bb];
-      }
-    }
+  project_block(Z + (size_t)r0 * B * D, V, E, D, S, s0, stage,
+                [&](int e, int col, float v) { p_sm[e * TS + col] = v; });
+  if constexpr (!WRITE_P) {
+    for (int e = tid; e < E; e += MMA_THREADS)
+      w_sm[e] = wn[(size_t)r0 * B + e];
   }
   __syncthreads();
-  if (!live) return;
-  out[(size_t)r * S + s] =
-      rank_fwd_slice(p_sm, w_sm, B, tid, freqs[s], pad[r], uniform_w);
+  const int ns = min(TS, S - s0);
+  if constexpr (WRITE_P) {
+    for (int k = tid; k < E * TS; k += MMA_THREADS) {
+      const int e = k / TS, col = k % TS;
+      if (col < ns) out[((size_t)r0 * B + e) * S + s0 + col] = p_sm[k];
+    }
+  } else {
+    for (int k = tid; k < rows * TS; k += MMA_THREADS) {
+      const int rr = k / TS, col = k % TS;
+      if (col >= ns) continue;
+      const int s = s0 + col;
+      out[(size_t)(r0 + rr) * S + s] =
+          rank_fwd_slice(p_sm + (size_t)rr * B * TS, w_sm + rr * B, B, col,
+                         freqs[s], pad[r0 + rr], uniform_w);
+    }
+  }
+}
+
+template <bool WRITE_P>
+cudaError_t launch_fwdp(const float* Z, const float* wn, const float* pad,
+                        const float* freqs, const float* V, float* out, int R,
+                        int B, int D, int S, int uniform_w,
+                        cudaStream_t stream) {
+  const size_t smem = fwdp_smem_bytes(B);
+  const int n_st = cdiv(S, TS);
+  const long long blocks = (long long)cdiv(R, proj_rows(B)) * n_st;
+  if (smem > SMEM_LIMIT || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      fsw_rank_fwdp_kernel<WRITE_P>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  fsw_rank_fwdp_kernel<WRITE_P><<<(unsigned)blocks, MMA_THREADS, smem,
+                                  stream>>>(Z, wn, pad, freqs, V, out, R, B,
+                                            D, S, n_st, uniform_w);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory, in bytes, that a launch at this (B, D) needs.
-size_t fsw_rank_fwdp_smem_bytes(int B, int D) {
-  return sizeof(float) * ((size_t)B * TS + (size_t)BC * D + (size_t)B);
-}
+// Dynamic shared memory, in bytes, that a launch at width B needs (at any
+// feature width D).
+size_t fsw_rank_fwdp_smem_bytes(int B) { return fwdp_smem_bytes(B); }
 
 // Z (R, B, D), wn (R, B), pad (R,), freqs (S,), V (D, S), out (R, S):
-// contiguous float32 on the current device.  Launches on `stream` and
-// returns cudaGetLastError() (0 on success); does not synchronise.
+// contiguous float32 on the current device, R, B, S > 0.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success); does not
+// synchronise.
 int fsw_rank_fwdp_f32(const void* Z, const void* wn, const void* pad,
                       const void* freqs, const void* V, void* out, int R,
                       int B, int D, int S, int uniform_w, void* stream) {
-  const size_t smem = fsw_rank_fwdp_smem_bytes(B, D);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fsw_rank_fwdp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((unsigned)R, (unsigned)((S + TS - 1) / TS));
-  fsw_rank_fwdp_kernel<<<grid, TS, smem, (cudaStream_t)stream>>>(
+  return (int)launch_fwdp<false>(
       (const float*)Z, (const float*)wn, (const float*)pad,
-      (const float*)freqs, (const float*)V, (float*)out, B, D, S, uniform_w);
-  return (int)cudaGetLastError();
+      (const float*)freqs, (const float*)V, (float*)out, R, B, D, S,
+      uniform_w, (cudaStream_t)stream);
+}
+
+// The same kernel up to its projection, which it writes to P (R * B, S)
+// instead of ranking it: P as K1f ranks it, bit for bit.
+int fsw_rank_fwdp_project_f32(const void* Z, const void* V, void* P, int R,
+                              int B, int D, int S, void* stream) {
+  return (int)launch_fwdp<true>((const float*)Z, nullptr, nullptr, nullptr,
+                                (const float*)V, (float*)P, R, B, D, S, 0,
+                                (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -25,13 +25,16 @@ Aggregations:
           entries (tables and multisets), which ranks once for all the
           frequencies of a slice.
 'auto' takes 'rank' for an aggregation whose width (a table's bucket
-size, a multiset's n) is at most RANK_AGGREGATE_MAX_BUCKET_NO_DW, and
-'sort' beyond it, in cartesian mode too, on the CPU and on the card
-alike, whether or not the weights take a gradient.  The crossover rules
-the JAX package measured on its own hardware are not carried over; the
-width cap is the widest it ever routes to its rank kernels.  On an H100
-the rank kernels' forward and backward with weight gradients beat the
-sort route at the widths `chip_smoke.py` measures (PERF.md).
+size, a multiset's n) is at most RANK_AGGREGATE_MAX_BUCKET_NO_DW and
+whose kernels hold that width in shared memory (`ops.fsw_rank.misfit`),
+and 'sort' otherwise, on the CPU and on the card alike (`_resolve_aggregate`,
+the port's H100 counterpart of the JAX package's per-device rules).  On a
+table K1 is taken only where it is faster than the unfused route
+(`_k1_faster`, measured on an H100).  The crossover rules the JAX package
+measured on its own hardware are not carried over; the width cap is the
+widest it ever routes to its rank kernels.  On an H100 the rank kernels'
+forward and backward with weight gradients beat the sort route at the
+widths `chip_smoke.py` measures (PERF.md).
 
 The CSR graph path (`fsw_embed_graph`) sorts every slice's projections
 within each recipient's segment and takes c with the segmented cumsum,
@@ -48,7 +51,7 @@ import torch
 
 from .graph import Graph
 from .ops.fsw_rank import (fsw_rank_aggregate, fsw_rank_aggregate_cart,
-                           fsw_rank_aggregate_proj)
+                           fsw_rank_aggregate_proj, misfit)
 from .ops.segcumsum import segcumsum, segment_boundaries
 from .ops.segment import segment_argsort, segment_sum
 
@@ -56,6 +59,30 @@ from .ops.segment import segment_argsort, segment_sum
 # `RANK_AGGREGATE_MAX_BUCKET_NO_DW`): the kernels hold a whole row in a
 # block's shared memory, and their B x B rank loop outgrows a sort
 RANK_AGGREGATE_MAX_BUCKET_NO_DW = 128
+
+# The H100 crossover between the fused-projection kernels K1 and the
+# unfused route (X @ V in float32, the gather of P, then K2) on one degree
+# class of R rows of width B over N nodes, entries per node rho = R B / N.
+# K1 projects every entry on the tensor cores (3xTF32), the unfused route
+# every node once but moves an (R, B, S) tensor; per slice and feature the
+# extra work is rho a against 1 b, and per entry and slice the moved bytes
+# c, so K1 is faster where
+#     rho <= K1_RHO0  or  D (rho - K1_RHO0) < rho K1_D0
+# with K1_RHO0 = b / a and K1_D0 = c / a, fitted to the forward + backward
+# times of the crossover table in PERF.md section 6 (one run of
+# chip_smoke.py's routing phase on an NVIDIA H100 80GB HBM3 at 700 W,
+# milliseconds, K1 against the unfused route): at 8.8 and 9.8 entries a
+# node the routes cross between D = 256 (3.914 against 8.913, 4.926
+# against 12.27) and 512 (12.67 against 9.81, 16.33 against 13.32), at 0.69
+# between 512 (1.159 against 1.346) and 1024 (3.986 against 2.511); at 0.17
+# K1 wins up to 1024 (1.154 against 1.611) and Cora's 0.047 at 1433 (0.510
+# against 1.145), while Cora's 8.0 takes the unfused route at 1433 (27.92
+# against 12.32).  The unfused route's backward is mostly PyTorch's scatter
+# of dP into the projections; the forward alone favours it from D = 64 at
+# 9 entries a node, and the rule follows training, the path that runs wide
+# layers.
+K1_RHO0 = 0.2
+K1_D0 = 420.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,29 +236,67 @@ def _finalize(emb, w_sum, cfg: FSWConfig, bias, total_mass_scale):
     return emb
 
 
+def _k1_faster(D: int, entries_per_node: float) -> bool:
+    """Whether K1 beats the unfused route at feature width D on a table of
+    `entries_per_node` entries a node (see K1_RHO0)."""
+    rho = float(entries_per_node)
+    return rho <= K1_RHO0 or D * (rho - K1_RHO0) < rho * K1_D0
+
+
 def _resolve_aggregate(aggregate: str, cfg: FSWConfig, bucket_size: int,
-                       s_eff: Optional[int] = None) -> str:
+                       s_eff: Optional[int] = None,
+                       weights_grad: bool = True,
+                       entries_per_node: Optional[float] = None) -> str:
     """The route of one aggregation of width `bucket_size` (a table's
     bucket, a multiset's n): 'sort', 'rank' (the unfused kernels K2, or K4
-    in cartesian mode) or 'rank_proj' (the fused-projection kernels K1,
-    tables outside cartesian mode only: pass the slice width of one pass
-    as `s_eff`, and K1 is taken where d_in + d_edge < s_eff).
+    in cartesian mode) or 'rank_proj' (the fused-projection kernels K1).
 
-    'auto' is 'rank' / 'rank_proj' for an aggregation of width at most
-    RANK_AGGREGATE_MAX_BUCKET_NO_DW, 'sort' otherwise.  An explicit 'rank'
-    is honoured at any width, as in the JAX package (on the card a width
-    whose row does not fit a block's shared memory then raises)."""
+    One rule for 'auto' and an explicit 'rank', on the CPU and on the
+    card, whatever the grad mode (an eval forward takes the training
+    forward's kernels):
+      * K1 for a table outside cartesian mode (pass the slice width of one
+        pass as `s_eff` and the table's R B over the nodes as
+        `entries_per_node`) where d_in + d_edge < s_eff, K1f and K1b (with
+        `weights_grad`) hold the width and `_k1_faster` says so;
+      * otherwise K2, or K4 in cartesian mode, where its forward and
+        backward hold the width;
+      * otherwise 'sort' under 'auto'; an explicit 'rank' raises a
+        ValueError naming the width and the shared memory it needs.
+    'auto' also sorts above RANK_AGGREGATE_MAX_BUCKET_NO_DW.  The needs
+    are `ops.fsw_rank.smem_bytes`, the kernels' own; K1 and K2 compute the
+    same function, so where K1 cannot launch K2 gives the same values.
+    K4b's need is taken with the uniform-weight trig, the larger."""
     if aggregate not in ('auto', 'sort', 'rank'):
         raise ValueError(f"aggregate must be 'auto'|'sort'|'rank', "
                          f"got {aggregate!r}")
-    if aggregate == 'auto':
-        aggregate = ('rank' if bucket_size <= RANK_AGGREGATE_MAX_BUCKET_NO_DW
-                     else 'sort')
-    if aggregate == 'sort':
+    B = bucket_size
+    if aggregate == 'sort' or (aggregate == 'auto'
+                               and B > RANK_AGGREGATE_MAX_BUCKET_NO_DW):
         return 'sort'
-    fused = (not cfg.cartesian_mode and s_eff is not None
-             and cfg.proj_dim < s_eff)
-    return 'rank_proj' if fused else 'rank'
+    dw = bool(weights_grad)
+    if cfg.cartesian_mode:
+        F = cfg.nFreqs
+        short = misfit(('fsw_rank_cart_fwd', 'fsw_rank_cart_bwd'), B, F, dw,
+                       uniform_w=True)
+        at = f' at {F} frequencies'
+    else:
+        at = ''
+        if (s_eff is not None and entries_per_node is not None
+                and cfg.proj_dim < s_eff and _k1_faster(cfg.proj_dim, entries_per_node)
+                and misfit(('fsw_rank_fwdp', 'fsw_rank_bwdp'), B,
+                           with_dw=dw) is None):
+            return 'rank_proj'
+        short = misfit(('fsw_rank_fwd', 'fsw_rank_bwd'), B, with_dw=dw)
+    if short is None:
+        return 'rank'
+    if aggregate == 'auto':
+        return 'sort'
+    name, need = short
+    grads = 'with' if dw else 'without'
+    raise ValueError(f"aggregate='rank': bucket width {B}{at} {grads} "
+                     f"weight gradients needs {need} bytes of shared memory "
+                     f"in {name}, above the 232448 a block has; use "
+                     f"aggregate='sort' or 'auto'")
 
 
 def _sort_quadrature(keys, wn, pad_norm, f_block, cfg: FSWConfig):
@@ -339,7 +404,9 @@ def fsw_embed_table(X, table, projVecs, freqs, cfg: FSWConfig,
     dt = X.dtype
     S = cfg.nSlices
     s_eff = S if slice_chunk is None else min(slice_chunk, S)
-    agg = _resolve_aggregate(aggregate, cfg, table.bucket_size, s_eff)
+    agg = _resolve_aggregate(aggregate, cfg, table.bucket_size, s_eff,
+                             weights_grad,
+                             table.idx.numel() / max(X.shape[0], 1))
     w_sum, wn, pad_norm = table_weights(table.weight, cfg)
 
     # the fused-projection route gathers the raw sender rows (R, B, D) and
@@ -439,7 +506,7 @@ def fsw_embed_multiset(X, W, projVecs, freqs, cfg: FSWConfig,
         wsp_c = max(ws_total, T)
         wc = (1.0 / wsp_c) if w_mode == 'unit' else 1.0 / (n * wsp_c)
         padc = max(T - ws_total, 0.0) / wsp_c
-    agg = _resolve_aggregate(aggregate, cfg, n)
+    agg = _resolve_aggregate(aggregate, cfg, n, weights_grad=weights_grad)
     w_sum, wn, pad_norm = table_weights(W, cfg)
 
     def slices_block(V_block, f_block):

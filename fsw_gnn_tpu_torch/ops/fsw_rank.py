@@ -48,7 +48,11 @@ forward and backward are the plain versions, on CUDA tensors the kernels.
 On the card they never fall back.  Like the TPU kernels they save only
 their inputs and recompute the ranks (and K1 the projection) in the
 backward.  A width whose row the kernel's shared memory cannot hold raises
-a ValueError naming the width and the limit.
+a ValueError naming the width and the limit.  `smem_bytes` gives each
+kernel's shared-memory need from its shape, as the libraries' own
+`*_smem_bytes` exports do but without loading one: `_fits` checks it
+before every launch, and the embedding's routing (`_resolve_aggregate`)
+sends a width only to kernels that hold it, on the CPU as on the card.
 """
 from __future__ import annotations
 
@@ -61,6 +65,65 @@ _FN = {}
 
 # shared memory a block may use on Hopper (sm_90)
 _MAX_SMEM = 232448
+# csrc/fsw_rank_common.cuh: slices a block (one thread each), the warps of
+# an entry block, and K1's staging ring (two stages of two 64 x 36 operands)
+_TS = 64
+_WARPS = _TS // 32
+_STAGE_FLOATS = 2 * 2 * 64 * 36
+
+RANK_KERNELS = ('fsw_rank_fwdp', 'fsw_rank_bwdp', 'fsw_rank_fwd',
+                'fsw_rank_bwd', 'fsw_rank_cart_fwd', 'fsw_rank_cart_bwd')
+
+
+def proj_rows(B: int) -> int:
+    """Table rows one K1f block projects (`proj_rows` in
+    fsw_rank_common.cuh): at least 64 entries up to B = 64."""
+    return 1 if B >= 64 or B <= 0 else 64 // B
+
+
+def smem_bytes(name: str, B: int, F: int = 1, with_dw: bool = False,
+               uniform_w: bool = False) -> int:
+    """Dynamic shared memory, in bytes, that one block of rank kernel
+    `name` (one of RANK_KERNELS) needs at width B, with F frequency columns
+    (the cartesian pair), with or without the weights' gradient and the
+    uniform-weight trig (which K4b runs only without it).  The same
+    numbers as each library's `*_smem_bytes` export, without a library:
+
+      K1f  max(STAGE, 65 E) for E <= 64, else STAGE + 65 E
+           (E = proj_rows(B) B; the feature width D does not enter)
+      K1b, K2b   64 B (2 with dw, else 1) + B (3 with dw, else 1) + 64
+      K2f  65 B;   K4f  129 B + 64 F
+      K4b  K2b's + 64 F (7 with the uniform trig, else 5)
+
+    in floats (K1b's products use a fixed 36 KB of static memory)."""
+    dw = bool(with_dw)
+    entry = B * _TS * (2 if dw else 1) + B * (1 + _WARPS if dw else 1) + _TS
+    if name == 'fsw_rank_fwdp':
+        e = proj_rows(B) * B
+        own = e * _TS + e
+        n = max(_STAGE_FLOATS, own) if e <= 64 else _STAGE_FLOATS + own
+    elif name in ('fsw_rank_bwdp', 'fsw_rank_bwd'):
+        n = entry
+    elif name == 'fsw_rank_fwd':
+        n = B * _TS + B
+    elif name == 'fsw_rank_cart_fwd':
+        n = 2 * B * _TS + B + _TS * F
+    elif name == 'fsw_rank_cart_bwd':
+        n = entry + _TS * F * (7 if uniform_w and not dw else 5)
+    else:
+        raise ValueError(f'unknown rank kernel {name!r}')
+    return 4 * n
+
+
+def misfit(names, B: int, F: int = 1, with_dw: bool = False,
+           uniform_w: bool = False):
+    """(name, bytes) of the first kernel of `names` that cannot hold width
+    B (see `smem_bytes`), or None when they all can."""
+    for name in names:
+        need = smem_bytes(name, B, F, with_dw, uniform_w)
+        if need > _MAX_SMEM:
+            return name, need
+    return None
 
 
 def _wrap(u):
@@ -222,24 +285,30 @@ def fsw_rank_aggregate_proj_bwd_plain(Z, wn, pad_norm, freqs, V, g,
     return dZ, dwn, dpad, df, dV
 
 
-# name -> (entry function's argtypes, helpers' argtypes); every helper
-# returns bytes (size_t), the entry function a CUDA error code
+_SIZE, _INT = ctypes.c_size_t, ctypes.c_int
+
+# name -> (entry function's argtypes, {helper: (argtypes, restype)}); the
+# entry function returns a CUDA error code
 _SIGNATURES = {
-    'fsw_rank_fwdp': ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
-                      {'smem_bytes': [ctypes.c_int] * 2}),
-    'fsw_rank_bwdp': ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6,
-                      {'workspace_bytes': [ctypes.c_int] * 5,
-                       'smem_bytes': [ctypes.c_int] * 2}),
-    'fsw_rank_fwd': ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4,
-                     {'smem_bytes': [ctypes.c_int]}),
-    'fsw_rank_bwd': ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5,
-                     {'workspace_bytes': [ctypes.c_int] * 4,
-                      'smem_bytes': [ctypes.c_int] * 2}),
-    'fsw_rank_cart_fwd': ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5,
-                          {'smem_bytes': [ctypes.c_int] * 2}),
-    'fsw_rank_cart_bwd': ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6,
-                          {'workspace_bytes': [ctypes.c_int] * 5,
-                           'smem_bytes': [ctypes.c_int] * 4}),
+    'fsw_rank_fwdp': ([ctypes.c_void_p] * 6 + [_INT] * 5,
+                      {'smem_bytes': ([_INT], _SIZE),
+                       'project_f32': ([ctypes.c_void_p] * 3 + [_INT] * 4
+                                       + [ctypes.c_void_p], _INT)}),
+    'fsw_rank_bwdp': ([ctypes.c_void_p] * 12 + [_INT] * 6,
+                      {'workspace_bytes': ([_INT] * 5, _SIZE),
+                       'smem_bytes': ([_INT] * 2, _SIZE),
+                       'project_f32': ([ctypes.c_void_p] * 3 + [_INT] * 4
+                                       + [ctypes.c_void_p], _INT)}),
+    'fsw_rank_fwd': ([ctypes.c_void_p] * 5 + [_INT] * 4,
+                     {'smem_bytes': ([_INT], _SIZE)}),
+    'fsw_rank_bwd': ([ctypes.c_void_p] * 10 + [_INT] * 5,
+                     {'workspace_bytes': ([_INT] * 4, _SIZE),
+                      'smem_bytes': ([_INT] * 2, _SIZE)}),
+    'fsw_rank_cart_fwd': ([ctypes.c_void_p] * 5 + [_INT] * 5,
+                          {'smem_bytes': ([_INT] * 2, _SIZE)}),
+    'fsw_rank_cart_bwd': ([ctypes.c_void_p] * 10 + [_INT] * 6,
+                          {'workspace_bytes': ([_INT] * 5, _SIZE),
+                           'smem_bytes': ([_INT] * 4, _SIZE)}),
 }
 
 
@@ -254,22 +323,23 @@ def _kernel(name):
         fn.argtypes = argtypes + [ctypes.c_void_p]          # + the stream
         fn.restype = ctypes.c_int
         aux = {}
-        for helper, types in helpers.items():
+        for helper, (types, restype) in helpers.items():
             h = getattr(lib, f'{name}_{helper}')
             h.argtypes = types
-            h.restype = ctypes.c_size_t
+            h.restype = restype
             aux[helper] = h
         _FN[name] = (fn, aux)
     return _FN[name]
 
 
-def _fits(name, B, *smem_args):
-    """Raise a ValueError when one row of width B needs more shared memory
-    than a block has (the kernels hold a whole row)."""
-    need = _kernel(name)[1]['smem_bytes'](*smem_args)
+def _fits(name, B, F=1, with_dw=False, uniform_w=False):
+    """Raise a ValueError when one block of kernel `name` at width B needs
+    more shared memory than a block has (`smem_bytes`)."""
+    need = smem_bytes(name, B, F, with_dw, uniform_w)
     if need > _MAX_SMEM:
-        raise ValueError(f'{name}: bucket width {B} needs {need} bytes of '
-                         f'shared memory, above the {_MAX_SMEM} a block '
+        at = f' at {F} frequencies' if name.startswith('fsw_rank_cart') else ''
+        raise ValueError(f'{name}: bucket width {B}{at} needs {need} bytes '
+                         f'of shared memory, above the {_MAX_SMEM} a block '
                          f'has on this card; use aggregate=\'sort\'')
 
 
@@ -322,7 +392,7 @@ def _fwd2(P, wn, pad_norm, freqs, uniform_w):
         return out
     if B == 0:
         return out.zero_()
-    _fits('fsw_rank_fwd', B, B)
+    _fits('fsw_rank_fwd', B)
     _launch('fsw_rank_fwd', _kernel('fsw_rank_fwd')[0], P, wn, pad_norm,
             freqs, out, R, B, S, int(bool(uniform_w)))
     fsw_rank_aggregate.launches += 1
@@ -354,7 +424,7 @@ def fsw_rank_aggregate_bwd(P, wn, pad_norm, freqs, g,
                 t.zero_()
         return dP, dwn, dpad, df
     fn, aux = _kernel('fsw_rank_bwd')
-    _fits('fsw_rank_bwd', B, B, int(with_dw))
+    _fits('fsw_rank_bwd', B, with_dw=with_dw)
     ws = torch.empty((aux['workspace_bytes'](R, B, S, int(with_dw)),),
                      dtype=torch.uint8, device=P.device)
     _launch('fsw_rank_bwd', fn, P, wn, pad_norm, freqs, g, dP,
@@ -375,8 +445,8 @@ class _Rank(torch.autograd.Function):
         ctx.uniform_w, ctx.with_dw = uniform_w, with_dw
         if P.device.type == 'cuda' and any(ctx.needs_input_grad[:4]):
             # refuse now a width the backward could not take
-            _fits('fsw_rank_bwd', P.shape[1], P.shape[1], int(
-                with_dw and any(ctx.needs_input_grad[1:3])))
+            _fits('fsw_rank_bwd', P.shape[1], with_dw=with_dw and any(
+                ctx.needs_input_grad[1:3]))
         return _fwd2(P, wn, pad_norm, freqs, uniform_w)
 
     @staticmethod
@@ -428,7 +498,7 @@ def _fwd4(P, wn, pad_norm, freqs, uniform_w):
         return out
     if B == 0:
         return out.zero_()
-    _fits('fsw_rank_cart_fwd', B, B, F)
+    _fits('fsw_rank_cart_fwd', B, F)
     _launch('fsw_rank_cart_fwd', _kernel('fsw_rank_cart_fwd')[0], P, wn,
             pad_norm, freqs, out, R, B, S, F, int(bool(uniform_w)))
     fsw_rank_aggregate_cart.launches += 1
@@ -463,7 +533,7 @@ def fsw_rank_aggregate_cart_bwd(P, wn, pad_norm, freqs, g,
                 t.zero_()
         return dP, dwn, dpad, df
     fn, aux = _kernel('fsw_rank_cart_bwd')
-    _fits('fsw_rank_cart_bwd', B, B, F, int(with_dw), int(unif))
+    _fits('fsw_rank_cart_bwd', B, F, with_dw, unif)
     ws = torch.empty((aux['workspace_bytes'](R, B, S, F, int(with_dw)),),
                      dtype=torch.uint8, device=P.device)
     _launch('fsw_rank_cart_bwd', fn, P, wn, pad_norm, freqs, g, dP,
@@ -485,8 +555,8 @@ class _RankCart(torch.autograd.Function):
         if P.device.type == 'cuda' and any(ctx.needs_input_grad[:4]):
             # refuse now a width the backward could not take
             dw = with_dw and any(ctx.needs_input_grad[1:3])
-            _fits('fsw_rank_cart_bwd', P.shape[1], P.shape[1],
-                  freqs.shape[1], int(dw), int(uniform_w and not dw))
+            _fits('fsw_rank_cart_bwd', P.shape[1], freqs.shape[1], dw,
+                  uniform_w)
         return _fwd4(P, wn, pad_norm, freqs, uniform_w)
 
     @staticmethod
@@ -534,7 +604,9 @@ def _fwd(Z, wn, pad_norm, freqs, V, uniform_w):
     out = torch.empty((R, S), dtype=torch.float32, device=Z.device)
     if R == 0 or S == 0:
         return out
-    _fits('fsw_rank_fwdp', B, B, D)
+    if B == 0:
+        return out.zero_()
+    _fits('fsw_rank_fwdp', B)
     _launch('fsw_rank_fwdp', _kernel('fsw_rank_fwdp')[0], *args, out,
             R, B, D, S, int(bool(uniform_w)))
     fsw_rank_aggregate_proj.launches += 1
@@ -569,7 +641,7 @@ def fsw_rank_aggregate_proj_bwd(Z, wn, pad_norm, freqs, V, g,
                 t.zero_()
         return dZ, dwn, dpad, df, dV
     fn, aux = _kernel('fsw_rank_bwdp')
-    _fits('fsw_rank_bwdp', B, B, int(with_dw))
+    _fits('fsw_rank_bwdp', B, with_dw=with_dw)
     ws = torch.empty((aux['workspace_bytes'](R, B, D, S, int(with_dw)),),
                      dtype=torch.uint8, device=Z.device)
     _launch('fsw_rank_bwdp', fn, *args, dZ, dwn if with_dw else None,
@@ -577,6 +649,24 @@ def fsw_rank_aggregate_proj_bwd(Z, wn, pad_norm, freqs, V, g,
             R, B, D, S, int(bool(uniform_w)), int(bool(with_dw)))
     fsw_rank_aggregate_proj_bwd.launches += 1
     return dZ, dwn, dpad, df, dV
+
+
+def fsw_rank_proj_projections(Z, V, kernel: str = 'fsw_rank_fwdp'):
+    """P (R * B, S) = Z V, the projections K1 ranks, for checking the two
+    kernels against each other: 'fsw_rank_fwdp' runs K1f's own kernel up
+    to its projection and writes it out instead of ranking it,
+    'fsw_rank_bwdp' runs K1b's step 1 alone.  CPU tensors: the plain
+    product.  Not a path of the model, so no launch is counted."""
+    R, B, D = Z.shape
+    S = V.shape[1]
+    if _device(Z) == 'cpu':
+        return torch.einsum('rbd,ds->rbs', Z, V).reshape(R * B, S)
+    _check([('Z', Z), ('V', V)], {'V': (D, S)})
+    P = torch.empty((R * B, S), dtype=torch.float32, device=Z.device)
+    if R and B and S:
+        _launch(kernel, _kernel(kernel)[1]['project_f32'], Z, V, P, R, B, D,
+                S)
+    return P
 
 
 class _RankProj(torch.autograd.Function):
@@ -589,8 +679,8 @@ class _RankProj(torch.autograd.Function):
         ctx.uniform_w, ctx.with_dw = uniform_w, with_dw
         if Z.device.type == 'cuda' and any(ctx.needs_input_grad[:5]):
             # refuse now a width the backward could not take
-            _fits('fsw_rank_bwdp', Z.shape[1], Z.shape[1], int(
-                with_dw and any(ctx.needs_input_grad[1:3])))
+            _fits('fsw_rank_bwdp', Z.shape[1], with_dw=with_dw and any(
+                ctx.needs_input_grad[1:3]))
         return _fwd(Z, wn, pad_norm, freqs, V, uniform_w)
 
     @staticmethod

@@ -250,8 +250,9 @@ def test_cart_fswembedding_bridge_matches_jax(cfg):
 def test_cart_route_table():
     """Cartesian 'auto' takes K4 ('rank') up to width 128 and 'sort' at
     129, with or without a fused-projection width; an explicit 'rank' is
-    K4 at any width; cartesian mode never takes K1 ('rank_proj'), where the
-    same widths outside it do."""
+    K4 at any width K4's blocks hold (423 with weight gradients at 8
+    frequencies) and raises beyond, naming the width; cartesian mode never
+    takes K1 ('rank_proj'), where the same widths outside it do."""
     cart = TE.FSWConfig(d_in=3, n_slices=128, n_freqs=8)
     flat = TE.FSWConfig(d_in=3, d_out=128)
     cap = TE.RANK_AGGREGATE_MAX_BUCKET_NO_DW
@@ -259,7 +260,10 @@ def test_cart_route_table():
     for s_eff in (None, 128):
         assert TE._resolve_aggregate('auto', cart, cap, s_eff) == 'rank'
         assert TE._resolve_aggregate('auto', cart, cap + 1, s_eff) == 'sort'
-        assert TE._resolve_aggregate('rank', cart, 1024, s_eff) == 'rank'
+        assert TE._resolve_aggregate('rank', cart, 423, s_eff) == 'rank'
+        with pytest.raises(ValueError, match='bucket width 1024 at 8 freq'):
+            TE._resolve_aggregate('rank', cart, 1024, s_eff)
         assert TE._resolve_aggregate('sort', cart, 8, s_eff) == 'sort'
-    assert TE._resolve_aggregate('auto', flat, cap, 128) == 'rank_proj'
+    assert TE._resolve_aggregate('auto', flat, cap, 128, True,
+                                 1.0) == 'rank_proj'
     assert TE._resolve_aggregate('auto', flat, cap) == 'rank'

@@ -91,7 +91,8 @@ def test_fswconv_f32_rank_matches_jax(layout, d_edge):
     cfg = tm.embed_cfg
     for table in tl.tables if layout == 'multi' else [tl]:
         assert _resolve_aggregate('auto', cfg, table.bucket_size,
-                                  cfg.nSlices) == 'rank_proj'
+                                  cfg.nSlices, True,
+                                  table.idx.size / N) == 'rank_proj'
     want = np.asarray(jm.apply(variables, jnp.asarray(X), jl,
                                aggregate='rank'))
     with torch.no_grad():

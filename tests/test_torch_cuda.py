@@ -51,10 +51,16 @@ def _args(rng, R, B, D, S, uniform_w):
              freqs, V)]
 
 
+# K1's shapes: the served and bench classes (D = 64, S = 127), wide rows,
+# the Trainer's layer 0 on Cora (D = 1433, S = 2865) and Citeseer's width
+# (D = 3703, S = 7405), and a ragged small one
+K1_SHAPES = [(8, 64, 127), (16, 64, 127), (24, 64, 127), (32, 64, 127),
+             (64, 64, 127), (256, 256, 200), (8, 1433, 2865),
+             (16, 1433, 2865), (8, 3703, 7405), (48, 5, 7)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('B,D,S', [(8, 64, 127), (24, 64, 127),
-                                   (64, 64, 127), (256, 256, 200),
-                                   (48, 5, 7)])
+@pytest.mark.parametrize('B,D,S', K1_SHAPES)
 @pytest.mark.parametrize('uniform_w', [False, True])
 def test_rank_kernel_matches_plain(cuda_device, B, D, S, uniform_w):
     """|kernel - plain| <= 2e-5 * max|plain| + 1e-5 * |plain|: the weighted
@@ -90,9 +96,10 @@ def _bwd_close(got, want, with_dw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('B,D,S', [(8, 64, 127), (48, 64, 127),
-                                   (256, 256, 200), (16, 1433, 2865),
-                                   (48, 5, 7)])
+@pytest.mark.parametrize('B,D,S', [(8, 64, 127), (24, 64, 127),
+                                   (48, 64, 127), (256, 256, 200),
+                                   (8, 1433, 2865), (16, 1433, 2865),
+                                   (8, 3703, 7405), (48, 5, 7)])
 @pytest.mark.parametrize('with_dw', [False, True])
 def test_rank_bwd_kernel_matches_plain(cuda_device, B, D, S, with_dw):
     rng = np.random.default_rng(1000 + B + D)
@@ -116,6 +123,58 @@ def test_rank_bwd_kernel_matches_plain(cuda_device, B, D, S, with_dw):
                                             with_dw=with_dw)
         for a, b in zip(got, again):            # no atomics: same bits
             assert a is None or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,D,S', K1_SHAPES)
+def test_rank_proj_kernels_project_alike(cuda_device, B, D, S):
+    """K1b's recomputed projections (its step 1) equal K1f's, which K1f's
+    own kernel writes out instead of ranking, bit for bit, and two calls
+    give the same bits: the backward ranks exactly as the forward did.
+    Against the float64 product each is within 1e-5 of sum_d |z_d v_d|
+    (3xTF32 with the chunked sums: tests/test_torch_tf32.py emulates it at
+    about 1e-7 of that scale; the bound leaves room for the tensor cores'
+    truncating additions, 12 a chunk of 32 features)."""
+    from fsw_gnn_tpu_torch.ops.fsw_rank import fsw_rank_proj_projections
+    rng = np.random.default_rng(B + D)
+    Z, _, _, _, V = _args(rng, 37, B, D, S, False)
+    Zd, Vd = Z.to(cuda_device), V.to(cuda_device)
+    fwd = fsw_rank_proj_projections(Zd, Vd, 'fsw_rank_fwdp')
+    bwd = fsw_rank_proj_projections(Zd, Vd, 'fsw_rank_bwdp')
+    again = fsw_rank_proj_projections(Zd, Vd, 'fsw_rank_fwdp')
+    torch.cuda.synchronize()
+    assert torch.equal(fwd, bwd)
+    assert torch.equal(fwd, again)
+    Z64, V64 = Z.double().reshape(-1, D), V.double()
+    want = Z64 @ V64
+    scale = Z64.abs() @ V64.abs()
+    err = (fwd.cpu().double() - want).abs()
+    assert bool(torch.all(err <= 1e-5 * scale)), float((err / scale).max())
+
+
+@pytest.mark.cuda
+def test_smem_need_matches_every_library(cuda_device):
+    """`smem_bytes`, which the routing and `_fits` use without loading a
+    library, equals each rank kernel library's own `*_smem_bytes` export
+    on a grid of widths, frequency counts and flags."""
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    for B in (1, 7, 8, 24, 63, 64, 100, 128, 443, 444, 752, 753, 893, 1024):
+        for dw in (False, True):
+            for unif in (False, True):
+                for F in (1, 8, 111, 130):
+                    got = {name: R.smem_bytes(name, B, F, dw, unif)
+                           for name in R.RANK_KERNELS}
+                    lib = {n: R._kernel(n)[1]['smem_bytes']
+                           for n in R.RANK_KERNELS}
+                    want = {
+                        'fsw_rank_fwdp': lib['fsw_rank_fwdp'](B),
+                        'fsw_rank_bwdp': lib['fsw_rank_bwdp'](B, int(dw)),
+                        'fsw_rank_fwd': lib['fsw_rank_fwd'](B),
+                        'fsw_rank_bwd': lib['fsw_rank_bwd'](B, int(dw)),
+                        'fsw_rank_cart_fwd': lib['fsw_rank_cart_fwd'](B, F),
+                        'fsw_rank_cart_bwd': lib['fsw_rank_cart_bwd'](
+                            B, F, int(dw), int(unif))}
+                    assert got == want, (B, F, dw, unif)
 
 
 @pytest.mark.cuda
