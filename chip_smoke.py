@@ -7,8 +7,10 @@ Phases (any failure exits non-zero before the last line is printed):
   1. the card's name, and its name and power limit from nvidia-smi;
   2. build every CUDA kernel of the package from its sources (nvcc,
      sm_90a, all sources at once), with the seconds it took and ptxas'
-     resource report, and K1's shared memory a block and blocks an SM (from
-     that report);
+     resource report; K1's shared memory a block and blocks an SM, and the
+     backward entry kernel's (K1b, K2b, K4b) block shape, shared memory,
+     blocks and warps an SM at B = 8 .. 128 with and without with_dw (from
+     that report: the `occupancy:` line);
   3. K1f (`fsw_rank_fwdp`) against its plain PyTorch version on the card,
      at every degree-class shape of the served envelope, and both timed;
   4. serving: the bench FSWConv (in = out = 64 channels, 127 slices,
@@ -46,7 +48,8 @@ Phases (any failure exits non-zero before the last line is printed):
      dyadic grid and K2b with with_dw off (the path's) and on.  Then
      `fit`: the initial loss against a CPU forward of the same model, the
      loss falling, the final train accuracy above 0.9, each kernel
-     launched (its tables x passes) times; then one epoch's parts timed;
+     launched (its tables x passes) times; then one epoch's parts timed,
+     and each rank kernel on every table beside its bound;
   8. multisets: the reference demo's FSWEmbedding (d = 20, n = 100, 1000
      slices, random frequencies, seed 0) on 8 x 16 x 16 = 2048 multisets
      (X normal, W a softmax of normal values), so K2 sees P of 819 MB.
@@ -66,7 +69,8 @@ Phases (any failure exits non-zero before the last line is printed):
      slice_chunk = 64 = d_in, so the fused route does not apply; K2 held
      against its plain version on every captured (class, chunk) call in
      four variants; forward and backward, K2f and K2b launched (classes x
-     chunks) times each; output and gradients against the CPU;
+     chunks) times each; output and gradients against the CPU; K2f and K2b
+     timed on every captured call beside their bounds;
  10. the width repair: FSWConv(64, 64, mlp_layers=3) on a 2000-node graph
      whose node 0 has 1024 in-edges (`hub_graph`): no rank call wider than
      128 (the classes up to 1024 wide take the sort route), K1f and K1b
@@ -137,10 +141,7 @@ Phases (any failure exits non-zero before the last line is printed):
      a `routing:` line with the rule's pick beside each measurement;
  22. where K1's time goes (`k1_ab_phase`) on a served request, a bench
      step and Cora's layer 0: K1f's projection alone, K1b's step 1 alone
-     and torch.matmul of the same product; and, when the previous
-     design's sources are unpacked under chip_ab/ (`git archive 75b358f
-     fsw_gnn_tpu_torch/csrc | tar -x -C chip_ab`), K1f and K1b against
-     them in turns;
+     and torch.matmul of the same product;
  23. one JSON line listing the seven kernels with their launches, errors,
      times and bounds (the launches are those of the main-path runs 4, 6,
      7, 8, 9, 10, 12-16, 18, 19 and 20 together; K2's times and bounds at
@@ -283,7 +284,6 @@ CITESEER_EPOCHS, CITESEER_LR = 10, 1e-3
 CITESEER_SUB_NODES, CITESEER_SUB_HUBS = 1024, 8
 ROUTE_DS, ROUTE_BENCH_S = (64, 128, 256, 512, 1024), 127
 CORA_D, CORA_S = 1433, 2865
-AB_DIR = os.path.join(ROOT, 'chip_ab')
 
 
 def fail(msg):
@@ -393,7 +393,8 @@ def device_ms(torch, fn, n, reps=5):
 def ptxas_kernels(log):
     """{kernel: (registers, static shared bytes)} of every entry function
     in nvcc's `-Xptxas -v` report `log`, each named by the last component
-    of its mangled name (`<1>` after a template instantiated with true)."""
+    of its mangled name and its integer or bool template arguments
+    (`rank_bwd_entry_kernel<8,1>` for <8, true>)."""
     import re
     out, name = {}, None
     for line in log.splitlines():
@@ -404,8 +405,10 @@ def ptxas_kernels(log):
                 n = int(d.group())
                 parts.append(sym[i + d.end():i + d.end() + n])
                 i += d.end() + n
-            name = ((parts[-1] if parts else sym)
-                    + ('<1>' if sym[i:i + 5] == 'ILb1E' else ''))
+            targs = re.match(r'I((?:L[ib]\d+E)+)E', sym[i:])
+            name = (parts[-1] if parts else sym) + (
+                '<' + ','.join(re.findall(r'L[ib](\d+)E', targs.group(1)))
+                + '>' if targs else '')
             continue
         m = re.search(r'Used (\d+) registers', line)
         if m and name is not None:
@@ -1098,7 +1101,7 @@ def trainer_phase(torch, T, dev, counts, errs):
                           loss_of, tr.opt)
     gen = torch.Generator(device=dev).manual_seed(3)
     kern, rows = time_rank_kernels(torch, calls, gen, n=3)
-    k2_ms = {'fwd': 0.0, 'bwd': 0.0}
+    k2_ms = {'fwd': 0.0, 'bwd': 0.0, 'fwd_bound': 0.0, 'bwd_bound': 0.0}
     with torch.no_grad():
         for args, unif, dw in calls2:
             G = torch.randn(args[0].shape[::2], generator=gen, device=dev)
@@ -1106,6 +1109,10 @@ def trainer_phase(torch, T, dev, counts, errs):
                 *args, uniform_w=unif, with_dw=dw), 3)[0]
             k2_ms['bwd'] += device_ms(torch, lambda: R.fsw_rank_aggregate_bwd(
                 *args, G, uniform_w=unif, with_dw=dw), 3)[0]
+            S = args[0].shape[2]
+            k2_ms['fwd_bound'] += rank2_bound_ms(args[1], S)[0]
+            k2_ms['bwd_bound'] += rank2_bound_ms(args[1], S, bwd=True,
+                                                 with_dw=dw)[0]
     res = {
         'dataset': data.name, 'nodes': data.num_nodes,
         'features': int(data.features.shape[1]),
@@ -1123,6 +1130,8 @@ def trainer_phase(torch, T, dev, counts, errs):
         'k1f_ms_per_epoch': kern['fwd'], 'k1b_ms_per_epoch': kern['bwd'],
         'k2f_ms_per_epoch': k2_ms['fwd'], 'k2b_ms_per_epoch': k2_ms['bwd'],
         'k1b_bound_ms_per_epoch': kern['bwd_bound'],
+        'k2f_bound_ms_per_epoch': k2_ms['fwd_bound'],
+        'k2b_bound_ms_per_epoch': k2_ms['bwd_bound'],
         'per_layer_class': rows,
     }
     print('trainer: ' + json.dumps(res), flush=True)
@@ -1406,17 +1415,25 @@ def table_k2_phase(torch, T, dev, counts, errs):
         # K2f and K2b on each captured (class, chunk) call, summed: the
         # per-launch time of this path's K2 launches
         gen = torch.Generator(device=dev).manual_seed(9)
-        k2 = {'k2f_ms': 0.0, 'k2b_ms': 0.0}
+        k2 = dict.fromkeys(('k2f_ms', 'k2b_ms', 'k2f_bound_ms',
+                            'k2b_bound_ms'), 0.0)
         for args, unif, dw in calls:
             G = torch.randn(args[0].shape[::2], generator=gen, device=dev)
             k2['k2f_ms'] += device_ms(torch, lambda: R.fsw_rank_aggregate(
                 *args, uniform_w=unif, with_dw=dw), 10)[0]
             k2['k2b_ms'] += device_ms(torch, lambda: R.fsw_rank_aggregate_bwd(
                 *args, G, uniform_w=unif, with_dw=dw), 10)[0]
+            S = args[0].shape[2]
+            k2['k2f_bound_ms'] += rank2_bound_ms(args[1], S)[0]
+            k2['k2b_bound_ms'] += rank2_bound_ms(args[1], S, bwd=True,
+                                                 with_dw=dw)[0]
     res = {'classes': n_classes, 'chunks': n_chunks, 'launches_k2f': n_f,
            'launches_k2b': n_b, 'forward_ms': fwd_ms,
            'k2f_ms_per_forward': k2['k2f_ms'],
-           'k2b_ms_per_backward': k2['k2b_ms'], 'cpu_max_rel_err': err}
+           'k2b_ms_per_backward': k2['k2b_ms'],
+           'k2f_bound_ms_per_forward': k2['k2f_bound_ms'],
+           'k2b_bound_ms_per_backward': k2['k2b_bound_ms'],
+           'cpu_max_rel_err': err}
     print('table K2: ' + json.dumps(res), flush=True)
 
 
@@ -2484,70 +2501,14 @@ def routing_phase(torch, T, dev):
     return cora_calls
 
 
-def _parent_libs(torch):
-    """The previous design's K1f and K1b (chip_ab/fsw_gnn_tpu_torch/csrc,
-    unpacked there by `git archive`), built with the package's nvcc flags
-    under other names, loaded with their C signatures; None without
-    them."""
-    import ctypes
-    from fsw_gnn_tpu_torch import kernels
-    from fsw_gnn_tpu_torch.ops.fsw_rank import _SIGNATURES
-    src = os.path.join(AB_DIR, 'fsw_gnn_tpu_torch', 'csrc')
-    if not os.path.isdir(src):
-        return None
-    out = os.path.join(AB_DIR, '_build')
-    os.makedirs(out, exist_ok=True)
-    procs = {}
-    for name in ('fsw_rank_fwdp', 'fsw_rank_bwdp'):
-        lib = os.path.join(out, f'libparent_{name}.so')
-        procs[name] = (lib, subprocess.Popen(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, '-o', lib,
-             os.path.join(src, f'{name}.cu')], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            fail(f'the previous {name}.cu did not build:\n{log}')
-        for line in log.splitlines():
-            if 'registers' in line or 'spill' in line:
-                print(f'  previous {name}: {line.strip()}')
-        cdll = ctypes.CDLL(lib)
-        fn = getattr(cdll, f'{name}_f32')
-        fn.argtypes = _SIGNATURES[name][0] + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        libs[name] = fn
-        if name == 'fsw_rank_bwdp':
-            ws = cdll.fsw_rank_bwdp_workspace_bytes
-            ws.argtypes = [ctypes.c_int] * 5
-            ws.restype = ctypes.c_size_t
-            libs['workspace_bytes'] = ws
-    return libs
-
-
 def k1_ab_phase(torch, dev, call_sets):
-    """Phase 22: where K1's time goes, and K1f and K1b against their
-    previous design, on the calls of a served request, a bench step and
-    Cora's layer 0.  Always: K1f's kernel up to its projection (written
-    out), K1b's step 1 alone and `torch.matmul` of the same product in
-    float32 (a reference the port never calls).  When the previous
-    design's sources (FFMA projections; commit 75b358f, unpacked into
-    chip_ab/ by `git archive 75b358f fsw_gnn_tpu_torch/csrc | tar -x -C
-    chip_ab`) are there, as they are not in a plain checkout: both K1f and
-    K1b against them in turns (previous, new, new, previous), K1f's
-    outputs checked against each other."""
-    from fsw_gnn_tpu_torch.ops.fsw_rank import (
-        _launch, fsw_rank_aggregate_proj, fsw_rank_aggregate_proj_bwd,
-        fsw_rank_proj_projections)
-    libs = _parent_libs(torch)
-    if libs is None:
-        print(f'k1 ab: no previous design under {AB_DIR}; K1 alone',
-              flush=True)
-    gen = torch.Generator(device=dev).manual_seed(8)
+    """Phase 22: where K1's time goes, on the calls of a served request, a
+    bench step and Cora's layer 0: K1f's kernel up to its projection
+    (written out), K1b's step 1 alone and `torch.matmul` of the same
+    product in float32 (a reference the port never calls)."""
+    from fsw_gnn_tpu_torch.ops.fsw_rank import fsw_rank_proj_projections
     keys = ('k1f_new_projection_only', 'k1b_new_step1_only',
             'matmul_f32_projection')
-    if libs is not None:
-        keys += ('k1f_parent', 'k1f_new', 'k1b_parent', 'k1b_new')
     res = {}
     for label, calls in call_sets.items():
         tot = dict.fromkeys(keys, 0.0)
@@ -2555,11 +2516,7 @@ def k1_ab_phase(torch, dev, call_sets):
             for args, unif, dw in calls:
                 Z, wn, pad, freqs, V = args
                 R, B, D = Z.shape
-                S = V.shape[1]
                 n = 3 if D > 256 else 10
-                # K1f's own kernel up to its projection, K1b's step 1
-                # alone, and the library's product: where each one's time
-                # goes
                 for key, kern in (('k1f_new_projection_only',
                                    'fsw_rank_fwdp'),
                                   ('k1b_new_step1_only', 'fsw_rank_bwdp')):
@@ -2568,49 +2525,6 @@ def k1_ab_phase(torch, dev, call_sets):
                 Z2 = Z.reshape(R * B, D)
                 tot['matmul_f32_projection'] += device_ms(
                     torch, lambda: torch.matmul(Z2, V), n, 3)[0]
-                if libs is None:
-                    continue
-                G = torch.randn((R, S), generator=gen, device=dev)
-                out = torch.empty((R, S), device=dev)
-                f32 = dict(dtype=torch.float32, device=dev)
-                grads = [torch.empty((R, B, D), **f32),
-                         torch.empty((R, B), **f32), torch.empty((R,), **f32),
-                         torch.empty((S,), **f32), torch.empty((D, S), **f32)]
-                ws = torch.empty((libs['workspace_bytes'](R, B, D, S,
-                                                          int(dw)),),
-                                 dtype=torch.uint8, device=dev)
-                u = int(unif and not dw)
-
-                def old_f():
-                    _launch('parent K1f', libs['fsw_rank_fwdp'], Z, wn, pad,
-                            freqs, V, out, R, B, D, S, u)
-
-                def old_b():
-                    _launch('parent K1b', libs['fsw_rank_bwdp'], Z, wn, pad,
-                            freqs, V, G, grads[0], grads[1], grads[2],
-                            grads[3], grads[4], ws, R, B, D, S, u, int(dw))
-
-                def new_f():
-                    return fsw_rank_aggregate_proj(*args, uniform_w=unif,
-                                                   with_dw=dw)
-
-                def new_b():
-                    return fsw_rank_aggregate_proj_bwd(*args, G,
-                                                       uniform_w=unif,
-                                                       with_dw=dw)
-                old_f()
-                want = new_f()
-                torch.cuda.synchronize()
-                e = (out - want).abs().max().item()
-                if not e <= KERNEL_ATOL_REL * want.abs().max().item() * 4:
-                    fail(f'k1 ab: the previous K1f and the new one differ '
-                         f'by {e:.3e} ({label}, B={B} D={D})')
-                for key, old, new in (('k1f', old_f, new_f),
-                                      ('k1b', old_b, new_b)):
-                    ms = [device_ms(torch, fn, n, 3)[0]
-                          for fn in (old, new, new, old)]
-                    tot[key + '_parent'] += (ms[0] + ms[3]) / 2
-                    tot[key + '_new'] += (ms[1] + ms[2]) / 2
         res[label] = tot
         print(f'  k1 ab {label}: ' + ', '.join(
             f'{k} {v:.4f} ms' for k, v in tot.items()), flush=True)
@@ -2652,8 +2566,8 @@ def main():
     sys.stdout.flush()
 
     # K1's blocks an SM from ptxas' report, and shared memory a block
-    from fsw_gnn_tpu_torch.ops.fsw_rank import smem_bytes
-    widths = (8, 16, 24, 32, 64, 128)
+    from fsw_gnn_tpu_torch.ops.fsw_rank import entry_shape, smem_bytes
+    widths = (8, 16, 24, 32, 64, 100, 128)
     occ = {}
     for lib, dyn in (('fsw_rank_fwdp', {B: smem_bytes('fsw_rank_fwdp', B)
                                         for B in widths}),
@@ -2663,10 +2577,31 @@ def main():
                     'bwdp_proj_kernel', 'bwdp_dz_kernel', 'bwdp_dv_kernel'):
                 occ[kern] = {B: blocks_per_sm(regs, static + d, MMA_THREADS)
                              for B, d in dyn.items()}
+    # the backward entry kernel of K2b, K4b (at CART_F frequencies) and
+    # K1b, with and without with_dw: its block shape, shared memory,
+    # blocks and warps an SM
+    entry = {}
+    for lib, F in (('fsw_rank_bwd', 1), ('fsw_rank_cart_bwd', CART_F),
+                   ('fsw_rank_bwdp', 1)):
+        report = ptxas_kernels(logs.get(lib, ''))
+        for dw in (True, False):
+            kern = f'rank_bwd_entry_kernel<{F},{int(dw)}>'
+            if kern not in report:
+                continue
+            regs, static = report[kern]
+            for B in widths:
+                K, tsb = entry_shape(B, F, dw)
+                need = smem_bytes(lib, B, F, dw)
+                nb = blocks_per_sm(regs, static + need, K * tsb)
+                entry[f'{lib} B={B}{" dw" if dw else ""}'] = dict(
+                    registers=regs, threads_a_slice=K, slices=tsb,
+                    smem_bytes=need, blocks_per_sm=nb,
+                    warps_per_sm=nb * K * tsb // 32)
     print('occupancy: ' + json.dumps({
         'blocks_per_sm': occ,
         'k1f_smem_bytes': {B: smem_bytes('fsw_rank_fwdp', B)
-                           for B in widths}}), flush=True)
+                           for B in widths},
+        'entry_kernel': entry}), flush=True)
 
     counts = dict.fromkeys(KERNEL_NAMES, 0)
     errs = dict.fromkeys(KERNEL_NAMES, 0.0)
@@ -2703,7 +2638,7 @@ def main():
     cart_table_phase(torch, T, dev, counts, errs)
     cart_multiset_phase(torch, T, dev, counts, errs)
 
-    # ---- 20. Citeseer, 21. the K1 crossover, 22. K1 against its parent ------
+    # ---- 20. Citeseer, 21. the K1 crossover, 22. where K1's time goes -----
     citeseer_phase(torch, T, dev, counts, errs)
     cora_calls = routing_phase(torch, T, dev)
     k1_ab_phase(torch, dev, {'served request': served_calls,

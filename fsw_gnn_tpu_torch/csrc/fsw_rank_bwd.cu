@@ -1,10 +1,11 @@
 // Weighted-rank FSW aggregation on projected entries, backward (float32).
 //
-// Replaces the TPU kernel `_bwd_kernel` behind the backward `_fsw_bwd` of
-// `fsw_rank_aggregate` (fsw_gnn_tpu/ops/fsw_rank_pallas.py).  Given the
-// forward's inputs P (R, B, S), wn (R, B), pad (R), freqs (S) and the output
-// cotangent G (R, S), it recomputes the inclusive weighted rank c exactly as
-// the forward kernel does, then
+// Replaces the TPU kernel `_bwd_kernel` (fsw_gnn_tpu/ops/fsw_rank_pallas.py
+// :292) behind the backward `_fsw_bwd` (:509) of `fsw_rank_aggregate`.
+// Given the forward's inputs P (R, B, S), wn (R, B), pad (R), freqs (S) and
+// the output cotangent G (R, S), it recomputes the inclusive weighted rank c
+// exactly as the forward kernel does (the same sums in the same order, so
+// the gradient is that of the function the forward computed), then
 //
 //   dP[r,i,s] = (1 + f) g phi_i,  phi_i = (2/(pi f)) sin(pi f w_i) cos A_i,
 //               A_i = pi f (2 c_i - w_i)  (exact f == 0 limit 2 w_i cos A_i)
@@ -14,14 +15,17 @@
 //             dc_i = (1 + f) g p_i (-4) sin(pi f w_i) sin A_i,
 //             M_ij = 1[p_j < p_i or (p_j == p_i and j <= i)].
 //
-// Design: K1b's steps 2, 5 and 6 (fsw_rank_bwdp.cu) with P read from the
-// input instead of projected into the workspace, and dp written to the
-// output; both kernels are fsw_rank_common.cuh's, the one copy K1b runs.
-//   1. the entry kernel, one block per (table row, tile of 64 slices), one
-//      thread per slice: its column of P, the rank loop in the order
-//      j = 0 .. B-1, the trig, dP, and this row's df term to an (R, S)
-//      workspace.  With with_dw it also runs the transposed-mask loop and
-//      sums dwn / dpad over the block's slices into per-tile partials.
+// Design: two steps on the caller's stream, both fsw_rank_common.cuh's (K1b,
+// fsw_rank_bwdp.cu, runs them on the P it projects):
+//   1. the entry kernel (`rank_bwd_entry_kernel` with one frequency), one
+//      block per (table row, tile of 32 or 64 slices), up to 4 threads a
+//      slice, each ranking its groups of 8 entries against the column in
+//      shared memory: the rank loop in the order j = 0 .. B-1, the trig, dP,
+//      and this row's df term to an (R, S) workspace.  With with_dw the rank
+//      loop also counts each entry's position under the tie rule of M, so
+//      the transposed term sum_i dc_i M_ij is a suffix sum of dc in sorted
+//      order read at j's position (O(B) a slice, not B^2), and the block
+//      sums dwn / dpad over its slices into per-tile partials.
 //   2. the column-sum kernel reduces the df terms over the rows (two passes
 //      when R > 256) and the dwn / dpad partials over the slice tiles.
 // The TPU kernel carries df from one row tile to the next of its sequential
@@ -30,8 +34,8 @@
 //
 // Zero-weight entries (JAX pads B to a multiple of 8 with them, and
 // multisets have real ones) get exactly dP = 0 and contribute nothing to
-// df, dwn or dpad: see fsw_rank_common.cuh.  The uniform_w trig runs only
-// without with_dw, as the TPU kernel does.
+// df, dpad or another entry's dwn: see fsw_rank_common.cuh.  The uniform_w
+// trig runs only without with_dw, as the TPU kernel does.
 //
 // What bounds it on an H100: reading P and G once and writing dP.  The
 // least work a row with d real entries needs per slice is a sort (about
@@ -39,11 +43,15 @@
 // terms (about 45 operations an entry), and with with_dw a reverse cumsum
 // of dc (d adds); at the multiset path's widths (2048 rows, d = n = 100,
 // S = 1000) that is about 1.1e10 operations for 1.65 GB, so the bytes bound
-// it (0.49 ms).  This kernel runs the B x B rank loop instead (3 d
-// operations an entry, 3 d more for the transposed loop with with_dw).  The
-// entry kernel needs 4 (64 B (2 with with_dw, else 1) + B (3 with with_dw,
-// else 1) + 64) bytes of shared memory: B up to 443 with with_dw, 893
-// without.
+// it (0.49 ms).  This kernel ranks by the B x B loop instead: a compare
+// to 0/1 and a fused multiply-add a pair, one add more with with_dw for the
+// positions that replace the previous design's second B x B loop (about 3
+// d^2 operations a slice with with_dw, the previous design's about 6 d^2).
+// The previous design ran one thread a slice and held P and dc as two
+// B x 64 columns, 8 warps an SM at B = 100 with with_dw; this one holds 10
+// bytes an entry-slice (4 without with_dw), 4 threads a slice from B = 25
+// on with with_dw (see `entry_shape`): 24 warps an SM at B = 100, and B up
+// to 705 with with_dw, 1754 without.
 
 #include "fsw_rank_common.cuh"
 
@@ -57,7 +65,7 @@ struct Plan {
 
 Plan make_plan(int R, int B, int S, int with_dw) {
   Plan p;
-  p.n_st = cdiv(S, TS);
+  p.n_st = entry_tiles(B, S, 1, with_dw);
   size_t off = 0;
   p.dfr = off;   off += align64((size_t)R * S);
   p.tmp = off;   off += align64((size_t)MAX_SPLIT * S);
@@ -73,7 +81,7 @@ extern "C" {
 
 // Dynamic shared memory, in bytes, of the entry kernel at width B.
 size_t fsw_rank_bwd_smem_bytes(int B, int with_dw) {
-  return entry_smem_bytes(B, with_dw);
+  return entry_smem_bytes(B, 1, with_dw);
 }
 
 // Bytes of device workspace a call at this shape needs (the caller
@@ -93,16 +101,16 @@ int fsw_rank_bwd_f32(const void* P, const void* wn, const void* pad,
                      int uniform_w, int with_dw, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const Plan p = make_plan(R, B, S, with_dw);
-  if (p.n_st > MAX_SPLIT) return (int)cudaErrorInvalidValue;
   float* w = (float*)ws;
   const cudaError_t e = launch_rank_bwd_entry(
-      (const float*)P, (float*)dP, (const float*)wn, (const float*)pad,
-      (const float*)freqs, (const float*)G, w + p.dfr, w + p.dwnp,
-      w + p.dpadp, R, B, S, uniform_w, with_dw, st);
+      EntryArgs{(const float*)P, (float*)dP, (const float*)wn,
+                (const float*)pad, (const float*)freqs, (const float*)G,
+                w + p.dfr, w + p.dwnp, w + p.dpadp, R, B, S, 1},
+      uniform_w, with_dw, st);
   if (e != cudaSuccess) return (int)e;
   return (int)reduce_entry_partials(w + p.dfr, w + p.dwnp, w + p.dpadp,
                                     (float*)df, (float*)dwn, (float*)dpad,
-                                    w + p.tmp, R, B, S, with_dw, st);
+                                    w + p.tmp, R, B, S, p.n_st, with_dw, st);
 }
 
 }  // extern "C"

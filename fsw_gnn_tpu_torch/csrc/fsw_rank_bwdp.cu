@@ -24,12 +24,15 @@
 //      K1f's blocks, written to the workspace that dp takes later.  Both
 //      kernels run the same 3xTF32 tensor-core product on the same row
 //      tiles, so P has the forward's bits and both rank alike.
-//   2. entry kernel, one block per (table row, tile of 64 slices), one
-//      thread per slice: its column of P, the rank loop in the order
-//      j = 0 .. B-1, the trig, then dp written over P (each thread owns
-//      its column) and this row's df term to (R, S).  With with_dw it also
-//      runs the transposed-mask loop and reduces dwn / dpad over the
-//      block's slices into per-tile partials.
+//   2. the entry kernel (`rank_bwd_entry_kernel` with one frequency), one
+//      block per (table row, tile of 32 or 64 slices), up to 4 threads a
+//      slice: the block's columns of P, the rank loop in the order
+//      j = 0 .. B-1, the trig, then dp written over P (the block stages its
+//      columns first) and this row's df term to (R, S).  With with_dw the
+//      rank loop also counts each entry's position under the tie rule, the
+//      transposed term is a suffix sum of dc in sorted order (O(B) a
+//      slice), and the block reduces dwn / dpad over its slices into
+//      per-tile partials.
 //   3. dZ = dP V^T: one 64 x 64 output tile (entries x features) a block,
 //      the slice axis walked in chunks, on the same tensor-core routine
 //      (`tile_product`, the same split and chunk order).  Each block owns
@@ -49,7 +52,8 @@
 // The three products run on the tensor cores in 3xTF32 (three TF32
 // products for each float32 one), staged by `cp.async` through a two-stage
 // ring of 36 KB; the entry kernel ranks by the B x B loop (3 d operations an
-// entry) and P and dp make an HBM round trip.  Fusing step 1 into the entry
+// entry, one more with with_dw for the positions) and P and dp make an HBM
+// round trip.  Fusing step 1 into the entry
 // kernel, so that P never leaves the SM, is the next step.
 //
 // Padded (zero-weight) entries gather sender 0's row, which is not zero.
@@ -79,7 +83,7 @@ struct Plan {
 Plan make_plan(int R, int B, int D, int S, int with_dw) {
   Plan p;
   const long long N = (long long)R * B;
-  p.n_st = cdiv(S, TS);
+  p.n_st = entry_tiles(B, S, 1, with_dw);
   const int tiles = cdiv(D, MT) * cdiv(S, NT);
   int want = cdiv(FILL_BLOCKS, tiles);
   want = want < MAX_SPLIT ? want : MAX_SPLIT;
@@ -185,7 +189,7 @@ extern "C" {
 
 // Dynamic shared memory, in bytes, of the entry kernel at width B.
 size_t fsw_rank_bwdp_smem_bytes(int B, int with_dw) {
-  return entry_smem_bytes(B, with_dw);
+  return entry_smem_bytes(B, 1, with_dw);
 }
 
 // Bytes of device workspace a call at this shape needs (the caller
@@ -216,9 +220,9 @@ int fsw_rank_bwdp_f32(const void* Z, const void* wn, const void* pad,
   const Plan p = make_plan(R, B, D, S, with_dw);
   const long long N = (long long)R * B;
   const int n_dt = cdiv(D, NT);
-  if (p.n_st > MAX_SPLIT || cdiv(S, NT) > 65535 || cdiv(D, MT) > 65535 ||
+  if (cdiv(S, NT) > 65535 || cdiv(D, MT) > 65535 ||
       (long long)cdiv(N, MT) * n_dt > 0x7fffffffLL ||
-      entry_smem_bytes(B, with_dw) > SMEM_LIMIT)
+      entry_smem_bytes(B, 1, with_dw) > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   float* w = (float*)ws;
   float* dp = w + p.dp;
@@ -228,10 +232,11 @@ int fsw_rank_bwdp_f32(const void* Z, const void* wn, const void* pad,
   if (e != cudaSuccess) return (int)e;
 
   // P in the workspace becomes dp in place
-  if ((e = launch_rank_bwd_entry(dp, dp, (const float*)wn, (const float*)pad,
-                                 (const float*)freqs, (const float*)G,
-                                 w + p.dfr, w + p.dwnp, w + p.dpadp, R, B, S,
-                                 uniform_w, with_dw, st)) != cudaSuccess)
+  if ((e = launch_rank_bwd_entry(
+           EntryArgs{dp, dp, (const float*)wn, (const float*)pad,
+                     (const float*)freqs, (const float*)G, w + p.dfr,
+                     w + p.dwnp, w + p.dpadp, R, B, S, 1},
+           uniform_w, with_dw, st)) != cudaSuccess)
     return (int)e;
 
   bwdp_dz_kernel<<<(unsigned)((long long)cdiv(N, MT) * n_dt), MMA_THREADS, 0,
@@ -248,7 +253,8 @@ int fsw_rank_bwdp_f32(const void* Z, const void* wn, const void* pad,
     return (int)e;
   return (int)reduce_entry_partials(w + p.dfr, w + p.dwnp, w + p.dpadp,
                                     (float*)df, (float*)dwn, (float*)dpad,
-                                    w + p.tmp, R, B, S, with_dw, st);
+                                    w + p.tmp, R, B, S, p.n_st, with_dw,
+                                    st);
 }
 
 }  // extern "C"

@@ -2,14 +2,16 @@
 // pair K1f / K1b (fsw_rank_fwdp.cu, fsw_rank_bwdp.cu), the unfused pair
 // K2f / K2b (fsw_rank_fwd.cu, fsw_rank_bwd.cu) and the cartesian pair
 // K4f / K4b (fsw_rank_cart_fwd.cu, fsw_rank_cart_bwd.cu).  One copy of the
-// rank loop, the trig, the transposed-mask loop, the deterministic column
-// sums and K1's tensor-core tile product (`tile_product`, at the end), so
-// the kernels compute the same bits from the same inputs.
+// rank loop, the trig, the backward's entry kernel (K1b, K2b and K4b run
+// it), the deterministic column sums and K1's tensor-core tile product
+// (`tile_product`, at the end), so the kernels compute the same bits from
+// the same inputs.
 //
 // For a table row r with weights wn[0 .. B-1], phantom mass pad and one
-// slice of frequency f, every thread owns one slice and holds its column
-// P[r, :, s] in shared memory, laid out [b][thread] (TS threads a block) so
-// a warp's accesses fall on consecutive banks:
+// slice of frequency f, a forward thread owns one slice and holds its
+// column P[r, :, s] in shared memory, laid out [b][thread] (TS threads a
+// block) so a warp's accesses fall on consecutive banks (the backward's
+// layout is [b][slice of its tile], read by several threads a slice):
 //
 //   c[i]   = sum_j wn[j] * 1[P[j] < P[i] or (P[j] == P[i] and j <= i)]
 //            + pad * 1[P[i] > 0]
@@ -37,7 +39,7 @@
 
 namespace {
 
-constexpr int TS = 64;             // slices per block (one thread each)
+constexpr int TS = 64;             // slices a forward block (one thread each)
 constexpr int MAX_SPLIT = 256;     // partials a single reduction pass sums
 constexpr int RED_THREADS = 256;   // threads of a column-sum block
 constexpr size_t SMEM_LIMIT = 232448;  // shared memory a block may use
@@ -141,217 +143,501 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-constexpr int WARPS = TS / 32;     // warps of an entry block
-
-// The with_dw backward's transposed-mask loop on thread tid's column: entry
-// j collects the dc of every i it precedes, in the order i = 0 .. B-1, NI
-// entries j a pass, summed over the warp's slices (warp_sum) and added to
-// d_sm[warp][j] by lane 0.  The tie rule by ranges as in rank_group (an i
-// below the group is preceded on <, an i above it on <=).  Every lane of
-// the warp must call it (the shuffles).
-__device__ __forceinline__ void mask_consume(const float* p_sm,
-                                             const float* dc_sm, float* d_sm,
-                                             int B, int tid, int lane,
-                                             int warp) {
-  for (int j0 = 0; j0 < B; j0 += NI) {
-    float p[NI], acc[NI];
+// The backward's rank loop: rank_group's sums on column `col` of a [b][ld]
+// layout, and with POS each entry's position in the column's order under
+// the tie rule, #{j : p_j < p_i or (p_j == p_i and j < i)}.  A pair costs
+// the predicate as 1.f or 0.f (one FSET) and a fused multiply-add
+// c = w_j s + c, which rounds exactly as rank_group's c + (pred ? w_j : 0)
+// (w_j 1 + c is c + w_j, rounded once; w_j 0 + c is c), so c has the
+// forward's bits; POS adds s to a float count (exact below 2^24), one add
+// more.  rank_group's select form costs a compare, a select and an add,
+// and an integer count two more (an add and a predicated move).  The order is total, so a column's
+// positions are a permutation of 0 .. B-1 (a NaN projection, which
+// precedes nothing, is put at 0: it may share that position, but never
+// leaves the column).
+template <bool POS>
+__device__ __forceinline__ void rank_core(const float* p_sm,
+                                          const float* w_sm, int B, int ld,
+                                          int col, int i0, float pr,
+                                          float (&p)[NI], float (&c)[NI],
+                                          int (&pos)[NI]) {
+  float n[NI];
+#pragma unroll
+  for (int k = 0; k < NI; ++k) {
+    p[k] = (i0 + k < B) ? p_sm[(i0 + k) * ld + col] : 0.f;
+    c[k] = 0.f;
+    n[k] = 0.f;
+  }
+  int j = 0;
+  for (; j < i0; ++j) {
+    const float p_j = p_sm[j * ld + col], w_j = w_sm[j];
 #pragma unroll
     for (int k = 0; k < NI; ++k) {
-      p[k] = (j0 + k < B) ? p_sm[(j0 + k) * TS + tid] : 0.f;
-      acc[k] = 0.f;
+      const float s = (p_j <= p[k]) ? 1.f : 0.f;
+      c[k] = fmaf(w_j, s, c[k]);
+      if (POS) n[k] += s;
     }
-    int i = 0;
-    for (; i < j0; ++i) {
-      const float p_i = p_sm[i * TS + tid], dc_i = dc_sm[i * TS + tid];
+  }
+  // the group's own entries, unrolled: whether j <= i0 + k is known, so
+  // each pair is one compare, as in the other ranges
 #pragma unroll
-      for (int k = 0; k < NI; ++k) acc[k] += (p[k] < p_i) ? dc_i : 0.f;
-    }
-    for (const int i1 = min(j0 + NI, B); i < i1; ++i) {
-      const float p_i = p_sm[i * TS + tid], dc_i = dc_sm[i * TS + tid];
-#pragma unroll
-      for (int k = 0; k < NI; ++k)
-        acc[k] += (p[k] < p_i || (p[k] == p_i && j0 + k <= i)) ? dc_i : 0.f;
-    }
-    for (; i < B; ++i) {
-      const float p_i = p_sm[i * TS + tid], dc_i = dc_sm[i * TS + tid];
-#pragma unroll
-      for (int k = 0; k < NI; ++k) acc[k] += (p[k] <= p_i) ? dc_i : 0.f;
-    }
+  for (int jj = 0; jj < NI; ++jj, ++j) {
+    if (j >= B) break;
+    const float p_j = p_sm[j * ld + col], w_j = w_sm[j];
 #pragma unroll
     for (int k = 0; k < NI; ++k) {
-      if (j0 + k < B) {
-        const float t = warp_sum(acc[k]);
-        if (lane == 0) d_sm[warp * B + j0 + k] += t;
-      }
+      const float s = (jj <= k ? p_j <= p[k] : p_j < p[k]) ? 1.f : 0.f;
+      c[k] = fmaf(w_j, s, c[k]);
+      if (POS) n[k] += s;
     }
   }
-}
-
-// The with_dw backward's block sums, called by every thread of the block:
-// dwn_part[st, r, :] = the warps' d_sm rows added in warp order, and
-// dpad_part[st, r] = the threads' dpad terms added in the order
-// t = 0 .. TS-1 (r_sm holds TS floats of scratch).
-__device__ __forceinline__ void write_entry_partials(
-    const float* d_sm, float* r_sm, float dpad_acc, float* dwn_part,
-    float* dpad_part, int R, int B, int r, int st, int tid) {
-  r_sm[tid] = dpad_acc;
-  __syncthreads();
-  float* wp = dwn_part + ((size_t)st * R + r) * B;
-  for (int j = tid; j < B; j += TS) {
-    float acc = 0.f;
-    for (int w = 0; w < WARPS; ++w) acc += d_sm[w * B + j];
-    wp[j] = acc;
+  for (; j < B; ++j) {
+    const float p_j = p_sm[j * ld + col], w_j = w_sm[j];
+#pragma unroll
+    for (int k = 0; k < NI; ++k) {
+      const float s = (p_j < p[k]) ? 1.f : 0.f;
+      c[k] = fmaf(w_j, s, c[k]);
+      if (POS) n[k] += s;
+    }
   }
-  if (tid == 0) {
-    float acc = 0.f;
-    for (int t = 0; t < TS; ++t) acc += r_sm[t];
-    dpad_part[(size_t)st * R + r] = acc;
+#pragma unroll
+  for (int k = 0; k < NI; ++k) {
+    c[k] += (p[k] > 0.f) ? pr : 0.f;
+    pos[k] = POS ? max((int)n[k] - 1, 0) : 0;
   }
 }
 
-// Dynamic shared memory of rank_bwd_entry_kernel at width B.
-inline size_t entry_smem_bytes(int B, int with_dw) {
-  return sizeof(float) * ((size_t)B * TS * (with_dw ? 2 : 1) +
-                          (size_t)B * (with_dw ? 1 + WARPS : 1) + TS);
-}
-
-// The backward's entry kernel: one block per (table row, tile of TS
-// slices), one thread per slice.  Reads the row's P (R, B, S), ranks its
-// entries NI at a time (rank_group) and runs the trig, writes
-//   dP[r, i, s] = (1 + f) g sd_i                 (R, B, S)
-//   dfr[r, s]   = g (q + (1 + f) sum_i P[i] phi_f,i)   this row's df term
-// and with with_dw runs the transposed-mask loop (NI entries j at a time)
-// and reduces dwn / dpad over the block's slices into per-tile partials
-// dwn_part (n_st, R, B) and dpad_part (n_st, R).  dwn's terms are summed
-// over each warp's slices by shuffles as they are made (warp_sum), so a
-// block holds two B x TS columns (P and dc) rather than three, and the
-// warps' sums are added in warp order; dpad sums in the order t = 0 .. TS-1.
+// ---- the backward's entry kernel (K1b, K2b, K4b) ---------------------------
+//
+// One block per (table row r, tile of tsb slices); K threads a slice (its
+// parts), each ranking every K-th group of NI entries against the whole
+// column, which the K read from one copy in shared memory (`entry_shape`:
+// K = 4 from B = 25 with with_dw, from B = 33 without).  Warp w takes
+// slices 32 (w % M) .. + 31 of the tile (M = tsb / 32) as part w / M, so a
+// warp's lanes stay on 32 consecutive slices and its dP stores coalesce.
+// For F frequencies f = F[s, k] and cotangents g = G[r, s, k] (K2b and K1b:
+// F = 1) it writes
+//   dP[r, i, s] = sum_k (1 + f) g sd_i                      (R, B, S)
+//   dfr[r, s, k] = g (q + (1 + f) sum_i p_i phi_f,i)         this row's df
+// and with with_dw the tile's partial sums of dwn and dpad:
+//   dwn_j = sum_{s,k} (1 + f) g p_j 2 cos(A_j - pi f w_j) + T_j,
+//   T_j   = sum_i dc_i M_ij,  M_ij = 1[p_j < p_i or (p_j == p_i and j <= i)],
+//   dpad  = sum_i dc_i [p_i > 0],  dc_i = sum_k (1 + f) g p_i (-4) sin(pi f
+//           w_i) sin A_i.
+//
+// The transposed term in O(B).  The rank pass also counts each entry's
+// position pos_i under the tie rule of M (rank_core<true>, one add a pair).
+// The order is total, so j precedes-or-equals i exactly when
+// pos_j <= pos_i, and T_j is the sum of dc over the positions from pos_j
+// on: each thread scatters its entries' dc to their positions (x_sm), one
+// thread a slice sums that column from the end once, and each entry reads
+// its term at its position.  Per pair this costs three instructions (a
+// compare to 0/1, a fused multiply-add for c, an add for the count), where
+// the previous design's rank loop and its second B x B loop cost about
+// three each; a bitonic sort of (p, index) in shared memory would cost
+// about 14k operations a slice at B = 100 (1792 compare-exchanges of 8 at
+// B' = 128, and a block barrier a stage) against the count's 10k.
+// dwn therefore sums T in the columns' sorted order; the direct term and T
+// are summed over each warp's slices by shuffles (warp_sum, a fixed tree),
+// the M warps' sums added in order; dpad adds each thread's entries in its
+// groups' order and the block's threads in the order t = 0 .. K tsb - 1.
+//
+// Occupancy.  A block holds one copy of its P columns, dc by position and
+// the 16-bit positions (10 bytes an entry-slice with with_dw, 4 without),
+// so K threads a slice share 10 B tsb bytes: at B = 100, K = 4, tsb = 32 a
+// block is 4 warps in 33.2 KB, 6 blocks (24 warps) an SM; the previous
+// design held two 4-byte columns for one thread a slice (8 warps an SM).
+//
+// Latency.  At narrow B a block's work is short, so the global loads of its
+// prologue (the P columns, 8 rows a batch, the tile's frequencies and
+// cotangents, the weights) are all issued before the first store to shared
+// memory: one round trip, not one after another.
+//
+// Frequencies.  NF = 1 or NF_WIDE (the paths' F): each thread holds its q
+// and qf sums of every frequency in registers and the parts fold them into
+// the shared [F][tsb] arrays once, in the order h = 0 .. K-1.  NF = 0, any
+// other F: K = 1, the sums accumulate in the shared arrays (the previous
+// design's path).  The frequencies, 1/f, the cotangents (and the uniform
+// row trig) of the tile stay in shared [F][tsb] arrays, staged coalesced
+// from the (S, F) and (R, S, F) layouts.
+//
 // Lanes past S run on zeros (p = 0, f = 0, g = 0: every term exactly 0) so
 // that every lane of a warp takes part in the shuffles; a warp wholly past
-// S skips the loops.  P and dP may be the same buffer: each thread reads its
-// whole column before it writes there.
-__global__ void rank_bwd_entry_kernel(const float* P, float* dP,
-                                      const float* __restrict__ wn,
-                                      const float* __restrict__ pad,
-                                      const float* __restrict__ freqs,
-                                      const float* __restrict__ G,
-                                      float* __restrict__ dfr,
-                                      float* __restrict__ dwn_part,
-                                      float* __restrict__ dpad_part,
-                                      int R, int B, int S, int uniform_w,
-                                      int with_dw) {
+// S skips the loops.  P and dP may be the same buffer: the block stages its
+// columns before any thread writes dP.  No float atomics: two calls give
+// the same bits.
+
+constexpr int KMAX = 4;       // threads a slice at most
+constexpr int NF_WIDE = 8;    // the other frequency count with an instance
+
+// The entry kernel's block: K threads a slice, tsb slices a tile.
+struct EntryShape {
+  int K, tsb;
+};
+
+// Dynamic shared memory of the entry kernel at width B, F frequencies and
+// block shape (K, tsb): floats [B][tsb] P (and with with_dw dc by
+// position), [F][tsb] f, 1/f, g, q, qf (and without with_dw the uniform
+// row's sin and cos), [B] wn, with with_dw [tsb / 32][B] dwn sums and
+// [K tsb] dpad terms; then with with_dw the [B][tsb] 16-bit positions.
+inline size_t entry_need(int B, int F, int with_dw, int K, int tsb) {
+  const size_t col = (size_t)B * tsb, fc = (size_t)F * tsb;
+  const size_t floats =
+      with_dw ? 2 * col + 5 * fc + B + (size_t)(tsb / 32) * B + (size_t)K * tsb
+              : col + 7 * fc + B;
+  return sizeof(float) * floats + (with_dw ? sizeof(unsigned short) * col : 0);
+}
+
+// The block shape at width B: a slice's groups of NI entries split over up
+// to KMAX threads where the frequency sums live in registers, with with_dw
+// or above B = 32 (narrower rows without with_dw need little shared memory,
+// their blocks fill the SM already, and one thread a slice pays the fixed
+// costs of a slice once); one thread a slice otherwise, 64 slices a tile
+// where that fits and 32 where not.
+inline EntryShape entry_shape(int B, int F, int with_dw) {
+  int K = (F == 1 || F == NF_WIDE) && (with_dw || B > 32) ? cdiv(B, NI) : 1;
+  K = K < 1 ? 1 : (K > KMAX ? KMAX : K);
+  const int tsb =
+      (K == 1 && entry_need(B, F, with_dw, 1, 64) <= SMEM_LIMIT) ? 64 : 32;
+  return {K, tsb};
+}
+
+inline size_t entry_smem_bytes(int B, int F, int with_dw) {
+  const EntryShape e = entry_shape(B, F, with_dw);
+  return entry_need(B, F, with_dw, e.K, e.tsb);
+}
+
+// Slice tiles of the entry kernel's grid: the count of its partials.
+inline int entry_tiles(int B, int S, int F, int with_dw) {
+  return cdiv(S, entry_shape(B, F, with_dw).tsb);
+}
+
+template <int NF, bool DW>
+__global__ void __launch_bounds__(KMAX * 32)
+rank_bwd_entry_kernel(const float* P, float* dP, const float* __restrict__ wn,
+                      const float* __restrict__ pad,
+                      const float* __restrict__ freqs,
+                      const float* __restrict__ G, float* __restrict__ dfr,
+                      float* __restrict__ dwn_part,
+                      float* __restrict__ dpad_part, int R, int B, int S,
+                      int F, int K, int tsb, int unif) {
   extern __shared__ float smem[];
-  float* p_sm = smem;               // [B][TS]    projections, own column
-  float* w_sm = p_sm + B * TS;      // [B]        wn[r]
-  float* r_sm = w_sm + B;           // [TS]       dpad terms of the block
-  float* dc_sm = r_sm + TS;         // [B][TS]    dc (with_dw)
-  float* d_sm = dc_sm + B * TS;     // [WARPS][B] each warp's dwn sums (with_dw)
+  if (NF > 0) F = NF;
+  const int M = tsb >> 5;
+  const int cn = B * tsb, fc = F * tsb;
+  float* p_sm = smem;                     // [B][tsb]  projections
+  float* x_sm = p_sm + cn;                // [B][tsb]  dc by position (DW)
+  float* f_sm = x_sm + (DW ? cn : 0);     // [F][tsb]  frequencies
+  float* if_sm = f_sm + fc;               // [F][tsb]  1 / f, 0 at f == 0
+  float* g_sm = if_sm + fc;               // [F][tsb]  cotangents
+  float* q_sm = g_sm + fc;                // [F][tsb]  sum p phi, then df
+  float* qf_sm = q_sm + fc;               // [F][tsb]  sum p phi_f
+  float* sr_sm = qf_sm + fc;              // [F][tsb]  row sin(pi f w) (!DW)
+  float* cr_sm = sr_sm + (DW ? 0 : fc);   // [F][tsb]  row cos(pi f w) (!DW)
+  float* w_sm = cr_sm + (DW ? 0 : fc);    // [B]       wn[r]
+  float* d_sm = w_sm + B;                 // [M][B]    dwn sums (DW)
+  float* r_sm = d_sm + (DW ? M * B : 0);  // [K tsb]   dpad terms (DW)
+  unsigned short* pos_sm =                // [B][tsb]  positions (DW)
+      reinterpret_cast<unsigned short*>(r_sm + (DW ? K * tsb : 0));
 
-  const int r = blockIdx.x;
-  const int st = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int s = st * TS + tid;
-  const bool live = s < S;
-  const bool warp_live = st * TS + warp * 32 < S;
-  const float* pr_in = P + (size_t)r * B * S + s;
-  float* dpr = dP + (size_t)r * B * S + s;
+  const int r = blockIdx.x, st = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the warp's slices (M is 1 or 2) and part
+  const int m = warp & (M - 1), h = warp >> (M - 1);
+  const int col = m * 32 + lane;
+  const int nt = K * tsb;
+  const int s0 = st * tsb;
+  const int n_live = min(tsb, S - s0);
+  const bool live = col < n_live;
+  const bool warp_live = m * 32 < n_live;
+  const size_t row = (size_t)r * B;
+  const float* pr_in = P + row * S + s0 + col;
+  float* dpr = dP + row * S + s0 + col;
 
-  for (int b = tid; b < B; b += TS) w_sm[b] = wn[(size_t)r * B + b];
-  for (int b = 0; b < B; ++b)
-    p_sm[b * TS + tid] = live ? pr_in[(size_t)b * S] : 0.f;
+  // the tile's F[s0 .., :] and G[r, s0 .., :] (one contiguous run each,
+  // at NF > 0 at most NF elements a thread) and the row's first weights
+  // are loaded before the P columns, so that the block waits for one round
+  // of loads, not one after another
+  const float w0 = tid < B ? wn[row + tid] : 0.f;
+  const float* ft = freqs + (size_t)s0 * F;
+  const float* gt = G + ((size_t)r * S + s0) * F;
+  constexpr int NE = NF > 0 ? NF : 1;
+  float fv[NE], gv[NE];
+#pragma unroll
+  for (int u = 0; u < NE; ++u) {
+    const int e = tid + u * nt;
+    const bool in = NF > 0 && e < fc && e / F < n_live;
+    fv[u] = in ? ft[e] : 0.f;
+    gv[u] = in ? gt[e] : 0.f;
+  }
+#pragma unroll 8
+  for (int b = h; b < B; b += K)
+    p_sm[b * tsb + col] = live ? pr_in[(size_t)b * S] : 0.f;
+  if (tid < B) w_sm[tid] = w0;
+  for (int b = tid + nt; b < B; b += nt) w_sm[b] = wn[row + b];
+  auto stage = [&](int e, float f, float g) {
+    const int sl = e / F, x = (e - sl * F) * tsb + sl;
+    f_sm[x] = f;
+    if_sm[x] = (f == 0.f) ? 0.f : 1.f / f;
+    g_sm[x] = g;
+    if (NF == 0) {
+      q_sm[x] = 0.f;
+      qf_sm[x] = 0.f;
+    }
+  };
+  if constexpr (NF > 0) {
+#pragma unroll
+    for (int u = 0; u < NF; ++u)
+      if (tid + u * nt < fc) stage(tid + u * nt, fv[u], gv[u]);
+  } else {
+    for (int e = tid; e < fc; e += nt) {
+      const bool in = e / F < n_live;
+      stage(e, in ? ft[e] : 0.f, in ? gt[e] : 0.f);
+    }
+  }
   __syncthreads();
-
-  float dpad_acc = 0.f;
-  if (warp_live) {
-    const float f = live ? freqs[s] : 0.f;
-    const float pr = pad[r];
-    const bool fz = f == 0.f;
-    const float inv_f = fz ? 0.f : 1.f / f;
-    const float c2f = 0.636619772367581343f * inv_f;     // (2 / pi) / f
-    const float inv2f = 2.f * inv_f;
-    const float inv_pf = 0.318309886183790672f * inv_f;  // (1 / pi) / f
-    const float g = live ? G[(size_t)r * S + s] : 0.f;
-    const float g1 = (1.f + f) * g;
-    // uniform_w only without with_dw (cos_fw is the row value at padded
-    // entries, exact only where it is multiplied by w)
-    const bool unif = uniform_w && !with_dw;
-    float sin_row = 0.f, cos_row = 1.f;
-    if (unif) {
+  // uniform_w only without with_dw (cos(pi f w) is the row value at padded
+  // entries, exact only where it is multiplied by w); part 0 fills its
+  // slice's row values
+  const bool unif_w = !DW && unif;
+  if (unif_w) {
+    if (h == 0) {
       float wr = 0.f;
       for (int j = 0; j < B; ++j) wr = fmaxf(wr, w_sm[j]);
-      sincospif(2.f * (0.5f * f * wr), &sin_row, &cos_row);
+      for (int k = 0; k < F; ++k) {
+        const int x = k * tsb + col;
+        sincospif(2.f * (0.5f * f_sm[x] * wr), &sr_sm[x], &cr_sm[x]);
+      }
     }
-    float q = 0.f, qf = 0.f;
-    for (int i0 = 0; i0 < B; i0 += NI) {
-      float p[NI], c[NI];
-      rank_group(p_sm, w_sm, B, tid, i0, pr, p, c);
+    if (K > 1) __syncthreads();
+  }
+
+  // frequency slot x's constants; at one frequency read once a thread
+  struct Freq {
+    float f, c2f, inv2f, inv_pf, g1, sin_row, cos_row;
+  };
+  auto freq_at = [&](int x) {
+    Freq z;
+    z.f = f_sm[x];
+    const float inv_f = if_sm[x];
+    z.c2f = 0.636619772367581343f * inv_f;     // 2/(pi f)
+    z.inv2f = 2.f * inv_f;
+    z.inv_pf = 0.318309886183790672f * inv_f;  // 1/(pi f)
+    z.g1 = (1.f + z.f) * g_sm[x];
+    z.sin_row = unif_w ? sr_sm[x] : 0.f;
+    z.cos_row = unif_w ? cr_sm[x] : 1.f;
+    return z;
+  };
+  const Freq one = freq_at(NF == 1 ? col : 0);
+
+  constexpr int NQ = NF > 0 ? NF : 1;
+  float q[NQ], qf[NQ];
 #pragma unroll
-      for (int k = 0; k < NI; ++k) {
-        const int i = i0 + k;
-        if (i < B) {
-          const float p_i = p[k];
-          const float w = w_sm[i];
-          float sin_fw, cos_fw;
-          if (unif) {
-            sin_fw = (w == 0.f) ? 0.f : sin_row;
-            cos_fw = cos_row;
-          } else {
-            sincospif(2.f * (0.5f * f * w), &sin_fw, &cos_fw);
+  for (int k = 0; k < NQ; ++k) q[k] = qf[k] = 0.f;
+  float dpad_acc = 0.f;
+  // entry i, of projection p_i, rank c_i and position pos: dP, its q and
+  // qf terms, and with DW its dc (scattered to its position), dpad term
+  // and direct dwn term (summed over the warp's slices)
+  auto entry = [&](int i, float p_i, float c_i, int pos) {
+    const float w = w_sm[i];
+    const float two_c_w = 2.f * c_i - w;
+    float dp = 0.f, dc = 0.f, dd = 0.f;
+    auto term = [&](int x, float& qk, float& qfk) {
+      const Freq z = NF == 1 ? one : freq_at(x);
+      const float f = z.f;
+      float sin_fw, cos_fw;
+      if (unif_w) {
+        // the row value; sin exactly 0 at the padded entries
+        sin_fw = (w == 0.f) ? 0.f : z.sin_row;
+        cos_fw = z.cos_row;
+      } else {
+        sincospif(2.f * (0.5f * f * w), &sin_fw, &cos_fw);
+      }
+      float sin_t, cos_t;
+      sincospif(2.f * (0.5f * f * two_c_w), &sin_t, &cos_t);
+      const float sd = (f == 0.f ? 2.f * w : z.c2f * sin_fw) * cos_t;
+      dp += z.g1 * sd;
+      qk = fmaf(p_i, sd, qk);
+      const float phi_f = z.inv2f * (w * cos_fw * cos_t
+                                     - z.inv_pf * sin_fw * cos_t
+                                     - two_c_w * sin_fw * sin_t);
+      qfk = fmaf(p_i, phi_f, qfk);
+      if (DW) {
+        dc += z.g1 * p_i * (-4.f) * sin_fw * sin_t;
+        dd += z.g1 * p_i * 2.f * (cos_fw * cos_t + sin_fw * sin_t);
+      }
+    };
+    if constexpr (NF > 0) {
+#pragma unroll
+      for (int k = 0; k < NF; ++k) term(k * tsb + col, q[k], qf[k]);
+    } else {
+      for (int k = 0; k < F; ++k)
+        term(k * tsb + col, q_sm[k * tsb + col], qf_sm[k * tsb + col]);
+    }
+    if (live) dpr[(size_t)i * S] = dp;
+    if constexpr (DW) {
+      x_sm[pos * tsb + col] = dc;
+      pos_sm[i * tsb + col] = (unsigned short)pos;
+      dpad_acc += (p_i > 0.f) ? dc : 0.f;
+      const float v = warp_sum(dd);
+      if (lane == 0) d_sm[m * B + i] = v;
+    }
+  };
+  if (warp_live) {
+    const float pr = pad[r];
+    for (int i0 = h * NI; i0 < B; i0 += K * NI) {
+      float p[NI], c[NI];
+      int n[NI];
+      rank_core<DW>(p_sm, w_sm, B, tsb, col, i0, pr, p, c, n);
+      if constexpr (NF > 1) {
+        // entry i uses slot 0 of the arrays, which then shift down: one
+        // copy of the frequency loop, and the arrays stay in registers
+#pragma unroll 1
+        for (int i = i0; i < min(i0 + NI, B); ++i) {
+          const float p_i = p[0], c_i = c[0];
+          const int pos = n[0];
+#pragma unroll
+          for (int k = 0; k + 1 < NI; ++k) {
+            p[k] = p[k + 1];
+            c[k] = c[k + 1];
+            n[k] = n[k + 1];
           }
-          const float two_c_w = 2.f * c[k] - w;
-          float sin_t, cos_t;
-          sincospif(2.f * (0.5f * f * two_c_w), &sin_t, &cos_t);
-          const float sd = (fz ? 2.f * w : c2f * sin_fw) * cos_t;
-          if (live) dpr[(size_t)i * S] = g1 * sd;
-          q = fmaf(p_i, sd, q);
-          const float phi_f = inv2f * (w * cos_fw * cos_t
-                                       - inv_pf * sin_fw * cos_t
-                                       - two_c_w * sin_fw * sin_t);
-          qf = fmaf(p_i, phi_f, qf);
-          if (with_dw) {
-            const float dc = g1 * p_i * (-4.f) * sin_fw * sin_t;
-            dc_sm[i * TS + tid] = dc;
-            dpad_acc += (p_i > 0.f) ? dc : 0.f;
-            const float v = warp_sum(
-                g1 * p_i * 2.f * (cos_fw * cos_t + sin_fw * sin_t));
-            if (lane == 0) d_sm[warp * B + i] = v;
+          entry(i, p_i, c_i, pos);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < NI; ++k)
+          if (i0 + k < B) entry(i0 + k, p[k], c[k], n[k]);
+      }
+    }
+  } else if (DW && lane == 0) {
+    for (int i0 = h * NI; i0 < B; i0 += K * NI)
+      for (int i = i0; i < min(i0 + NI, B); ++i) d_sm[m * B + i] = 0.f;
+  }
+
+  // this row's df terms, g (q + (1 + f) qf) for every frequency, each
+  // slice's q and qf summed over its parts in the order h = 0 .. K-1 (at
+  // NF = 0, K = 1 and the sums are in q_sm, qf_sm); one frequency goes
+  // straight to dfr (coalesced), several through q_sm
+  for (int hh = 0; hh < K; ++hh) {
+    if (h == hh) {
+#pragma unroll
+      for (int k = 0; k < (NF > 0 ? NF : F); ++k) {
+        const int x = k * tsb + col;
+        float a, b;
+        if constexpr (NF > 0) {
+          a = q[k];
+          b = qf[k];
+        } else {
+          a = q_sm[x];
+          b = qf_sm[x];
+        }
+        if (hh > 0) {
+          a += q_sm[x];
+          b += qf_sm[x];
+        }
+        if (hh + 1 < K) {
+          q_sm[x] = a;
+          qf_sm[x] = b;
+        } else {
+          const float d = g_sm[x] * (a + (1.f + f_sm[x]) * b);
+          if (NF == 1) {
+            if (live) dfr[(size_t)r * S + s0 + col] = d;
+          } else {
+            q_sm[x] = d;
           }
         }
       }
     }
-    if (live) dfr[(size_t)r * S + s] = g * (q + (1.f + f) * qf);
-    if (with_dw) mask_consume(p_sm, dc_sm, d_sm, B, tid, lane, warp);
-  } else if (with_dw && lane == 0) {
-    for (int j = 0; j < B; ++j) d_sm[warp * B + j] = 0.f;
+    if (hh + 1 < K) __syncthreads();
   }
-  if (!with_dw) return;
-  write_entry_partials(d_sm, r_sm, dpad_acc, dwn_part, dpad_part, R, B, r,
-                       st, tid);
+  if (NF != 1) {
+    __syncthreads();
+    float* dt = dfr + ((size_t)r * S + s0) * F;
+    for (int e = tid; e < n_live * F; e += nt) {
+      const int sl = e / F;
+      dt[e] = q_sm[(e - sl * F) * tsb + sl];
+    }
+  }
+
+  if constexpr (DW) {
+    // x_sm[pos] becomes the sum of dc over the positions from pos on, one
+    // thread a slice, from the end
+    __syncthreads();
+    if (h == 0 && warp_live) {
+      float acc = 0.f;
+      for (int a = B - 1; a >= 0; --a) {
+        acc += x_sm[a * tsb + col];
+        x_sm[a * tsb + col] = acc;
+      }
+    }
+    __syncthreads();
+    if (warp_live) {
+      for (int i0 = h * NI; i0 < B; i0 += K * NI)
+        for (int i = i0; i < min(i0 + NI, B); ++i) {
+          const float v = warp_sum(x_sm[pos_sm[i * tsb + col] * tsb + col]);
+          if (lane == 0) d_sm[m * B + i] += v;
+        }
+    }
+    r_sm[tid] = dpad_acc;
+    __syncthreads();
+    // the block's partials: dwn the M warps' sums in order, dpad the
+    // threads' terms in the order t = 0 .. nt - 1
+    float* wp = dwn_part + ((size_t)st * R + r) * B;
+    for (int j = tid; j < B; j += nt) {
+      float acc = 0.f;
+      for (int a = 0; a < M; ++a) acc += d_sm[a * B + j];
+      wp[j] = acc;
+    }
+    if (tid == 0) {
+      float acc = 0.f;
+      for (int t = 0; t < nt; ++t) acc += r_sm[t];
+      dpad_part[(size_t)st * R + r] = acc;
+    }
+  }
 }
 
-// Launch rank_bwd_entry_kernel on a (R, cdiv(S, TS)) grid; returns the
-// first CUDA error.
-inline cudaError_t launch_rank_bwd_entry(const float* P, float* dP,
-                                         const float* wn, const float* pad,
-                                         const float* freqs, const float* G,
-                                         float* dfr, float* dwn_part,
-                                         float* dpad_part, int R, int B,
-                                         int S, int uniform_w, int with_dw,
-                                         cudaStream_t stream) {
-  const size_t smem = entry_smem_bytes(B, with_dw);
-  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+// The entry kernel's arguments.
+struct EntryArgs {
+  const float* P;
+  float* dP;
+  const float *wn, *pad, *freqs, *G;
+  float *dfr, *dwn_part, *dpad_part;
+  int R, B, S, F;
+};
+
+template <int NF, bool DW>
+inline cudaError_t launch_entry(const EntryArgs& a, EntryShape e, size_t smem,
+                                int unif, cudaStream_t stream) {
+  const auto kern = rank_bwd_entry_kernel<NF, DW>;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rank_bwd_entry_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
   }
-  rank_bwd_entry_kernel<<<dim3((unsigned)R, (unsigned)cdiv(S, TS)), TS, smem,
-                          stream>>>(P, dP, wn, pad, freqs, G, dfr, dwn_part,
-                                    dpad_part, R, B, S, uniform_w, with_dw);
+  kern<<<dim3((unsigned)a.R, (unsigned)cdiv(a.S, e.tsb)), e.K * e.tsb, smem,
+         stream>>>(a.P, a.dP, a.wn, a.pad, a.freqs, a.G, a.dfr, a.dwn_part,
+                   a.dpad_part, a.R, a.B, a.S, a.F, e.K, e.tsb, unif);
   return cudaGetLastError();
+}
+
+// Launch rank_bwd_entry_kernel on an (R, entry_tiles) grid, the instance
+// for F; returns the first CUDA error.
+inline cudaError_t launch_rank_bwd_entry(const EntryArgs& a, int uniform_w,
+                                         int with_dw, cudaStream_t stream) {
+  const EntryShape e = entry_shape(a.B, a.F, with_dw);
+  const size_t smem = entry_need(a.B, a.F, with_dw, e.K, e.tsb);
+  if (smem > SMEM_LIMIT || cdiv(a.S, e.tsb) > 65535)
+    return cudaErrorInvalidValue;
+  const int u = uniform_w && !with_dw;
+  if (a.F == 1)
+    return with_dw ? launch_entry<1, true>(a, e, smem, u, stream)
+                   : launch_entry<1, false>(a, e, smem, u, stream);
+  if (a.F == NF_WIDE)
+    return with_dw ? launch_entry<NF_WIDE, true>(a, e, smem, u, stream)
+                   : launch_entry<NF_WIDE, false>(a, e, smem, u, stream);
+  return with_dw ? launch_entry<0, true>(a, e, smem, u, stream)
+                 : launch_entry<0, false>(a, e, smem, u, stream);
 }
 
 // out[y, m] = sum_{k = y kc}^{min(K, (y + 1) kc) - 1} in[k, m], in order
@@ -388,21 +674,26 @@ inline cudaError_t reduce_rows(const float* in, float* out, float* tmp, int K,
   return cudaGetLastError();
 }
 
-// df (S), and with with_dw dwn (R * B) and dpad (R), from the entry
-// kernel's partials; tmp holds MAX_SPLIT * S floats.
+// df (S F), and with with_dw dwn (R B) and dpad (R), from the entry
+// kernel's partials of n_st slice tiles; tmp holds MAX_SPLIT S F floats.
+// dwn and dpad sum their tiles in one pass whatever n_st: R B and R
+// columns keep the card busy.
 inline cudaError_t reduce_entry_partials(const float* dfr,
                                          const float* dwn_part,
                                          const float* dpad_part, float* df,
                                          float* dwn, float* dpad, float* tmp,
-                                         int R, int B, int S, int with_dw,
+                                         int R, int B, long long SF,
+                                         int n_st, int with_dw,
                                          cudaStream_t stream) {
-  cudaError_t e = reduce_rows(dfr, df, tmp, R, S, stream);
+  cudaError_t e = reduce_rows(dfr, df, tmp, R, SF, stream);
   if (e != cudaSuccess || !with_dw) return e;
-  const int n_st = cdiv(S, TS);
-  if ((e = reduce_rows(dwn_part, dwn, tmp, n_st, (long long)R * B,
-                       stream)) != cudaSuccess)
-    return e;
-  return reduce_rows(dpad_part, dpad, tmp, n_st, R, stream);
+  const long long N = (long long)R * B;
+  sum_rows_kernel<<<dim3((unsigned)cdiv(N, RED_THREADS), 1), RED_THREADS, 0,
+                    stream>>>(dwn_part, dwn, n_st, N, n_st);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  sum_rows_kernel<<<dim3((unsigned)cdiv(R, RED_THREADS), 1), RED_THREADS, 0,
+                    stream>>>(dpad_part, dpad, n_st, R, n_st);
+  return cudaGetLastError();
 }
 
 // ---- K1's products on the tensor cores ------------------------------------

@@ -65,11 +65,15 @@ _FN = {}
 
 # shared memory a block may use on Hopper (sm_90)
 _MAX_SMEM = 232448
-# csrc/fsw_rank_common.cuh: slices a block (one thread each), the warps of
-# an entry block, and K1's staging ring (two stages of two 64 x 36 operands)
+# csrc/fsw_rank_common.cuh: slices a forward block (one thread each), K1's
+# staging ring (two stages of two 64 x 36 operands), entries a rank pass,
+# the backward entry kernel's threads a slice at most and the frequency
+# count besides 1 whose sums it keeps in registers
 _TS = 64
-_WARPS = _TS // 32
 _STAGE_FLOATS = 2 * 2 * 64 * 36
+_NI = 8
+_KMAX = 4
+_NF_WIDE = 8
 
 RANK_KERNELS = ('fsw_rank_fwdp', 'fsw_rank_bwdp', 'fsw_rank_fwd',
                 'fsw_rank_bwd', 'fsw_rank_cart_fwd', 'fsw_rank_cart_bwd')
@@ -81,38 +85,59 @@ def proj_rows(B: int) -> int:
     return 1 if B >= 64 or B <= 0 else 64 // B
 
 
+def _entry_need(B: int, F: int, dw: bool, K: int, tsb: int) -> int:
+    """Bytes of the backward entry kernel's block at width B, F frequencies
+    and shape (K, tsb) (`entry_need` in fsw_rank_common.cuh)."""
+    col, fc = B * tsb, F * tsb
+    if dw:
+        return 4 * (2 * col + 5 * fc + B + (tsb // 32) * B + K * tsb) + 2 * col
+    return 4 * (col + 7 * fc + B)
+
+
+def entry_shape(B: int, F: int = 1, with_dw: bool = False):
+    """(K, tsb) of the backward entry kernel that K1b, K2b and K4b run
+    (`entry_shape` in fsw_rank_common.cuh): K threads a slice, up to 4,
+    one for every group of 8 entries, where F is 1 or 8 (the frequency
+    counts whose sums it keeps in registers) and with with_dw or above
+    B = 32, else 1; tsb slices a block, 64 where K is 1 and that fits,
+    else 32."""
+    split = F in (1, _NF_WIDE) and (with_dw or B > 32)
+    K = min(max(-(-B // _NI), 1), _KMAX) if split else 1
+    fit64 = _entry_need(B, F, bool(with_dw), 1, 64) <= _MAX_SMEM
+    return K, 64 if K == 1 and fit64 else 32
+
+
 def smem_bytes(name: str, B: int, F: int = 1, with_dw: bool = False,
                uniform_w: bool = False) -> int:
     """Dynamic shared memory, in bytes, that one block of rank kernel
     `name` (one of RANK_KERNELS) needs at width B, with F frequency columns
-    (the cartesian pair), with or without the weights' gradient and the
-    uniform-weight trig (which K4b runs only without it).  The same
+    (the cartesian pair), with or without the weights' gradient.  The same
     numbers as each library's `*_smem_bytes` export, without a library:
 
-      K1f  max(STAGE, 65 E) for E <= 64, else STAGE + 65 E
+      K1f  4 max(STAGE, 65 E) for E <= 64, else 4 (STAGE + 65 E)
            (E = proj_rows(B) B; the feature width D does not enter)
-      K1b, K2b   64 B (2 with dw, else 1) + B (3 with dw, else 1) + 64
-      K2f  65 B;   K4f  129 B + 64 F
-      K4b  K2b's + 64 F (7 with the uniform trig, else 5)
+      K2f  4 (65 B);   K4f  4 (129 B + 64 F)
+      K1b, K2b (F = 1), K4b: the entry kernel's block of `entry_shape`,
+           with dw 4 (2 B tsb + 5 F tsb + B (1 + tsb / 32) + K tsb)
+           + 2 B tsb (the positions), without 4 (B tsb + 7 F tsb + B)
 
-    in floats (K1b's products use a fixed 36 KB of static memory)."""
+    (K1b's products use a fixed 36 KB of static memory).  uniform_w does
+    not enter: without dw the entry kernel keeps room for the uniform
+    trig's row values either way."""
     dw = bool(with_dw)
-    entry = B * _TS * (2 if dw else 1) + B * (1 + _WARPS if dw else 1) + _TS
     if name == 'fsw_rank_fwdp':
         e = proj_rows(B) * B
         own = e * _TS + e
-        n = max(_STAGE_FLOATS, own) if e <= 64 else _STAGE_FLOATS + own
-    elif name in ('fsw_rank_bwdp', 'fsw_rank_bwd'):
-        n = entry
-    elif name == 'fsw_rank_fwd':
-        n = B * _TS + B
-    elif name == 'fsw_rank_cart_fwd':
-        n = 2 * B * _TS + B + _TS * F
-    elif name == 'fsw_rank_cart_bwd':
-        n = entry + _TS * F * (7 if uniform_w and not dw else 5)
-    else:
-        raise ValueError(f'unknown rank kernel {name!r}')
-    return 4 * n
+        return 4 * (max(_STAGE_FLOATS, own) if e <= 64
+                    else _STAGE_FLOATS + own)
+    if name == 'fsw_rank_fwd':
+        return 4 * (B * _TS + B)
+    if name == 'fsw_rank_cart_fwd':
+        return 4 * (2 * B * _TS + B + _TS * F)
+    if name in ('fsw_rank_bwdp', 'fsw_rank_bwd', 'fsw_rank_cart_bwd'):
+        F = F if name == 'fsw_rank_cart_bwd' else 1
+        return _entry_need(B, F, dw, *entry_shape(B, F, dw))
+    raise ValueError(f'unknown rank kernel {name!r}')
 
 
 def misfit(names, B: int, F: int = 1, with_dw: bool = False,

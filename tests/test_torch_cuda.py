@@ -158,7 +158,8 @@ def test_smem_need_matches_every_library(cuda_device):
     library, equals each rank kernel library's own `*_smem_bytes` export
     on a grid of widths, frequency counts and flags."""
     from fsw_gnn_tpu_torch.ops import fsw_rank as R
-    for B in (1, 7, 8, 24, 63, 64, 100, 128, 443, 444, 752, 753, 893, 1024):
+    for B in (1, 7, 8, 9, 24, 25, 63, 64, 100, 128, 443, 444, 691, 692, 705,
+              706, 752, 753, 893, 1024, 1754, 1755):
         for dw in (False, True):
             for unif in (False, True):
                 for F in (1, 8, 111, 130):
@@ -251,14 +252,27 @@ def test_fswconv_training_step_matches_cpu(cuda_device):
                                    atol=1e-6, msg=k)
 
 
-def _args2(rng, R, B, S, uniform_w, dev):
+def _args2(rng, R, B, S, uniform_w, dev, heavy_ties=False):
     """K2's float32 inputs on the card: projections P (R, B, S) with ties
-    (every fourth entry repeats the one before it), the rest as `_args`."""
+    (every fourth entry repeats the one before it; with heavy_ties every
+    projection is one of five values, zero among them), the rest as
+    `_args`."""
     Z, wn, pad, freqs, _ = _args(rng, R, B, 1, S, uniform_w)
     P = rng.standard_normal((R, B, S)).astype(np.float32)
     P[:, 1::4] = P[:, 0:B - 1:4]
+    if heavy_ties:
+        P = (rng.integers(-2, 3, (R, B, S)) * 0.5).astype(np.float32)
     return [a.to(dev).contiguous() for a in
             (torch.from_numpy(P), wn, pad, freqs)]
+
+
+def _first_misfit(name, F, with_dw):
+    """The narrowest width that kernel `name` cannot hold."""
+    from fsw_gnn_tpu_torch.ops.fsw_rank import _MAX_SMEM, smem_bytes
+    B = 1
+    while smem_bytes(name, B, F, with_dw) <= _MAX_SMEM:
+        B += 1
+    return B
 
 
 @pytest.mark.cuda
@@ -282,18 +296,28 @@ def test_rank2_kernel_matches_plain(cuda_device, B, S, uniform_w):
                                atol=2e-5 * want.abs().max().item())
 
 
+# K2b's and K4b's shapes beyond K2f's: the widths where the entry kernel's
+# threads a slice change (with with_dw 1 up to B = 8, 2, 3, then 4 from
+# B = 25; without, 1 up to B = 32, then 4), and the widest K2b held with
+# weight gradients before its redesign
+BWD2_SHAPES = [(8, 127), (9, 64), (17, 33), (25, 40), (33, 50), (100, 1000),
+               (128, 200), (13, 7), (300, 65), (443, 70)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('B,S', [(8, 127), (100, 1000), (128, 200),
-                                 (13, 7), (300, 65)])
+@pytest.mark.parametrize('B,S', BWD2_SHAPES)
 @pytest.mark.parametrize('with_dw', [False, True])
-def test_rank2_bwd_kernel_matches_plain(cuda_device, B, S, with_dw):
+@pytest.mark.parametrize('heavy_ties', [False, True])
+def test_rank2_bwd_kernel_matches_plain(cuda_device, B, S, with_dw,
+                                        heavy_ties):
     """K2b against its plain version, each output within 1e-4 of its
     largest plain entry + 1e-4 * |plain| (the trig, and the summation
-    orders of df over R and of dwn over S); zero-weight entries get
-    exactly 0; two calls give the same bits."""
+    orders of df over R and of dwn over S and, in the kernel, over each
+    slice's sorted order); zero-weight entries get exactly 0; two calls
+    give the same bits."""
     rng = np.random.default_rng(2000 + B)
     for uniform_w in (False, True):
-        args = _args2(rng, 37, B, S, uniform_w, cuda_device)
+        args = _args2(rng, 37, B, S, uniform_w, cuda_device, heavy_ties)
         G = torch.from_numpy(rng.standard_normal((37, S)).astype(
             np.float32)).to(cuda_device)
         before = fsw_rank_aggregate_bwd.launches
@@ -340,14 +364,17 @@ def test_rank2_autograd_and_width_limits(cuda_device):
         torch.testing.assert_close(t.grad, w, rtol=1e-4,
                                    atol=1e-4 * w.abs().max().item())
 
-    wide = _args2(rng, 2, 444, 8, False, cuda_device)
+    # with_dw: K2b holds B up to 705 (443 before its redesign)
+    Bw = _first_misfit('fsw_rank_bwd', 1, True)
+    assert Bw > 444
+    wide = _args2(rng, 2, Bw, 8, False, cuda_device)
     Gw = torch.zeros((2, 8), device=cuda_device)
-    with pytest.raises(ValueError, match='bucket width 444'):
+    with pytest.raises(ValueError, match=f'bucket width {Bw}'):
         fsw_rank_aggregate_bwd(*wide, Gw, with_dw=True)
-    with pytest.raises(ValueError, match='bucket width 444'):
+    with pytest.raises(ValueError, match=f'bucket width {Bw}'):
         fsw_rank_aggregate(*[a.requires_grad_(True) for a in wide])
     assert fsw_rank_aggregate_bwd(*wide, Gw, with_dw=False)[0].shape == (
-        2, 444, 8)
+        2, Bw, 8)
     huge = _args2(rng, 1, 4096, 8, False, cuda_device)
     with pytest.raises(ValueError, match='bucket width 4096'):
         fsw_rank_aggregate(*huge)
@@ -355,7 +382,13 @@ def test_rank2_autograd_and_width_limits(cuda_device):
                             _args(rng, 2, 1024, 64, 8, False)]
     with pytest.raises(ValueError, match='bucket width 1024'):
         fsw_rank_aggregate_proj(Z, wn, pad, freqs, V)
-    with pytest.raises(ValueError, match='bucket width 1024'):
+    # without with_dw K1b holds B up to 1754 (893 before its entry
+    # kernel's redesign)
+    Bp = _first_misfit('fsw_rank_bwdp', 1, False)
+    assert Bp > 1024
+    Z, wn, pad, freqs, V = [a.to(cuda_device) for a in
+                            _args(rng, 2, Bp, 64, 8, False)]
+    with pytest.raises(ValueError, match=f'bucket width {Bp}'):
         fsw_rank_aggregate_proj_bwd(Z, wn, pad, freqs, V,
                                     torch.zeros((2, 8), device=cuda_device),
                                     with_dw=False)
@@ -477,11 +510,11 @@ def test_csr_fswconv_matches_cpu(cuda_device):
 
 # ---- K4: the cartesian rank aggregation --------------------------------------
 
-def _args4(rng, R, B, S, F, uniform_w, dev):
+def _args4(rng, R, B, S, F, uniform_w, dev, heavy_ties=False):
     """K4's float32 inputs on the card: K2's (`_args2`) with an (S, F)
     frequency matrix whose rows differ, an f = 0 column and one
     'spread'-range frequency."""
-    P, wn, pad, _ = _args2(rng, R, B, S, uniform_w, dev)
+    P, wn, pad, _ = _args2(rng, R, B, S, uniform_w, dev, heavy_ties)
     freqs = np.abs(rng.standard_normal((S, F))) + 0.1
     freqs[:, 1 % F] = 0.0
     freqs[-1, -1] = 2.0 * S - 1.0
@@ -515,20 +548,30 @@ def test_rank_cart_kernel_matches_plain(cuda_device, B, S, F, uniform_w):
                                atol=2e-5 * want.abs().max().item())
 
 
+# K4b's shapes beyond K4f's: the entry kernel's threads a slice change at
+# B = 9, 17, 25 (with with_dw) and 33 (without) at the frequency counts with
+# their own instance (8, 1), and the widest K4b held with weight gradients
+# at 8 frequencies before its redesign
+BWD4_SHAPES = CART_SHAPES + [(9, 64, 8), (17, 33, 1), (25, 40, 8),
+                             (33, 40, 8), (443, 70, 8), (423, 40, 8)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('B,S,F', CART_SHAPES)
+@pytest.mark.parametrize('B,S,F', BWD4_SHAPES)
 @pytest.mark.parametrize('with_dw', [False, True])
-def test_rank_cart_bwd_kernel_matches_plain(cuda_device, B, S, F, with_dw):
+@pytest.mark.parametrize('heavy_ties', [False, True])
+def test_rank_cart_bwd_kernel_matches_plain(cuda_device, B, S, F, with_dw,
+                                            heavy_ties):
     """K4b against its plain version, each output within 1e-4 of its
     largest plain entry + 1e-4 * |plain| (the trig, and the summation
-    orders over the frequencies, of df over R and of dwn over S);
-    zero-weight entries get exactly dP = 0; two calls give the same
-    bits."""
+    orders over the frequencies, of df over R and of dwn over S and, in
+    the kernel, over each slice's sorted order); zero-weight entries get
+    exactly dP = 0; two calls give the same bits."""
     from fsw_gnn_tpu_torch.ops.fsw_rank import (
         fsw_rank_aggregate_cart_bwd, fsw_rank_aggregate_cart_bwd_plain)
     rng = np.random.default_rng(3000 + B + F)
     for uniform_w in (False, True):
-        args = _args4(rng, 37, B, S, F, uniform_w, cuda_device)
+        args = _args4(rng, 37, B, S, F, uniform_w, cuda_device, heavy_ties)
         G = torch.from_numpy(rng.standard_normal((37, S, F)).astype(
             np.float32)).to(cuda_device)
         before = fsw_rank_aggregate_cart_bwd.launches
@@ -581,26 +624,29 @@ def test_rank_cart_autograd_and_width_limits(cuda_device):
         torch.testing.assert_close(t.grad, w, rtol=1e-4,
                                    atol=1e-4 * w.abs().max().item())
 
-    # with_dw at 8 frequencies: K4b holds B up to 423
-    wide = _args4(rng, 2, 424, 8, 8, False, cuda_device)
+    # with_dw at 8 frequencies: K4b holds B up to 691 (423 before its
+    # redesign)
+    Bw = _first_misfit('fsw_rank_cart_bwd', 8, True)
+    assert Bw > 424
+    wide = _args4(rng, 2, Bw, 8, 8, False, cuda_device)
     Gw = torch.zeros((2, 8, 8), device=cuda_device)
     before = (fsw_rank_aggregate_cart.launches,
               fsw_rank_aggregate_cart_bwd.launches)
-    with pytest.raises(ValueError, match='bucket width 424'):
+    with pytest.raises(ValueError, match=f'bucket width {Bw}'):
         fsw_rank_aggregate_cart_bwd(*wide, Gw, with_dw=True)
-    with pytest.raises(ValueError, match='bucket width 424'):
+    with pytest.raises(ValueError, match=f'bucket width {Bw}'):
         fsw_rank_aggregate_cart(*[a.requires_grad_(True) for a in wide])
     cfg = T.FSWConfig(d_in=3, n_slices=8, n_freqs=8)
     emb = T.FSWEmbedding(cfg, device=cuda_device)
-    X = torch.randn((2, 424, 3), device=cuda_device)
-    W = torch.rand((2, 424), device=cuda_device).requires_grad_(True)
-    with pytest.raises(ValueError, match='bucket width 424'):
+    X = torch.randn((2, Bw, 3), device=cuda_device)
+    W = torch.rand((2, Bw), device=cuda_device).requires_grad_(True)
+    with pytest.raises(ValueError, match=f'bucket width {Bw}'):
         emb(X, W, aggregate='rank')
     assert (fsw_rank_aggregate_cart.launches,
             fsw_rank_aggregate_cart_bwd.launches) == before
     assert fsw_rank_aggregate_cart_bwd(
         *[a.detach() for a in wide], Gw, with_dw=False)[0].shape == (
-            2, 424, 8)
+            2, Bw, 8)
     huge = _args4(rng, 1, 4096, 8, 8, False, cuda_device)
     with pytest.raises(ValueError, match='bucket width 4096'):
         fsw_rank_aggregate_cart(*huge)

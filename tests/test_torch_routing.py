@@ -110,15 +110,17 @@ class _StopX:
 
 
 def test_wide_cartesian_routes_by_need():
-    """Cartesian mode at F = 130 frequencies and width 128 with weight
+    """Cartesian mode at F = 300 frequencies and width 128 with weight
     gradients: K4b would need more than a block has, so 'auto' sorts and
     an explicit 'rank' raises naming the width, F and the need; without
-    weight gradients K4 holds it."""
-    cart = TE.FSWConfig(d_in=3, n_slices=8, n_freqs=130)
-    assert smem_bytes('fsw_rank_cart_bwd', 128, 130, True) > LIMIT
+    weight gradients K4 holds it.  (Up to the entry kernel's redesign F =
+    130 was enough; its block now holds 128 entries at 130 frequencies.)"""
+    cart = TE.FSWConfig(d_in=3, n_slices=8, n_freqs=300)
+    assert smem_bytes('fsw_rank_cart_bwd', 128, 130, True) <= LIMIT
+    assert smem_bytes('fsw_rank_cart_bwd', 128, 300, True) > LIMIT
     assert TE._resolve_aggregate('auto', cart, 128, weights_grad=True) == \
         'sort'
-    with pytest.raises(ValueError, match=r'bucket width 128 at 130 '
+    with pytest.raises(ValueError, match=r'bucket width 128 at 300 '
                                          r'frequencies.* \d+ bytes'):
         TE._resolve_aggregate('rank', cart, 128, weights_grad=True)
     assert TE._resolve_aggregate('rank', cart, 64, weights_grad=True) == \
@@ -127,7 +129,37 @@ def test_wide_cartesian_routes_by_need():
     assert no_dw == ('rank' if _fits('rank', cart, 128, False) else 'sort')
 
 
+# The backward entry kernel's need (K1b, K2b; K4b at eight frequencies) at
+# B = 8, 100 and 128, with and without weight gradients: 4 threads a slice
+# and 32 slices a block from B = 25 on (10 bytes an entry-slice with weight
+# gradients, 4 without), one thread a slice and 64 slices at B = 8.  The
+# previous design needed 4 (128 B + 3 B + 64) bytes with weight gradients
+# (52656 at B = 100, 67328 at 128).
+ENTRY_NEED = {('fsw_rank_bwd', 1): {8: (6752, 3872), 100: (33952, 14096),
+                                    128: (43136, 17792)},
+              ('fsw_rank_cart_bwd', 8): {8: (15712, 16416),
+                                         100: (38432, 20368),
+                                         128: (47616, 24064)}}
+
+
+@pytest.mark.parametrize('B', [8, 100, 128])
+def test_backward_entry_smem_pinned(B):
+    """The entry kernel's shared memory a block at the widths the paths
+    use, pinned so that a layout whose need grows shows on the CPU; K1b
+    runs K2b's entry kernel.  The shape behind it: K threads a slice (one
+    for each group of 8 entries, at most 4) and 32 or 64 slices a block."""
+    from fsw_gnn_tpu_torch.ops.fsw_rank import entry_shape
+    for (name, F), need in ENTRY_NEED.items():
+        for dw, want in zip((True, False), need[B]):
+            assert smem_bytes(name, B, F, dw) == want, (name, B, dw)
+            assert smem_bytes(name, B, F, dw, uniform_w=True) == want
+            if name == 'fsw_rank_bwd':
+                assert smem_bytes('fsw_rank_bwdp', B, 1, dw) == want
+            assert entry_shape(B, F, dw) == ((1, 64) if B == 8 else (4, 32))
+
+
 @pytest.mark.parametrize('B,weights_grad', [(443, True), (444, True),
+                                            (705, True), (706, True),
                                             (752, False), (753, False),
                                             (893, False), (894, False)])
 def test_explicit_rank_routes_by_need(B, weights_grad):
