@@ -9,8 +9,9 @@ Phases (any failure exits non-zero before the last line is printed):
      sm_90a, all sources at once), with the seconds it took and ptxas'
      resource report; K1's shared memory a block and blocks an SM, and the
      backward entry kernel's (K1b, K2b, K4b) block shape, shared memory,
-     blocks and warps an SM at B = 8 .. 128 with and without with_dw (from
-     that report: the `occupancy:` line);
+     blocks and warps an SM at B = 8 .. 128 with and without with_dw, and
+     K2f's and K4f's (at F = 8) registers, shared memory, blocks and warps
+     an SM at B = 8 .. 128 (from that report: the `occupancy:` line);
   3. K1f (`fsw_rank_fwdp`) against its plain PyTorch version on the card,
      at every degree-class shape of the served envelope, and both timed;
   4. serving: the bench FSWConv (in = out = 64 channels, 127 slices,
@@ -173,7 +174,10 @@ Tolerances:
     is continuous in every input, so float32 rounding (about 1e-6 of each
     layer's scale) is all that differs, through three layers.
   * K2f and K2b against their plain versions: as K1f and K1b.  P is given,
-    so no dyadic rounding is needed for both sides to rank alike.
+    so no dyadic rounding is needed for both sides to rank alike.  K2f and
+    K4f skip the padding: on every captured call each gives its own bits
+    again with NaN at every zero-weight entry's projection, and on a
+    second call.
   * K4f and K4b against their plain versions: as K2f and K2b, each output
     on its own scale; K4b sums dp, dc and dwn over the F frequencies in
     another rounding (fused multiply-adds) and df over the rows in
@@ -204,11 +208,16 @@ outside the tensor cores) / 67 TFLOP/s and, for K1's projections,
 at 700 W, TF32 on the tensor cores taken three times a float32 product
 (the 3xTF32 split K1 runs; the pipes overlap, so the largest time
 bounds).  Bytes: every input tensor read once and every output written
-once.  Operations: the least that this run's data needs.  Zero-weight
-(padding) entries and rows contribute exactly 0, and ranking d entries
-of one slice needs no more than a stable sort and a cumsum, d log2 d + d
-operations (the kernels' B x B rank loop does 3 d^2 instead), so a row
-with d real entries needs
+once, except that the forward kernels K2f and K4f read only the real
+entries' columns of P (they skip the padding while they stage a row), so
+their P counts 4 S sum_r d_r bytes, not 4 R B S: this lowers their bound
+and makes no number look better (the backward kernels still write a full
+dP, and their bytes stay as they are).  Operations: the least that this
+run's data needs.  Zero-weight (padding) entries and rows contribute
+exactly 0, and ranking d entries of one slice needs no more than a
+stable sort and a cumsum, d log2 d + d operations (the kernels' d x d
+rank loop runs about 2.5 d^2 instructions instead), so a row with d real
+entries needs
   K1f: S * (d (2 D + 20) + d log2 d + d) operations: 2 D an entry for the
        projection (on the tensor cores), about 20 for the trig of one
        entry-slice;
@@ -264,6 +273,7 @@ PEAK_TF32_OPS = 495e12
 PEAK_BYTES = 3.35e12
 TRIG_OPS, BWD_TRIG_OPS = 20, 45
 MMA_THREADS = 128  # a block of K1's products (csrc/fsw_rank_common.cuh)
+FWD_THREADS = 64   # a block of K2f or K4f (TS in csrc/fsw_rank_common.cuh)
 BWD_NAMES = ('dZ', 'dwn', 'dpad', 'df', 'dV')
 BWD2_NAMES = ('dP', 'dwn', 'dpad', 'df')
 HUB_NODES, HUB_IN = 2000, 1024
@@ -478,9 +488,9 @@ def rank2_bound_ms(wn, S, bwd=False, with_dw=False, F=1):
     """(bound ms, 'operations' or 'bytes') of one K2f call, or K2b call
     with or without with_dw, on (R, B) normalized weights wn, zero at the
     padding (see the module docstring); with F frequency columns, of K4f
-    or K4b.  The forward reads P, wn, pad, freqs and writes out; the
-    backward reads those and the cotangent and writes dP, df (and dwn,
-    dpad)."""
+    or K4b.  The forward reads the real entries' columns of P, wn, pad,
+    freqs and writes out; the backward reads P, wn, pad, freqs and the
+    cotangent and writes dP, df (and dwn, dpad)."""
     R, B = wn.shape
     deg = (wn > 0).sum(dim=1).double()
     per = (BWD_TRIG_OPS * F + (1 if with_dw else 0)) if bwd else TRIG_OPS * F
@@ -489,8 +499,39 @@ def rank2_bound_ms(wn, S, bwd=False, with_dw=False, F=1):
         nbytes = 4 * (2 * R * B * S + R * S * F + R * B + R + 2 * S * F
                       + (R * B + R if with_dw else 0))
     else:
-        nbytes = 4 * (R * B * S + R * B + R + S * F + R * S * F)
+        nbytes = 4 * (S * float(deg.sum()) + R * B + R + S * F + R * S * F)
     return _bound(ops, nbytes)
+
+
+def time_k2_calls(torch, calls, gen, n=3):
+    """Device ms of K2f and K2b (the path's with_dw) on captured K2 calls,
+    with their bounds, summed, and per call with the real-entry share of
+    its table (the share of nonzero weights, which K2f stages and ranks).
+    Launches made here are not counted as the path's."""
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    keys = {'fwd': 'k2f_ms', 'bwd': 'k2b_ms', 'fwd_bound': 'k2f_bound_ms',
+            'bwd_bound': 'k2b_bound_ms'}
+    tot = dict.fromkeys(keys, 0.0)
+    rows = []
+    with torch.no_grad():
+        for args, unif, dw in calls:
+            P, wn = args[0], args[1]
+            S = P.shape[2]
+            G = torch.randn(P.shape[::2], generator=gen, device=P.device)
+            row = {'shape': list(P.shape),
+                   'real_entry_share': float((wn != 0).float().mean()),
+                   'k2f_ms': device_ms(torch, lambda: R.fsw_rank_aggregate(
+                       *args, uniform_w=unif, with_dw=dw), n)[0],
+                   'k2b_ms': device_ms(torch, lambda: (
+                       R.fsw_rank_aggregate_bwd(*args, G, uniform_w=unif,
+                                                with_dw=dw)), n)[0],
+                   'k2f_bound_ms': rank2_bound_ms(wn, S)[0],
+                   'k2b_bound_ms': rank2_bound_ms(wn, S, bwd=True,
+                                                  with_dw=dw)[0]}
+            for k, key in keys.items():
+                tot[k] += row[key]
+            rows.append(row)
+    return tot, rows
 
 
 def capture_rank_calls(run, name='fsw_rank_aggregate_proj'):
@@ -556,6 +597,23 @@ def check_fwd(torch, label, args, unif, kind='K1'):
         fail(f'{name} disagrees ({label}): max abs err '
              f'{err.max().item():.3e}, scale {scale:.3e}')
     return err.max().item(), err.max().item() / max(scale, 1e-30)
+
+
+def check_fwd_padding(torch, label, args, unif, kind):
+    """K2f or K4f skips the padding: on P with NaN at every zero-weight
+    entry it gives the bits it gives on P, and a second call the same
+    bits."""
+    name, _, kernel, _, _, _, _ = rank_fns(kind)
+    P, wn = args[0], args[1]
+    got = kernel(*args, uniform_w=unif, with_dw=False)
+    again = kernel(*args, uniform_w=unif, with_dw=False)
+    Pn = P.masked_fill((wn == 0)[:, :, None], float('nan'))
+    nan_pad = kernel(Pn, *args[1:], uniform_w=unif, with_dw=False)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f'{name}: two calls differ ({label})')
+    if not torch.equal(got, nan_pad):
+        fail(f'{name}: a padded entry changed the output ({label})')
 
 
 def check_bwd(torch, label, args, G, unif, with_dw, kind='K1'):
@@ -1101,18 +1159,7 @@ def trainer_phase(torch, T, dev, counts, errs):
                           loss_of, tr.opt)
     gen = torch.Generator(device=dev).manual_seed(3)
     kern, rows = time_rank_kernels(torch, calls, gen, n=3)
-    k2_ms = {'fwd': 0.0, 'bwd': 0.0, 'fwd_bound': 0.0, 'bwd_bound': 0.0}
-    with torch.no_grad():
-        for args, unif, dw in calls2:
-            G = torch.randn(args[0].shape[::2], generator=gen, device=dev)
-            k2_ms['fwd'] += device_ms(torch, lambda: R.fsw_rank_aggregate(
-                *args, uniform_w=unif, with_dw=dw), 3)[0]
-            k2_ms['bwd'] += device_ms(torch, lambda: R.fsw_rank_aggregate_bwd(
-                *args, G, uniform_w=unif, with_dw=dw), 3)[0]
-            S = args[0].shape[2]
-            k2_ms['fwd_bound'] += rank2_bound_ms(args[1], S)[0]
-            k2_ms['bwd_bound'] += rank2_bound_ms(args[1], S, bwd=True,
-                                                 with_dw=dw)[0]
+    k2_ms, k2_rows = time_k2_calls(torch, calls2, gen)
     res = {
         'dataset': data.name, 'nodes': data.num_nodes,
         'features': int(data.features.shape[1]),
@@ -1132,6 +1179,7 @@ def trainer_phase(torch, T, dev, counts, errs):
         'k1b_bound_ms_per_epoch': kern['bwd_bound'],
         'k2f_bound_ms_per_epoch': k2_ms['fwd_bound'],
         'k2b_bound_ms_per_epoch': k2_ms['bwd_bound'],
+        'k2_classes': k2_rows,
         'per_layer_class': rows,
     }
     print('trainer: ' + json.dumps(res), flush=True)
@@ -1157,6 +1205,7 @@ def check_rank2_calls(torch, dev, calls, cfg, where, errs, extra=True,
             shape = f'{where}, B={B} R={R} S={S}'
             e = check_fwd(torch, f'{shape}, path', args, unif, kind)
             fwd = [max(a, b) for a, b in zip(fwd, e)]
+            check_fwd_padding(torch, f'{shape}, path', args, unif, kind)
             w = torch.rand((R, B), generator=gen, device=dev) * (wn > 0)
             _, wn_r, pad_r = table_weights(w, cfg)
             variants = [('path', P, wn, pad, freqs, unif, dw),
@@ -1187,7 +1236,8 @@ def check_rank2_calls(torch, dev, calls, cfg, where, errs, extra=True,
     errs[names[1]] = max(errs[names[1]], bwd[0])
     print(f'{where}: {kind}f and {kind}b checked on {len(calls)} calls: ok; '
           f'{kind}f max abs err {fwd[0]:.3e} ({fwd[1]:.3e} of the output '
-          f'scale), {kind}b {bwd[0]:.3e} ({bwd[1]:.3e} of an output\'s '
+          f'scale), the same bits with NaN at the padding and on a second '
+          f'call; {kind}b {bwd[0]:.3e} ({bwd[1]:.3e} of an output\'s '
           f'scale)', flush=True)
 
 
@@ -2339,6 +2389,8 @@ def citeseer_phase(torch, T, dev, counts, errs):
              f'forward {loss0_cpu}')
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         fail(f'citeseer: loss not finite and falling: {losses}')
+    k2_ms, k2_rows = time_k2_calls(
+        torch, calls2, torch.Generator(device=dev).manual_seed(3))
 
     # FSWConv(3703, 64) on a small graph, forward and backward, card and CPU
     n, d = CITESEER_SUB_NODES, data.features.shape[1]
@@ -2398,6 +2450,10 @@ def citeseer_phase(torch, T, dev, counts, errs):
            'loss_first': losses[0], 'loss_first_cpu': loss0_cpu,
            'loss_last': losses[-1],
            **{k: v for k, v in out['final'].items()},
+           'k2f_ms_per_epoch': k2_ms['fwd'], 'k2b_ms_per_epoch': k2_ms['bwd'],
+           'k2f_bound_ms_per_epoch': k2_ms['fwd_bound'],
+           'k2b_bound_ms_per_epoch': k2_ms['bwd_bound'],
+           'k2_classes': k2_rows,
            'conv_3703_vs_cpu_max_rel_err': max(errs_rel.values())}
     print('citeseer: ' + json.dumps(res), flush=True)
 
@@ -2597,11 +2653,28 @@ def main():
                     registers=regs, threads_a_slice=K, slices=tsb,
                     smem_bytes=need, blocks_per_sm=nb,
                     warps_per_sm=nb * K * tsb // 32)
+    # the forward kernels K2f and K4f (its instance for CART_F frequencies):
+    # one thread a slice, 64 slices a block
+    fwd = {}
+    for lib, kern, F in (
+            ('fsw_rank_fwd', 'fsw_rank_fwd_kernel', 1),
+            ('fsw_rank_cart_fwd', f'fsw_rank_cart_fwd_kernel<{CART_F}>',
+             CART_F)):
+        report = ptxas_kernels(logs.get(lib, ''))
+        if kern not in report:
+            continue
+        regs, static = report[kern]
+        for B in widths:
+            need = smem_bytes(lib, B, F)
+            nb = blocks_per_sm(regs, static + need, FWD_THREADS)
+            fwd[f'{lib} B={B}'] = dict(
+                registers=regs, smem_bytes=need, blocks_per_sm=nb,
+                warps_per_sm=nb * FWD_THREADS // 32)
     print('occupancy: ' + json.dumps({
         'blocks_per_sm': occ,
         'k1f_smem_bytes': {B: smem_bytes('fsw_rank_fwdp', B)
                            for B in widths},
-        'entry_kernel': entry}), flush=True)
+        'entry_kernel': entry, 'rank_fwd': fwd}), flush=True)
 
     counts = dict.fromkeys(KERNEL_NAMES, 0)
     errs = dict.fromkeys(KERNEL_NAMES, 0.0)

@@ -50,111 +50,26 @@ __host__ __device__ inline int cdiv(long long a, long long b) {
 
 inline size_t align64(size_t n) { return (n + 63) / 64 * 64; }
 
-constexpr int NI = 8;              // entries ranked together (see rank_group)
+constexpr int NI = 8;              // entries ranked together (rank_core)
 
-// The inclusive weighted ranks of entries i0 .. i0 + NI - 1 of thread tid's
-// column: p[k] gets the projection of entry i0 + k and c[k] its rank with
-// the pad shift pr, summed in the order j = 0 .. B-1 as `_rank_c` does
-// (entries past B get p = 0 and a rank nobody reads).  One pass over the
-// row serves NI entries: every p_j and wn_j loaded from shared memory feeds
-// NI independent sums, so the loop is neither bound by the loads nor by one
-// chain of dependent adds.  The tie rule (p_j == p_i precedes for j <= i) is
-// settled by ranges: a j below the group precedes on <=, a j above it on <,
-// and only the group's own NI entries compare both ways.
-__device__ __forceinline__ void rank_group(const float* p_sm,
-                                           const float* w_sm, int B, int tid,
-                                           int i0, float pr, float (&p)[NI],
-                                           float (&c)[NI]) {
-#pragma unroll
-  for (int k = 0; k < NI; ++k) {
-    p[k] = (i0 + k < B) ? p_sm[(i0 + k) * TS + tid] : 0.f;
-    c[k] = 0.f;
-  }
-  int j = 0;
-  for (; j < i0; ++j) {
-    const float p_j = p_sm[j * TS + tid], w_j = w_sm[j];
-#pragma unroll
-    for (int k = 0; k < NI; ++k) c[k] += (p_j <= p[k]) ? w_j : 0.f;
-  }
-  for (const int j1 = min(i0 + NI, B); j < j1; ++j) {
-    const float p_j = p_sm[j * TS + tid], w_j = w_sm[j];
-#pragma unroll
-    for (int k = 0; k < NI; ++k)
-      c[k] += (p_j < p[k] || (p_j == p[k] && j <= i0 + k)) ? w_j : 0.f;
-  }
-  for (; j < B; ++j) {
-    const float p_j = p_sm[j * TS + tid], w_j = w_sm[j];
-#pragma unroll
-    for (int k = 0; k < NI; ++k) c[k] += (p_j < p[k]) ? w_j : 0.f;
-  }
-#pragma unroll
-  for (int k = 0; k < NI; ++k) c[k] += (p[k] > 0.f) ? pr : 0.f;
-}
-
-// The forward of one (row, slice): thread `tid`'s column of P in p_sm
-// ([B][TS]), the row's weights in w_sm ([B]).  Returns out[r, s].
-__device__ __forceinline__ float rank_fwd_slice(const float* p_sm,
-                                                const float* w_sm, int B,
-                                                int tid, float f, float pr,
-                                                int uniform_w) {
-  const bool fz = f == 0.f;
-  const float inv_f = fz ? 0.f : 1.f / f;
-  const float c2f = 0.636619772367581343f * inv_f;  // (2 / pi) / f
-
-  // uniform_w: every real entry of the row has the same weight, recovered
-  // as the row max; sin(pi f w) is computed once and forced to exactly 0 at
-  // the padded (zero-weight) entries, whose projections need not be zero.
-  float sin_row = 0.f;
-  if (uniform_w) {
-    float wr = 0.f;
-    for (int j = 0; j < B; ++j) wr = fmaxf(wr, w_sm[j]);
-    sin_row = sinpif(2.f * (0.5f * f * wr));
-  }
-
-  float acc = 0.f;
-  for (int i0 = 0; i0 < B; i0 += NI) {
-    float p[NI], c[NI];
-    rank_group(p_sm, w_sm, B, tid, i0, pr, p, c);
-#pragma unroll
-    for (int k = 0; k < NI; ++k) {
-      if (i0 + k < B) {
-        const float w = w_sm[i0 + k];
-        float sin_fw;
-        if (uniform_w) {
-          sin_fw = (w == 0.f) ? 0.f : sin_row;
-        } else {
-          sin_fw = sinpif(2.f * (0.5f * f * w));
-        }
-        const float u = 0.5f * f * (2.f * c[k] - w);
-        const float cos_t = cospif(2.f * u);
-        const float sd = (fz ? 2.f * w : c2f * sin_fw) * cos_t;
-        acc = fmaf(p[k], sd, acc);
-      }
-    }
-  }
-  return (1.f + f) * acc;
-}
-
-// The sum over a warp's 32 lanes, complete in lane 0 (a fixed tree: the
-// same bits every call).
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// The backward's rank loop: rank_group's sums on column `col` of a [b][ld]
-// layout, and with POS each entry's position in the column's order under
-// the tie rule, #{j : p_j < p_i or (p_j == p_i and j < i)}.  A pair costs
+// The one rank loop of the six kernels: the inclusive weighted ranks of
+// entries i0 .. i0 + NI - 1 of column `col` of a [b][ld] layout (the
+// forwards: ld = TS, col = their thread), with the pad shift pr, summed in
+// the order j = 0 .. B-1 as `_rank_c` does (entries past B get p = 0 and a
+// rank nobody reads); with POS also each entry's position in the column's
+// order under the tie rule, #{j : p_j < p_i or (p_j == p_i and j < i)}.
+// One pass over the row serves NI entries: every p_j and wn_j loaded from
+// shared memory feeds NI independent sums.  The tie rule (p_j == p_i
+// precedes for j <= i) is settled by ranges: a j below the group precedes
+// on <=, a j above it on <, and the group's own NI x NI pairs are unrolled,
+// so whether j <= i is known and each pair is one compare.  A pair costs
 // the predicate as 1.f or 0.f (one FSET) and a fused multiply-add
-// c = w_j s + c, which rounds exactly as rank_group's c + (pred ? w_j : 0)
-// (w_j 1 + c is c + w_j, rounded once; w_j 0 + c is c), so c has the
-// forward's bits; POS adds s to a float count (exact below 2^24), one add
-// more.  rank_group's select form costs a compare, a select and an add,
-// and an integer count two more (an add and a predicated move).  The order is total, so a column's
-// positions are a permutation of 0 .. B-1 (a NaN projection, which
-// precedes nothing, is put at 0: it may share that position, but never
-// leaves the column).
+// c = w_j s + c, which rounds exactly as c + (pred ? w_j : 0) (w_j 1 + c
+// is c + w_j, rounded once; w_j 0 + c is c), so c is the plain version's
+// to the bit; POS adds s to a float count (exact below 2^24), one add
+// more.  The order is total, so a column's positions are a permutation of
+// 0 .. B-1 (a NaN projection, which precedes nothing, is put at 0: it may
+// share that position, but never leaves the column).
 template <bool POS>
 __device__ __forceinline__ void rank_core(const float* p_sm,
                                           const float* w_sm, int B, int ld,
@@ -178,8 +93,6 @@ __device__ __forceinline__ void rank_core(const float* p_sm,
       if (POS) n[k] += s;
     }
   }
-  // the group's own entries, unrolled: whether j <= i0 + k is known, so
-  // each pair is one compare, as in the other ranges
 #pragma unroll
   for (int jj = 0; jj < NI; ++jj, ++j) {
     if (j >= B) break;
@@ -205,6 +118,127 @@ __device__ __forceinline__ void rank_core(const float* p_sm,
     c[k] += (p[k] > 0.f) ? pr : 0.f;
     pos[k] = POS ? max((int)n[k] - 1, 0) : 0;
   }
+}
+
+// K2f's and K4f's row staging, which skips the padding.  w_sm holds the
+// row's B weights (staged by the block, then a barrier); thread tid stores
+// its column of P (from pr, stride S; zeros where !live) at the entries of
+// nonzero weight only, in their order, as p_sm[0 .. d-1][TS], and w_sm is
+// compacted in place to those entries' weights.  Returns d; the caller
+// ranks and sums over d entries as if the width were d.  Every thread runs
+// the same count over w_sm (the branch is uniform across the block), and
+// warp 0 compacts w_sm after a barrier, 32 weights a pass: a pass writes
+// at or below the words it read and below every word a later pass reads.
+// This needs no shared memory beyond the row's own.
+//
+// Dropping a zero-weight j from every other entry's rank leaves c bit-equal
+// (fmaf(0, s, c) is c), and the entry's own term is
+// p (2/(pi f)) sin(pi f 0) cos(.) = +-0, so the sums keep their order and
+// their bits wherever the padded projections are finite; a padded entry
+// whose projection is not finite now contributes exactly 0 too, as the
+// header's contract states.  (Splitting a slice's groups over several
+// threads that share one column copy, as the backward's entry kernel does,
+// was slower here: see PERF.md.)
+__device__ __forceinline__ int stage_kept(float* p_sm, float* w_sm,
+                                          const float* pr, int B, int S,
+                                          int tid, bool live) {
+  int d = 0;
+  for (int b0 = 0; b0 < B; b0 += NI) {
+    float v[NI];
+    bool keep[NI];
+    // the chunk's loads are all issued before its stores
+#pragma unroll
+    for (int k = 0; k < NI; ++k) {
+      const int b = b0 + k;
+      keep[k] = b < B && w_sm[b] != 0.f;
+      v[k] = (keep[k] && live) ? pr[(size_t)b * S] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < NI; ++k)
+      if (keep[k]) p_sm[(d++) * TS + tid] = v[k];
+  }
+  __syncthreads();
+  if (tid < 32) {
+    int base = 0;
+    for (int b0 = 0; b0 < B; b0 += 32) {
+      const float w = b0 + tid < B ? w_sm[b0 + tid] : 0.f;
+      const unsigned m = __ballot_sync(0xffffffffu, w != 0.f);
+      __syncwarp();
+      if (w != 0.f) w_sm[base + __popc(m & ((1u << tid) - 1u))] = w;
+      base += __popc(m);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  return d;
+}
+
+// The forward quadrature's constants of one frequency f: sin_row is
+// sin(pi f wr) of the uniform row weight wr (uniform_w: every real entry of
+// the row has the same weight, recovered as the row max).
+struct FwdFreq {
+  float f, c2f, sin_row;
+  bool fz;
+};
+
+__device__ __forceinline__ FwdFreq fwd_freq(float f, int uniform_w,
+                                            float wr) {
+  FwdFreq z;
+  z.f = f;
+  z.fz = f == 0.f;
+  const float inv_f = z.fz ? 0.f : 1.f / f;
+  z.c2f = 0.636619772367581343f * inv_f;  // (2 / pi) / f
+  z.sin_row = uniform_w ? sinpif(2.f * (0.5f * f * wr)) : 0.f;
+  return z;
+}
+
+// sd_i of an entry of weight w and rank c at one frequency; uniform_w
+// forces sin(pi f w) to exactly 0 at the padded (zero-weight) entries,
+// whose projections need not be zero.
+__device__ __forceinline__ float fwd_sd(const FwdFreq& z, float w, float c,
+                                        int uniform_w) {
+  float sin_fw;
+  if (uniform_w) {
+    sin_fw = (w == 0.f) ? 0.f : z.sin_row;
+  } else {
+    sin_fw = sinpif(2.f * (0.5f * z.f * w));
+  }
+  const float u = 0.5f * z.f * (2.f * c - w);
+  const float cos_t = cospif(2.f * u);
+  return (z.fz ? 2.f * w : z.c2f * sin_fw) * cos_t;
+}
+
+// The forward of one (row, slice): thread `tid`'s column of P in p_sm
+// ([B][TS]), the row's weights in w_sm ([B]).  Returns out[r, s].  K2f
+// passes its kept entries (stage_kept), K1f the whole row.
+__device__ __forceinline__ float rank_fwd_slice(const float* p_sm,
+                                                const float* w_sm, int B,
+                                                int tid, float f, float pr,
+                                                int uniform_w) {
+  float wr = 0.f;
+  if (uniform_w) {
+    for (int j = 0; j < B; ++j) wr = fmaxf(wr, w_sm[j]);
+  }
+  const FwdFreq z = fwd_freq(f, uniform_w, wr);
+  float acc = 0.f;
+  for (int i0 = 0; i0 < B; i0 += NI) {
+    float p[NI], c[NI];
+    int unused[NI];
+    rank_core<false>(p_sm, w_sm, B, TS, tid, i0, pr, p, c, unused);
+#pragma unroll
+    for (int k = 0; k < NI; ++k)
+      if (i0 + k < B)
+        acc = fmaf(p[k], fwd_sd(z, w_sm[i0 + k], c[k], uniform_w), acc);
+  }
+  return (1.f + f) * acc;
+}
+
+// The sum over a warp's 32 lanes, complete in lane 0 (a fixed tree: the
+// same bits every call).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
 }
 
 // ---- the backward's entry kernel (K1b, K2b, K4b) ---------------------------

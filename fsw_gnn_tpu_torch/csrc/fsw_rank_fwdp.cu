@@ -39,10 +39,10 @@
 // tail, against reading Z once and writing the (R, S) output.  The
 // projection is a product of (R B) x D by D x S, so it runs on the tensor
 // cores; 3xTF32 costs three TF32 products (495 TFLOP/s dense) for each
-// float32 one.  The rank loop (3 B operations an entry, no sort) and the
-// trig stay on the float32 units.  With WRITE_P the kernel stores the
-// projections to P (R B, S) instead of ranking them: the check that K1b's
-// step 1 gets K1f's bits.
+// float32 one.  The rank loop (`rank_core`: about 2.5 B instructions an
+// entry, no sort) and the trig stay on the float32 units.  With WRITE_P the
+// kernel stores the projections to P (R B, S) instead of ranking them: the
+// check that K1b's step 1 gets K1f's bits.
 
 #include "fsw_rank_common.cuh"
 

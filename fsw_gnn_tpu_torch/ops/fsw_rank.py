@@ -116,7 +116,8 @@ def smem_bytes(name: str, B: int, F: int = 1, with_dw: bool = False,
 
       K1f  4 max(STAGE, 65 E) for E <= 64, else 4 (STAGE + 65 E)
            (E = proj_rows(B) B; the feature width D does not enter)
-      K2f  4 (65 B);   K4f  4 (129 B + 64 F)
+      K2f  4 (65 B);   K4f  4 (65 B + 64 F) at F = 8 (its ranks in
+           registers), 4 (129 B + 64 F) at other F
       K1b, K2b (F = 1), K4b: the entry kernel's block of `entry_shape`,
            with dw 4 (2 B tsb + 5 F tsb + B (1 + tsb / 32) + K tsb)
            + 2 B tsb (the positions), without 4 (B tsb + 7 F tsb + B)
@@ -133,7 +134,7 @@ def smem_bytes(name: str, B: int, F: int = 1, with_dw: bool = False,
     if name == 'fsw_rank_fwd':
         return 4 * (B * _TS + B)
     if name == 'fsw_rank_cart_fwd':
-        return 4 * (2 * B * _TS + B + _TS * F)
+        return 4 * ((1 if F == _NF_WIDE else 2) * B * _TS + B + _TS * F)
     if name in ('fsw_rank_bwdp', 'fsw_rank_bwd', 'fsw_rank_cart_bwd'):
         F = F if name == 'fsw_rank_cart_bwd' else 1
         return _entry_need(B, F, dw, *entry_shape(B, F, dw))

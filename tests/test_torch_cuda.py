@@ -158,8 +158,9 @@ def test_smem_need_matches_every_library(cuda_device):
     library, equals each rank kernel library's own `*_smem_bytes` export
     on a grid of widths, frequency counts and flags."""
     from fsw_gnn_tpu_torch.ops import fsw_rank as R
-    for B in (1, 7, 8, 9, 24, 25, 63, 64, 100, 128, 443, 444, 691, 692, 705,
-              706, 752, 753, 893, 1024, 1754, 1755):
+    for B in (1, 7, 8, 9, 24, 25, 32, 33, 63, 64, 100, 128, 443, 444, 446,
+              447, 448, 449, 691, 692, 705, 706, 752, 753, 893, 894, 1024,
+              1753, 1754, 1755, 1760, 1761):
         for dw in (False, True):
             for unif in (False, True):
                 for F in (1, 8, 111, 130):
@@ -522,7 +523,7 @@ def _args4(rng, R, B, S, F, uniform_w, dev, heavy_ties=False):
 
 
 CART_SHAPES = [(8, 127, 8), (32, 128, 8), (100, 130, 3), (128, 200, 8),
-               (13, 7, 1), (300, 65, 5)]
+               (13, 7, 1), (300, 65, 5), (100, 130, 8)]
 
 
 @pytest.mark.cuda
@@ -546,6 +547,66 @@ def test_rank_cart_kernel_matches_plain(cuda_device, B, S, F, uniform_w):
     want = fsw_rank_aggregate_cart_plain(*args, uniform_w=uniform_w)
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=2e-5 * want.abs().max().item())
+
+
+def _compacted(P, wn):
+    """(P', wn') of the same width: each row's entries of nonzero weight
+    moved to the front in their order, its zero-weight entries after them
+    (the width, and so the kernel's block shape, stays)."""
+    keep = wn != 0
+    order = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)
+    Pc = torch.gather(P, 1, order[:, :, None].expand(-1, -1, P.shape[2]))
+    return Pc.contiguous(), torch.gather(wn, 1, order).contiguous()
+
+
+# K2f (F = 1), and K4f at its F = 8 instance (ranks in registers) and at
+# other F (the shared rank column), narrow and wide
+SKIP_SHAPES = [(8, 127, 1), (32, 64, 1), (33, 64, 1), (100, 130, 1),
+               (8, 127, 8), (32, 128, 8), (33, 40, 8), (100, 130, 8),
+               (128, 70, 8), (9, 40, 3), (100, 65, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,S,F', SKIP_SHAPES)
+@pytest.mark.parametrize('uniform_w', [False, True])
+def test_rank_fwd_kernels_skip_padding(cuda_device, B, S, F, uniform_w):
+    """K2f and K4f rank and sum a row's entries of nonzero weight only, in
+    their order: on (P, wn) with zero weights at random positions and one
+    row all zero they give the bits of the same kernel on the row-compacted
+    (P', wn'), also where the padded projections are NaN or inf (which now
+    contribute exactly 0); the all-zero row gives exactly 0; two calls give
+    the same bits; and the outputs agree with the plain version (2e-5 of
+    the output scale + 1e-5 relative, as K2f's test)."""
+    from fsw_gnn_tpu_torch.ops.fsw_rank import (
+        fsw_rank_aggregate_cart, fsw_rank_aggregate_cart_plain)
+    rng = np.random.default_rng(4000 + B + F)
+    P, wn, pad, freqs = _args4(rng, 37, B, S, F, uniform_w, cuda_device,
+                               heavy_ties=B % 2 == 0)
+    wn[3] = 0.0
+    if F == 1:
+        freqs = freqs[:, 0].contiguous()
+        kernel, plain = fsw_rank_aggregate, fsw_rank_aggregate_plain
+    else:
+        kernel, plain = fsw_rank_aggregate_cart, fsw_rank_aggregate_cart_plain
+
+    def run(p, w):
+        with torch.no_grad():
+            return kernel(p, w, pad, freqs, uniform_w=uniform_w,
+                          with_dw=False)
+    got = run(P, wn)
+    want = run(*_compacted(P, wn))
+    Pn = P.clone()
+    dead = (wn == 0)[:, :, None].expand_as(P)
+    Pn[dead] = float('nan')
+    Pn[:, ::3][dead[:, ::3]] = float('inf')
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(run(Pn, wn), want)
+    assert torch.equal(run(P, wn), got)
+    assert torch.all(got[3] == 0)
+    ref = plain(P, wn, pad, freqs, uniform_w=uniform_w)
+    torch.testing.assert_close(got, ref, rtol=1e-5,
+                               atol=2e-5 * ref.abs().max().item())
 
 
 # K4b's shapes beyond K4f's: the entry kernel's threads a slice change at
