@@ -11,7 +11,8 @@ Phases (any failure exits non-zero before the last line is printed):
      backward entry kernel's (K1b, K2b, K4b) block shape, shared memory,
      blocks and warps an SM at B = 8 .. 128 with and without with_dw, and
      K2f's and K4f's (at F = 8) registers, shared memory, blocks and warps
-     an SM at B = 8 .. 128 (from that report: the `occupancy:` line);
+     an SM at B = 8 .. 128, and K3's (each type, ids or mask, direction;
+     its tile) (from that report: the `occupancy:` line);
   3. K1f (`fsw_rank_fwdp`) against its plain PyTorch version on the card,
      at every degree-class shape of the served envelope, and both timed;
   4. serving: the bench FSWConv (in = out = 64 channels, 127 slices,
@@ -80,16 +81,22 @@ Phases (any failure exits non-zero before the last line is printed):
  11. K3 (`segcumsum`) alone on 2^24 normal values, against its plain
      version with the ids and with the mask, at average segments of 32
      and 4096, singletons, and 32 in float64; each timed beside its bound
-     and torch.cumsum's unsegmented floor on the same array;
+     and torch.cumsum's unsegmented floor on the same array, and the
+     reverse scan (the backward's) with the mask;
  12. the CSR path: the bench FSWConv on the bench graph as a CSR Graph
-     (130925 edges padded to 130944): K3 once a forward on 127 x 130944
-     elements, held against its plain version on the captured call;
-     forward and forward + backward timed beside the `multi` layout of the
-     same graph; output and gradients (the edge weights' too) against the
-     CPU on an 8192-node graph whose in-degrees are all 16;
+     (130925 edges padded to 130944): K3 once a forward, the row form
+     (`segcumsum_rows`) on 127 rows of 130944 over the graph's one mask,
+     held against its plain version on the captured call and timed beside
+     its bound and torch.cumsum along the rows; forward and forward +
+     backward timed beside the `multi` layout of the same graph; output
+     and gradients (the edge weights' too) against the CPU on an
+     8192-node graph whose in-degrees are all 16;
  13. K3's backward: one gradient of the bench graph's edge weights on the
-     card, K3's backward held against autograd through its plain version
-     on the captured cotangent;
+     card, K3's backward (one reverse launch on the cotangent) held
+     against autograd through its plain version on the captured
+     cotangent; the reverse call and the forward + backward with the edge
+     weights' gradient timed, and a trace of the latter, whose kernels
+     must hold no flip and two K3 launches (the `CSR conv:` line);
  14. FSWGraphClassifier(64, (64, 64), 2, mlp_layers=3) on 256 graphs of
      64 nodes (in-degrees 4 or 8 by class), the convs on the CSR Graph and
      the readout on `readout_graph`: logits against the CPU, the first
@@ -238,7 +245,9 @@ bound of the padded shapes (every table entry counted) is printed beside
 K1f's.
 K3 needs one add an element and moves 12 bytes an element in float32
 with ids (values and ids read, output written), 9 with the mask: its
-bound is the bytes'.
+bound is the bytes'.  The row form's rows share one mask of m bytes, read
+once for all of them: 8 bytes an element plus m (`k3_bytes`), which is
+lower than the flat form's 9 and makes no time look better.
 
 Device times are medians over 5 windows of back-to-back calls between
 two CUDA events, a sleep kernel queued first so the card never waits for
@@ -283,7 +292,7 @@ KERNEL_NAMES = ('fsw_rank_fwdp', 'fsw_rank_bwdp', 'fsw_rank_fwd',
                 'fsw_rank_bwd', 'segcumsum', 'fsw_rank_cart_fwd',
                 'fsw_rank_cart_bwd')
 CART_R, CART_B, CART_S, CART_F, CART_ZERO = 8192, 32, 128, 8, 0.2
-K3_N, K3_ULPS = 1 << 24, 8
+K3_N, K3_ULPS, K3_ITEMS = 1 << 24, 8, 16
 K3_CASES = (('avg 32', 32, 'float32'), ('avg 4096', 4096, 'float32'),
             ('singletons', 1, 'float32'), ('avg 32, float64', 32, 'float64'))
 CSR_CHECK_DEG = 16
@@ -403,8 +412,9 @@ def device_ms(torch, fn, n, reps=5):
 def ptxas_kernels(log):
     """{kernel: (registers, static shared bytes)} of every entry function
     in nvcc's `-Xptxas -v` report `log`, each named by the last component
-    of its mangled name and its integer or bool template arguments
-    (`rank_bwd_entry_kernel<8,1>` for <8, true>)."""
+    of its mangled name and its float, double, integer or bool template
+    arguments (`rank_bwd_entry_kernel<8,1>` for <8, true>,
+    `scan_kernel<float,0,1>` for <float, false, true>)."""
     import re
     out, name = {}, None
     for line in log.splitlines():
@@ -415,9 +425,11 @@ def ptxas_kernels(log):
                 n = int(d.group())
                 parts.append(sym[i + d.end():i + d.end() + n])
                 i += d.end() + n
-            targs = re.match(r'I((?:L[ib]\d+E)+)E', sym[i:])
+            targs = re.match(r'I((?:[fd]|L[ib]\d+E)+)E', sym[i:])
             name = (parts[-1] if parts else sym) + (
-                '<' + ','.join(re.findall(r'L[ib](\d+)E', targs.group(1)))
+                '<' + ','.join(
+                    {'f': 'float', 'd': 'double'}.get(t, v) for t, v in
+                    re.findall(r'([fd])|L[ib](\d+)E', targs.group(1)))
                 + '>' if targs else '')
             continue
         m = re.search(r'Used (\d+) registers', line)
@@ -1562,47 +1574,61 @@ def k3_within(torch, label, got, want, prefix, dtype):
 
 
 def check_k3(torch, label, values, kw):
-    """K3 against its plain version on one input (`kw`: segment_ids= or
-    boundaries=); returns the largest absolute error."""
-    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum, segcumsum_plain
+    """K3 against its plain version on one input: flat values (n,) with
+    `kw` segment_ids= or boundaries=, or the row form's values (rows, m)
+    with boundaries= (m,); returns the largest absolute error."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import (segcumsum, segcumsum_plain,
+                                                 segcumsum_rows,
+                                                 segcumsum_rows_plain)
     with torch.no_grad():
-        got = segcumsum(values, **kw)
-        torch.cuda.synchronize()
-        want = segcumsum_plain(values, **kw)
-        prefix = segcumsum_plain(values.abs().double(), **kw)
+        if values.dim() == 2:
+            mask = kw['boundaries']
+            got = segcumsum_rows(values, mask)
+            torch.cuda.synchronize()
+            want = segcumsum_rows_plain(values, mask)
+            prefix = segcumsum_rows_plain(values.abs().double(), mask)
+        else:
+            got = segcumsum(values, **kw)
+            torch.cuda.synchronize()
+            want = segcumsum_plain(values, **kw)
+            prefix = segcumsum_plain(values.abs().double(), **kw)
         return k3_within(torch, label, got, want, prefix, values.dtype)
 
 
 def check_k3_bwd(torch, label, values, mask, g):
-    """K3's backward (the reversed segmented cumsum of the cotangent g)
-    against autograd through the plain version, on the card; returns the
-    largest absolute error."""
-    from fsw_gnn_tpu_torch.ops.segcumsum import (_ids_from_mask, segcumsum,
-                                                 segcumsum_plain)
+    """K3's backward in the row form (the reverse segmented cumsum of the
+    cotangent g (rows, m), one launch) against autograd through the plain
+    version, on the card; returns the largest absolute error."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import (segcumsum_rows,
+                                                 segcumsum_rows_plain)
     grads = []
-    for fn in (segcumsum, segcumsum_plain):
+    for fn in (segcumsum_rows, segcumsum_rows_plain):
         v = values.detach().clone().requires_grad_(True)
-        fn(v, boundaries=mask).backward(g)
+        fn(v, mask).backward(g)
         grads.append(v.grad)
     torch.cuda.synchronize()
-    ids = _ids_from_mask(mask)
     with torch.no_grad():
-        suffix = segcumsum_plain(g.abs().double().flip(0),
-                                 -ids.flip(0)).flip(0)
+        suffix = segcumsum_rows_plain(g.abs().double(), mask, reverse=True)
     return k3_within(torch, label, grads[0], grads[1], suffix, values.dtype)
 
 
-def k3_bytes(n, dtype_bytes, by):
-    """Bytes K3 must move: the values read, the output written, the ids
-    (4 bytes) or the mask (1 byte) read."""
-    return n * (2 * dtype_bytes + (4 if by == 'ids' else 1))
+def k3_bytes(n, dtype_bytes, by, m=None):
+    """Bytes K3 must move for n values: the values read and the output
+    written, and the segment structure read once, m ids (4 bytes) or m
+    mask bytes.  The flat form has m = n; the rows of the row form share
+    one mask of m entries, read once however many rows it serves (the
+    tiles of later rows find it in L2), so it counts once."""
+    return n * 2 * dtype_bytes + (n if m is None else m) * (
+        4 if by == 'ids' else 1)
 
 
 def k3_phase(torch, dev, errs):
     """Phase 11: K3 alone on 2^24 normal values, against its plain version
     with the ids and with the mask, timed beside its bound and torch's
-    unsegmented cumsum of the same array."""
-    from fsw_gnn_tpu_torch.ops.segcumsum import (segcumsum, segcumsum_plain,
+    unsegmented cumsum of the same array; the reverse scan (the backward's)
+    with the mask timed too."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import (_run, segcumsum,
+                                                 segcumsum_plain,
                                                  segment_boundaries)
     gen = torch.Generator(device=dev).manual_seed(11)
     n = K3_N
@@ -1627,6 +1653,8 @@ def k3_phase(torch, dev, errs):
             row[f'{by}_GB_per_s'] = nbytes / ms / 1e6
             row[f'{by}_bound_ms'] = 1e3 * nbytes / PEAK_BYTES
             row[f'{by}_max_abs_err'] = e
+        row['mask_reverse_ms'], _ = device_ms(
+            torch, lambda: _run(v[None], None, kw['boundaries'], True), 20)
         row['plain_ms'], _ = device_ms(
             torch, lambda: segcumsum_plain(v, ids), 2, 2)
         row['torch_cumsum_ms'], _ = device_ms(
@@ -1638,29 +1666,28 @@ def k3_phase(torch, dev, errs):
 
 
 def capture_k3_calls(run, cotangents=False):
-    """Run `run()` with the CSR path's K3 entry point
-    (`fsw_gnn_tpu_torch.embedding.segcumsum`) wrapped; return one record
-    per call: detached copies of its values and mask and, with
-    `cotangents`, of the cotangent its output receives in the backward."""
+    """Run `run()` with the CSR path's K3 entry point, the row form
+    (`fsw_gnn_tpu_torch.embedding.segcumsum_rows`), wrapped; return one
+    record per call: detached copies of its values (rows, m) and its mask
+    (m,) and, with `cotangents`, of the cotangent its output receives in
+    the backward."""
     from fsw_gnn_tpu_torch import embedding
-    real = embedding.segcumsum
+    real = embedding.segcumsum_rows
     calls = []
 
-    def spy(values, segment_ids=None, *, boundaries=None,
-            max_seg_size=None):
-        out = real(values, segment_ids, boundaries=boundaries,
-                   max_seg_size=max_seg_size)
+    def spy(values, boundaries):
+        out = real(values, boundaries)
         rec = {'values': values.detach().clone(), 'mask': boundaries}
         if cotangents and out.requires_grad:
             out.register_hook(lambda g: rec.__setitem__('cotangent',
                                                         g.detach().clone()))
         calls.append(rec)
         return out
-    embedding.segcumsum = spy
+    embedding.segcumsum_rows = spy
     try:
         run()
     finally:
-        embedding.segcumsum = real
+        embedding.segcumsum_rows = real
     return calls
 
 
@@ -1701,12 +1728,16 @@ def check_dyadic_conv(torch, T, dev, label, ei, n, X, cpu_model, graph_of,
 
 def csr_conv_phase(torch, T, dev, counts, errs):
     """Phases 12 and 13: the bench FSWConv on the bench graph as a CSR
-    Graph: K3 once a forward, held against its plain version on the
-    captured call; forward and forward + backward timed beside the `multi`
-    layout; output and gradients against the CPU on an 8192-node graph of
-    in-degree 16; then one gradient of the edge weights (K3's backward)
-    against the plain version.  Returns K3's entry fields."""
-    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum, segcumsum_plain
+    Graph: K3 once a forward (the row form on S x E), held against its
+    plain version on the captured call; forward and forward + backward
+    timed beside the `multi` layout; output and gradients against the CPU
+    on an 8192-node graph of in-degree 16; then one gradient of the edge
+    weights (K3's backward, one reverse launch) against the plain version,
+    timed, and a trace of it that must hold no flip and two K3 launches a
+    forward and backward.  Returns K3's entry fields."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import (_run, segcumsum,
+                                                 segcumsum_rows,
+                                                 segcumsum_rows_plain)
     cpu_model, X, graph = bench_setup(torch, T, csr=True)
     model = copy.deepcopy(cpu_model).to(dev)
     Xd, gd = X.to(dev), graph.to(dev)
@@ -1714,7 +1745,7 @@ def csr_conv_phase(torch, T, dev, counts, errs):
     S, E = model.embed_cfg.nSlices, graph.padded_num_edges
     with torch.no_grad():
         calls = capture_k3_calls(lambda: model(Xd, gd))
-    if len(calls) != 1 or calls[0]['values'].shape != (S * E,):
+    if len(calls) != 1 or calls[0]['values'].shape != (S, E):
         fail(f'CSR conv: K3 calls {[c["values"].shape for c in calls]}, '
              f'expected one of {S} x {E}')
     vals, mask = calls[0]['values'], calls[0]['mask']
@@ -1734,11 +1765,11 @@ def csr_conv_phase(torch, T, dev, counts, errs):
     t = {}
     with torch.no_grad():
         t['k3_ms'], _ = device_ms(
-            torch, lambda: segcumsum(vals, boundaries=mask), 20)
+            torch, lambda: segcumsum_rows(vals, mask), 20)
         t['k3_plain_ms'], _ = device_ms(
-            torch, lambda: segcumsum_plain(vals, boundaries=mask), 2, 2)
+            torch, lambda: segcumsum_rows_plain(vals, mask), 2, 2)
         t['torch_cumsum_ms'], _ = device_ms(
-            torch, lambda: torch.cumsum(vals, 0), 20)
+            torch, lambda: torch.cumsum(vals, 1), 20)
         for name, lay in (('csr', gd), ('multi', md)):
             t[f'{name}_forward_ms'], t[f'{name}_forward_host_ms'] = \
                 device_ms(torch, lambda: model(Xd, lay), 5)
@@ -1763,7 +1794,7 @@ def csr_conv_phase(torch, T, dev, counts, errs):
                                                  * 1e-3)
         t[f'{name}_fwd_bwd_edges_per_s'] = e_real / (
             t[f'{name}_fwd_bwd_ms'] * 1e-3)
-    t['k3_bound_ms'] = 1e3 * k3_bytes(S * E, 4, 'mask') / PEAK_BYTES
+    t['k3_bound_ms'] = 1e3 * k3_bytes(S * E, 4, 'mask', m=E) / PEAK_BYTES
 
     # the CPU check: a graph of the same size whose in-degrees are all 16
     ei = regular_graph(3, N_NODES, CSR_CHECK_DEG)
@@ -1789,11 +1820,30 @@ def csr_conv_phase(torch, T, dev, counts, errs):
     if segcumsum.launches != 2 or 'cotangent' not in calls[0]:
         fail(f'K3 backward: {segcumsum.launches} launches, expected 2')
     counts['segcumsum'] += segcumsum.launches
+    cot = calls[0]['cotangent']
     e_b = check_k3_bwd(torch, 'backward, bench graph', calls[0]['values'],
-                       calls[0]['mask'], calls[0]['cotangent'])
+                       calls[0]['mask'], cot)
     errs['segcumsum'] = max(errs['segcumsum'], e_b)
     if not bool(torch.isfinite(gw.weight.grad).all()):
         fail('K3 backward: the edge weights\' gradient is not finite')
+    with torch.no_grad():
+        t['k3_reverse_ms'], _ = device_ms(
+            torch, lambda: _run(cot, None, calls[0]['mask'], True), 20)
+
+    def fwd_bwd_weight():
+        model.zero_grad(set_to_none=True)
+        gw.weight.grad = None
+        loss_of(model(Xd, gw)).backward()
+    t['csr_weight_fwd_bwd_ms'], _ = device_ms(torch, fwd_bwd_weight, 3)
+    busy, kern = traced_top_kernels(torch, fwd_bwd_weight, 3, top=10 ** 6)
+    flips = [k for k in kern if 'flip' in k[0].lower()]
+    k3_traced = sum(k[2] for k in kern if 'scan_kernel' in k[0])
+    if flips or k3_traced != 2:
+        fail(f'K3 backward trace: flips {flips}, {k3_traced} K3 kernels a '
+             f'forward and backward, expected none and 2')
+    t['csr_weight_fwd_bwd_busy_ms'] = busy
+    t['csr_weight_fwd_bwd_top'] = kern[:8]
+    t['csr_weight_k3_traced_per_call'] = k3_traced
     res = {'nodes': N_NODES, 'edges': e_real, 'padded_edges': E,
            'slices': S, 'k3_elements': S * E, 'k3_max_abs_err': e,
            'k3_backward_max_abs_err': e_b,
@@ -2620,6 +2670,8 @@ def main():
             if 'registers' in line or 'smem' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}')
     sys.stdout.flush()
+    for name in kernels.sources():   # built earlier: the saved reports
+        logs[name] = logs.get(name) or kernels.build_log(name)
 
     # K1's blocks an SM from ptxas' report, and shared memory a block
     from fsw_gnn_tpu_torch.ops.fsw_rank import entry_shape, smem_bytes
@@ -2670,11 +2722,30 @@ def main():
             fwd[f'{lib} B={B}'] = dict(
                 registers=regs, smem_bytes=need, blocks_per_sm=nb,
                 warps_per_sm=nb * FWD_THREADS // 32)
+    # K3: one scan kernel a (type, ids or mask, direction), 16 elements a
+    # scan thread, its padded tile (and the ids') in dynamic shared memory
+    k3_tile = kernels.load('segcumsum').segcumsum_tile()
+    k3_occ = {'tile': k3_tile}
+    for kern, (regs, static) in ptxas_kernels(
+            logs.get('segcumsum', '')).items():
+        parts = kern[kern.find('<') + 1:-1].split(',')
+        if not kern.startswith('scan_kernel<') or len(parts) != 3:
+            continue
+        elem = 4 if parts[0] == 'float' else 8
+        ids = parts[1] == '1'
+        dyn = (k3_tile + k3_tile // 8) * (elem + (4 if ids else 0))
+        threads = k3_tile // K3_ITEMS + 32     # and the look-back warp
+        nb = blocks_per_sm(regs, static + dyn, threads)
+        k3_occ[f'{parts[0]} {"ids" if ids else "mask"}'
+               f'{" reverse" if parts[2] == "1" else ""}'] = dict(
+            registers=regs, smem_bytes=static + dyn, blocks_per_sm=nb,
+            warps_per_sm=nb * threads // 32)
     print('occupancy: ' + json.dumps({
         'blocks_per_sm': occ,
         'k1f_smem_bytes': {B: smem_bytes('fsw_rank_fwdp', B)
                            for B in widths},
-        'entry_kernel': entry, 'rank_fwd': fwd}), flush=True)
+        'entry_kernel': entry, 'rank_fwd': fwd, 'segcumsum': k3_occ}),
+        flush=True)
 
     counts = dict.fromkeys(KERNEL_NAMES, 0)
     errs = dict.fromkeys(KERNEL_NAMES, 0.0)

@@ -1,62 +1,170 @@
-// Segmented inclusive cumulative sum (K3), float32 and float64.
+// Segmented inclusive cumulative sum (K3), float32 and float64, forward
+// and reverse, over rows that share one segment structure.
 //
 // Replaces the TPU kernels behind `segcumsum_pallas`
 // (fsw_gnn_tpu/ops/segcumsum_pallas.py): `_segcumsum_kernel` (segments
 // given by sorted int32 ids) and `_segcumsum_mask_kernel` (segments given by
-// an int8 is_end mask, 1 on the last element of each segment).  For every i,
+// an int8 is_end mask, 1 on the last element of each segment).  values is
+// (rows, m), the ids or the mask (m,) are shared by every row, and each row
+// is scanned on its own (the JAX CSR path's `jax.vmap` over slices; the
+// flat form is one row).  For every row and every i,
 //
-//   out[i] = sum of v[j] over the j <= i in i's segment,
+//   forward:  out[i] = sum of v[j] over the j <= i in i's segment,
+//   reverse:  out[i] = sum of v[j] over the j >= i in i's segment,
 //
 // restarted at every segment start, so the rounding error is about eps times
-// the segment's prefix, never eps times the global prefix.
+// the segment's prefix, never eps times the global prefix.  The reverse scan
+// is the forward's gradient.  A forward segment starts at a row's first
+// element, where ids[i] != ids[i-1], or after a set end[i-1]; a reverse one
+// at a row's last element, where ids[i] != ids[i+1], or at a set end[i].
+// Neither needs the ids sorted, only equal ids contiguous.  `max_seg_size`,
+// a bound the TPU kernel uses to prune its doubling passes, is not needed:
+// the result is exact for any segment length.
 //
-// Design.  The TPU kernel carries the running total from one tile to the
-// next in scalar memory across a sequential grid; blocks on a GPU run in no
-// order, so the scan is three launches over the monoid
+// Design: one launch a call, a single pass with a decoupled look-back.
+//   * Tiles.  A row is cut into tiles of TILE = THREADS x ITEMS = 4096
+//     elements; a block (8 scan warps and one look-back warp) takes the
+//     next tile index from a counter in the workspace (one atomicAdd by one
+//     thread), so a tile only ever waits on tiles whose blocks are already
+//     running.  Tickets run row by row; in reverse a row's tiles are taken
+//     from its end.  The block that draws the last ticket sets the counter
+//     back to 0 for the next call.
+//   * Loads.  Values move as 16-byte copies (cp.async: four float4 or
+//     eight double2 a thread, no registers held), neighbouring threads on
+//     neighbouring addresses, into shared memory, where each thread reads
+//     its ITEMS = 16 consecutive elements (the transpose; one 16-byte pad
+//     every 128 bytes keeps both sides free of bank conflicts).  The mask
+//     comes as one 16-byte load a thread, its own 16 bytes; ids go through
+//     shared memory like the values.  A start flag comes from the thread's
+//     own registers or the previous thread's (`__shfl_up_sync`; across
+//     warps through shared memory); only the tile's first element reads
+//     one value of the tile before it.  Unaligned or ragged tiles load
+//     element by element into the same layout.
+//   * The scan.  Each thread scans its 16 elements in order over the
+//     monoid (a, fa) then (b, fb) = (fb ? b : a + b, fa | fb), the thread
+//     totals are scanned with warp shuffles, then across the 8 warps.  The
+//     tile's aggregate is the trailing segment's total and whether the tile
+//     holds a start.
+//   * The look-back.  A tile that holds a start publishes its inclusive
+//     prefix (its trailing segment's total) as soon as it is scanned; one
+//     that does not publishes its aggregate, and its inclusive prefix once
+//     its carry is known; the last scan warp publishes the prefix before
+//     the block scan when it holds a start.  The look-back warp works while
+//     the scan's warps load and scan, and issues all its reads at once:
+//     the flag of the tile's first element (no carry needed if it starts a
+//     segment), the prefix and aggregate slots of the 32 tiles before, and
+//     the previous tile's last scan warp (512 elements, mostly in L2, since
+//     that tile's block has just read them), which it scans again exactly
+//     as that block does.  Where that warp holds a start, its total is the
+//     previous tile's prefix bit for bit, known without waiting for the
+//     previous block: the common case with segments shorter than a few
+//     hundred elements.  Otherwise the carry is the fold, in tile order, of
+//     the nearest published prefix and the published aggregates after it,
+//     read again until there is one.  Each slot word holds 32 bits of the
+//     value under the call's epoch tag, so one read from L2 gives a value
+//     and whether it is published.  A row's first tile always holds a
+//     start, so the look-back never crosses a row.
+//   * Deterministic bits.  The carry into tile t is always the left-to-
+//     right fold of the aggregates from the nearest tile that holds a start
+//     up to t - 1, and a published prefix is that same fold up to its tile,
+//     so continuing from whichever prefix the look-back finds gives the
+//     same bits; the up to 32 aggregates of a window are folded in order
+//     (every lane the same sequence of adds), not by a shuffle tree.  No
+//     atomics touch a value: the same bits every run, and the ids and the
+//     mask, which give the same flags, give the same bits.
+//   * The slots are reset by an epoch tag, not by a memset: the caller
+//     keeps the workspace (zeroed once) and passes a new epoch each call,
+//     and a word of another epoch reads as not yet published.  The
+//     workspace holds nothing but tagged words and the counter.
 //
-//   (a, fa) then (b, fb)  =  (fb ? b : a + b,  fa | fb)
-//
-// on (value, segment-start flag) pairs:
-//   1. `tile_scan`: one block per tile of TILE = 2048 elements.  The tile is
-//      loaded striped (coalesced) into shared memory; each thread scans its
-//      ITEMS = 8 consecutive elements in order, the 256 thread totals are
-//      scanned with warp shuffles and then across the 8 warps, and each
-//      thread adds its incoming prefix to the elements before its first
-//      start.  The block writes the tile scanned on its own, the tile's
-//      aggregate (trailing-segment total, has-a-start flag) and the offset of
-//      its first segment start.
-//   2. `carry_scan`: one block scans the tile aggregates in the same monoid
-//      (each thread a run of consecutive tiles in order, then shuffles) and
-//      writes each tile's incoming carry, the exclusive prefix.
-//   3. `carry_apply`: one block per tile adds the carry to the elements
-//      before the tile's first segment start, and touches no other element.
-// Every sum is taken in a fixed order: no atomics, the same bits each run.
-// The element start flags come from the ids (ids[i] != ids[i-1]) or the mask
-// (end[i-1] != 0), element 0 always starts; neither needs the ids sorted,
-// only equal ids contiguous.  `max_seg_size`, a bound the TPU kernel uses to
-// prune its doubling passes, is not needed here: the result is exact for
-// any segment length.
-//
-// What bounds it on an H100: memory.  It reads the values and the ids (or
-// the mask) once and writes the output once, 12 bytes an element in
-// float32 with ids, 9 with the mask, and does one add an element.  Launch 1
-// moves all of that; launch 3 reads and writes again only the elements of
-// each tile's leading segment (about half a segment a tile on average), and
-// launch 2 moves 16 bytes a tile.
+// What bounds it on an H100: memory.  It reads the values once and writes
+// the output once, and reads the m-long segment structure once for all
+// rows (the rows' tiles read it again from L2): in float32 8 bytes an
+// element plus m with the shared mask (9 flat, 12 with ids), one add an
+// element.  The design moves nothing else through device memory: no second
+// pass over a tile, no copy of the mask per row, and for the backward no
+// flipped copies (the reverse scan reads the cotangent as it lies).  What
+// it does not do: it hides the ticket's latency, and with segments longer
+// than the previous tile's last warp the wait for its aggregate, only by
+// running several blocks an SM (4 in float32); the previous tile's last
+// warp read again (2.5 KB a tile in float32 with the mask, from L2) and the
+// slots (32 bytes a tile) are extra traffic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int ITEMS = 8;
+constexpr int THREADS = 256;               // the scan's threads
+constexpr int BLOCK = THREADS + 32;        // and the look-back warp
+constexpr int ITEMS = 16;                  // elements a thread; 16 mask bytes
 constexpr int TILE = THREADS * ITEMS;
 constexpr int WARPS = THREADS / 32;
-constexpr int CARRY_THREADS = 1024;
 constexpr unsigned FULL = 0xffffffffu;
+// Blocks an SM the registers are sized for (ptxas: 56 registers a thread in
+// float32, 72 in float64).  The kernel waits on memory, so blocks in
+// flight count: on an H100 4 ran faster than 3, and 5 (40 registers)
+// spilled and ran slower; in float64 3 ran faster than 2 (PERF.md).
+constexpr int MIN_BLOCKS_F32 = 4, MIN_BLOCKS_F64 = 3;
+typedef unsigned long long u64;
 
-__device__ __forceinline__ int padded(int j) { return j + (j >> 5); }
+// Shared-memory index of element e of a tile held as 4-byte (V = 4) or
+// 8-byte (V = 2) words: one 16-byte pad after every 128 bytes.
+template <int V>
+__device__ __forceinline__ int pad(int e) { return e + V * (e / (8 * V)); }
+
+constexpr int PADDED = TILE + TILE / 8;   // words of a padded tile
+
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<double> { using type = double2; };
+template <> struct Vec16<int> { using type = int4; };
+
+// The scan's warps meet at barrier 1, without the look-back warp; all
+// warps meet at barrier 2 once the carry is known.
+__device__ __forceinline__ void scan_sync() {
+  asm volatile("bar.sync 1, %0;" :: "n"(THREADS) : "memory");
+}
+
+__device__ __forceinline__ void carry_sync() {
+  asm volatile("bar.sync 2, %0;" :: "n"(BLOCK) : "memory");
+}
+
+__device__ __forceinline__ u64 ld_relaxed(const u64* p) {
+  u64 v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(u64* p, u64 v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" :: "l"(p), "l"(v)
+               : "memory");
+}
+
+// A published value: 32 bits of payload under the epoch tag in each 8-byte
+// word, so one load reads a value and whether it is this call's.
+__device__ __forceinline__ void put(u64* s, float v, unsigned tag) {
+  st_relaxed(s, (u64)tag << 32 | __float_as_uint(v));
+}
+
+__device__ __forceinline__ void put(u64* s, double v, unsigned tag) {
+  const u64 b = (u64)__double_as_longlong(v);
+  st_relaxed(s, (u64)tag << 32 | (b & 0xffffffffull));
+  st_relaxed(s + 1, (u64)tag << 32 | (b >> 32));
+}
+
+__device__ __forceinline__ bool get(const u64* s, unsigned tag, float& v) {
+  const u64 a = ld_relaxed(s);
+  v = __uint_as_float((unsigned)a);
+  return (unsigned)(a >> 32) == tag;
+}
+
+__device__ __forceinline__ bool get(const u64* s, unsigned tag, double& v) {
+  const u64 a = ld_relaxed(s), b = ld_relaxed(s + 1);
+  v = __longlong_as_double((long long)(b << 32 | (a & 0xffffffffull)));
+  return (unsigned)(a >> 32) == tag && (unsigned)(b >> 32) == tag;
+}
 
 // Inclusive scan over a warp of (v, f) pairs in the monoid above.
 template <typename T>
@@ -72,18 +180,393 @@ __device__ __forceinline__ void warp_scan(T& v, int& f, int lane) {
   }
 }
 
-// Block-wide exclusive prefix of each thread's (v, f) and the block's
-// inclusive aggregate; `wv`/`wf` are shared arrays of nwarps entries.
-template <typename T, int NWARPS>
-__device__ __forceinline__ void block_exclusive(T v, int f, T* wv, int* wf,
-                                                T& ex_v, T& agg_v,
-                                                int& agg_f) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  T iv = v;
-  int ifl = f;
+// A tile's elements [lo, lo + TILE) of one row, moved between device
+// memory (row pointer g, m elements) and shared memory s (padded): 16-byte
+// vectors where the tile is whole and aligned, else element by element
+// (`fill` past the row's end).
+template <typename T>
+__device__ __forceinline__ void load_tile(const T* __restrict__ g,
+                                          long long lo, long long m, T* s,
+                                          T fill) {
+  constexpr int V = 16 / sizeof(T), NV = TILE / V / THREADS;
+  using VT = typename Vec16<T>::type;
+  const T* src = g + lo;
+  if (lo + TILE <= m && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    // straight into shared memory (cp.async), no registers held
+    const VT* vs = reinterpret_cast<const VT*>(src);
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      const unsigned dst = (unsigned)__cvta_generic_to_shared(
+          s + pad<V>((q * THREADS + threadIdx.x) * V));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                   :: "r"(dst), "l"(vs + q * THREADS + threadIdx.x)
+                   : "memory");
+    }
+  } else {
+    for (int e = threadIdx.x; e < TILE; e += THREADS)
+      s[pad<V>(e)] = lo + e < m ? src[e] : fill;
+  }
+}
+
+// A thread's ITEMS elements at p, of which n lie in the row (fill past
+// it): 16-byte vectors where the chunk is whole and aligned.
+template <typename T>
+__device__ __forceinline__ void load_chunk(const T* p, long long n,
+                                           T (&y)[ITEMS], T fill) {
+  constexpr int V = 16 / sizeof(T);
+  using VT = typename Vec16<T>::type;
+  if (n >= ITEMS && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+    for (int j = 0; j < ITEMS / V; ++j) {
+      const VT r = reinterpret_cast<const VT*>(p)[j];
+      const T* q = reinterpret_cast<const T*>(&r);
+#pragma unroll
+      for (int k = 0; k < V; ++k) y[j * V + k] = q[k];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) y[k] = k < n ? p[k] : fill;
+  }
+}
+
+// Bit k set where the mask byte at p + k, of which n lie in the row, is
+// set: one 16-byte load where the chunk is whole and aligned.
+__device__ __forceinline__ unsigned load_mask(const int8_t* p, long long n) {
+  unsigned nz = 0;
+  if (n >= ITEMS && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const unsigned wd[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k)
+      nz |= (((wd[k >> 2] >> (8 * (k & 3))) & 0xffu) != 0u) << k;
+  } else {
+    for (int k = 0; k < ITEMS; ++k)
+      if (k < n && p[k] != 0) nz |= 1u << k;
+  }
+  return nz;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_tile(T* __restrict__ g, long long lo,
+                                           long long m, const T* s) {
+  constexpr int V = 16 / sizeof(T), NV = TILE / V / THREADS;
+  using VT = typename Vec16<T>::type;
+  T* dst = g + lo;
+  if (lo + TILE <= m && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    VT* vd = reinterpret_cast<VT*>(dst);
+#pragma unroll
+    for (int q = 0; q < NV; ++q)
+      vd[q * THREADS + threadIdx.x] = *reinterpret_cast<const VT*>(
+          s + pad<V>((q * THREADS + threadIdx.x) * V));
+  } else {
+    for (int e = threadIdx.x; e < TILE; e += THREADS)
+      if (lo + e < m) dst[e] = s[pad<V>(e)];
+  }
+}
+
+// A thread's ITEMS consecutive elements of shared memory, chunk c.
+template <typename T>
+__device__ __forceinline__ void read_chunk(const T* s, int c, T (&x)[ITEMS]) {
+  constexpr int V = 16 / sizeof(T);
+  using VT = typename Vec16<T>::type;
+#pragma unroll
+  for (int j = 0; j < ITEMS / V; ++j) {
+    const VT r =
+        *reinterpret_cast<const VT*>(s + pad<V>(c * ITEMS + j * V));
+    const T* p = reinterpret_cast<const T*>(&r);
+#pragma unroll
+    for (int k = 0; k < V; ++k) x[j * V + k] = p[k];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void write_chunk(T* s, int c, const T (&x)[ITEMS]) {
+  constexpr int V = 16 / sizeof(T);
+  using VT = typename Vec16<T>::type;
+#pragma unroll
+  for (int j = 0; j < ITEMS / V; ++j) {
+    VT r;
+    T* p = reinterpret_cast<T*>(&r);
+#pragma unroll
+    for (int k = 0; k < V; ++k) p[k] = x[j * V + k];
+    *reinterpret_cast<VT*>(s + pad<V>(c * ITEMS + j * V)) = r;
+  }
+}
+
+template <typename T>
+struct Work {
+  const T* v;
+  const int* ids;
+  const int8_t* end;
+  T* out;
+  unsigned* counter;
+  u64* agg;                // a ticket's aggregate (trailing-segment total)
+  u64* pre;                // a ticket's inclusive prefix; 2 words a ticket
+  long long m, tiles_per_row;
+  unsigned total, tag;
+};
+
+// Whether the tile's first element, in processing order, starts a
+// segment (then it needs no carry).
+template <typename T, bool IDS, bool REV>
+__device__ __forceinline__ bool first_starts(const Work<T>& w, long long lo) {
+  if (REV) {
+    const long long e = lo + TILE - 1;
+    if (e >= w.m - 1) return true;
+    return IDS ? w.ids[e] != w.ids[e + 1] : w.end[e] != 0;
+  }
+  if (lo == 0) return true;
+  return IDS ? w.ids[lo] != w.ids[lo - 1] : w.end[lo - 1] != 0;
+}
+
+// One pass of the look-back: the prefix and aggregate slots of ticket j
+// (lane i reads j = d - 1 - i), each with whether it is published.
+template <typename T>
+struct Window {
+  T pv = T(0), av = T(0);
+  bool hp = false, ha = false;
+};
+
+template <typename T>
+__device__ __forceinline__ Window<T> read_window(const Work<T>& w,
+                                                 long long j, bool mine) {
+  Window<T> r;
+  if (mine) {
+    r.hp = get(w.pre + 2 * j, w.tag, r.pv);
+    r.ha = get(w.agg + 2 * j, w.tag, r.av);
+  }
+  return r;
+}
+
+// The carry from a window, if the nearest published prefix in it has only
+// published aggregates after it: that prefix and those aggregates folded
+// in tile order (every lane the same result).
+template <typename T>
+__device__ __forceinline__ bool fold_window(const Window<T>& r, int lane,
+                                            T& c) {
+  const unsigned pre_m = __ballot_sync(FULL, r.hp);
+  const unsigned agg_m = __ballot_sync(FULL, r.ha);
+  if (pre_m == 0) return false;
+  const int k = __ffs(pre_m) - 1;               // the nearest prefix
+  const unsigned nearer = (1u << k) - 1u;
+  if ((agg_m & nearer) != nearer) return false; // an aggregate missing
+  const T x = lane == k ? r.pv : r.av;
+  c = __shfl_sync(FULL, x, k);
+  for (int i = k - 1; i >= 0; --i) c = c + __shfl_sync(FULL, x, i);
+  return true;
+}
+
+// Bits k of a thread's chunk (first element e0 in the row, in processing
+// order) forced to start: a row's first element (its last in reverse), and
+// every element past the row's end (a segment of its own, value 0).
+template <bool REV>
+__device__ __forceinline__ unsigned force_starts(unsigned sb, long long e0,
+                                                 long long m) {
+  const long long rem = m - e0;         // the chunk's elements in the row
+  const int n = rem <= 0 ? 0 : rem >= ITEMS ? ITEMS : (int)rem;
+  const unsigned past = ~((1u << n) - 1u) & 0xffffu;   // original order
+  if (REV) {
+    sb |= __brev(past) >> (32 - ITEMS);
+    if (rem >= 1 && rem <= ITEMS) sb |= 1u << (ITEMS - rem);  // m - 1
+  } else {
+    sb |= past;
+    if (e0 == 0) sb |= 1u;
+  }
+  return sb;
+}
+
+// A thread's scan of its items in order, in place: x[k] becomes the sum
+// from the last start at or before k (or from the chunk's first item);
+// (acc, fl) the chunk's total and whether it holds a start; returns bit k
+// set where a start lies at or before item k.
+template <typename T>
+__device__ __forceinline__ unsigned thread_scan(T (&x)[ITEMS], unsigned sb,
+                                                T& acc, int& fl) {
+  acc = T(0);
+  fl = 0;
+  unsigned seen = 0;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const int s = (sb >> k) & 1u;
+    acc = s ? x[k] : acc + x[k];
+    fl |= s;
+    x[k] = acc;
+    seen |= (unsigned)fl << k;
+  }
+  return seen;
+}
+
+// The last scan warp's total of the tile at lo, as that tile's block
+// computes it, read again from device memory by the look-back warp:
+// (v, f) of its lane 31 after the warp scan.  Where f is set this is the
+// tile's trailing-segment total, the prefix it publishes, bit for bit.
+template <typename T, bool IDS, bool REV>
+__device__ __forceinline__ void rescan_last_warp(const Work<T>& w,
+                                                 long long row, long long lo,
+                                                 int lane, T& v, int& f) {
+  const int tid = (WARPS - 1) * 32 + lane;
+  const int c = REV ? THREADS - 1 - tid : tid;
+  const long long m = w.m, e0 = lo + (long long)c * ITEMS;
+  // the element before the warp's first in processing order
+  const long long pe = REV ? e0 + ITEMS : e0 - 1;
+  const bool pin = lane == 0 && pe >= 0 && pe < m;
+  T x[ITEMS];
+  {
+    T y[ITEMS];
+    load_chunk<T>(w.v + row * m + e0, m - e0, y, T(0));
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) x[k] = REV ? y[ITEMS - 1 - k] : y[k];
+  }
+  unsigned sb;
+  if (IDS) {
+    const int pid = pin ? w.ids[pe] : 0;
+    int y[ITEMS], id[ITEMS];
+    load_chunk<int>(w.ids + e0, m - e0, y, 0);
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) id[k] = REV ? y[ITEMS - 1 - k] : y[k];
+    int prev = __shfl_up_sync(FULL, id[ITEMS - 1], 1);
+    if (lane == 0) prev = pid;
+    sb = id[0] != prev;
+#pragma unroll
+    for (int k = 1; k < ITEMS; ++k) sb |= (unsigned)(id[k] != id[k - 1]) << k;
+  } else {
+    const unsigned pbit = !REV && pin && w.end[pe] != 0;
+    const unsigned nz = load_mask(w.end + e0, m - e0);
+    if (REV) {
+      sb = __brev(nz) >> (32 - ITEMS);
+    } else {
+      unsigned prev = __shfl_up_sync(FULL, (nz >> 15) & 1u, 1);
+      if (lane == 0) prev = pbit;
+      sb = ((nz << 1) | prev) & 0xffffu;
+    }
+  }
+  sb = force_starts<REV>(sb, e0, m);
+  T acc;
+  thread_scan(x, sb, acc, f);
+  v = acc;
+  warp_scan(v, f, lane);
+  v = __shfl_sync(FULL, v, 31);
+  f = __shfl_sync(FULL, f, 31);
+}
+
+template <typename T, bool IDS, bool REV>
+__global__ void __launch_bounds__(BLOCK, sizeof(T) == 4 ? MIN_BLOCKS_F32
+                                                         : MIN_BLOCKS_F64)
+    scan_kernel(Work<T> w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sv = reinterpret_cast<T*>(smem);
+  int* sid = reinterpret_cast<int*>(smem + sizeof(T) * PADDED);
+  __shared__ T wv[WARPS + 1];
+  __shared__ int wf[WARPS + 1];
+  __shared__ int edge[WARPS + 1];     // the element before each warp's first
+  __shared__ unsigned s_ticket;
+  __shared__ T s_carry;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
+    const unsigned t = atomicAdd(w.counter, 1u);
+    if (t == w.total - 1) atomicExch(w.counter, 0u);   // the last ticket
+    s_ticket = t;
+  }
+  __syncthreads();
+  const long long d = s_ticket;
+  const long long row = d / w.tiles_per_row;
+  const long long k_in_row = d - row * w.tiles_per_row;
+  const long long row_first = row * w.tiles_per_row;
+  const long long tile = REV ? w.tiles_per_row - 1 - k_in_row : k_in_row;
+  const long long lo = tile * TILE;
+  const long long m = w.m;
+
+  // ---- the look-back warp: the carry, while the scan's warps load and
+  // scan (they publish the tile's aggregate without waiting for it)
+  if (warp == WARPS) {
+    // one round of loads, all issued at once: whether the tile's first
+    // element starts a segment, the slots of the tiles before, and the
+    // previous tile's last scan warp read again (where that warp holds a
+    // start its total is the previous tile's prefix, known without waiting
+    // for its block)
+    const bool need = !first_starts<T, IDS, REV>(w, lo);
+    const long long j = d - 1 - lane;
+    Window<T> win = read_window(w, j, j >= row_first);
+    T pv = T(0);
+    int pf = 0;
+    if (d > row_first)
+      rescan_last_warp<T, IDS, REV>(w, row, REV ? lo + TILE : lo - TILE,
+                                    lane, pv, pf);
+    T carry = T(0);
+    if (need) {
+      if (pf) {
+        carry = pv;
+      } else {
+        while (!fold_window(win, lane, carry))
+          win = read_window(w, j, j >= row_first);
+      }
+    }
+    if (lane == 0) s_carry = carry;
+    carry_sync();
+    return;
+  }
+
+  // this thread's chunk of ITEMS elements, in processing order
+  const int c = REV ? THREADS - 1 - tid : tid;
+
+  // ---- loads: values (and ids) into shared memory, mask bytes to registers
+  load_tile<T>(w.v + row * m, lo, m, sv, T(0));
+  unsigned nz = 0;        // mask: bit k = end[lo + 16 c + k] != 0
+  if (IDS) {
+    load_tile<int>(w.ids, lo, m, sid, 0);
+    if (tid == 0) {
+      const long long e = REV ? lo + TILE : lo - 1;   // before the first
+      edge[0] = (e >= 0 && e < m) ? w.ids[e] : 0;
+    }
+  } else {
+    const long long e0 = lo + (long long)c * ITEMS;
+    nz = load_mask(w.end + e0, m - e0);
+    if (!REV) {
+      if (lane == 31 && warp + 1 < WARPS) edge[warp + 1] = (nz >> 15) & 1u;
+      if (tid == 0) edge[0] = lo > 0 && w.end[lo - 1] != 0;
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  scan_sync();
+
+  // ---- this thread's items and start flags, in processing order
+  T x[ITEMS];
+  {
+    T y[ITEMS];
+    read_chunk<T>(sv, c, y);
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) x[k] = REV ? y[ITEMS - 1 - k] : y[k];
+  }
+  unsigned sb;            // bit k: item k starts a segment
+  if (IDS) {
+    int y[ITEMS], id[ITEMS];
+    read_chunk<int>(sid, c, y);
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) id[k] = REV ? y[ITEMS - 1 - k] : y[k];
+    int prev = __shfl_up_sync(FULL, id[ITEMS - 1], 1);
+    if (lane == 0)
+      prev = tid == 0 ? edge[0]
+                      : sid[pad<4>(REV ? c * ITEMS + ITEMS : c * ITEMS - 1)];
+    sb = id[0] != prev;
+#pragma unroll
+    for (int k = 1; k < ITEMS; ++k) sb |= (unsigned)(id[k] != id[k - 1]) << k;
+  } else if (REV) {
+    sb = __brev(nz) >> (32 - ITEMS);
+  } else {
+    unsigned prev = __shfl_up_sync(FULL, (nz >> 15) & 1u, 1);
+    if (lane == 0) prev = edge[warp];
+    sb = ((nz << 1) | prev) & 0xffffu;
+  }
+  sb = force_starts<REV>(sb, lo + (long long)c * ITEMS, m);
+
+  // ---- the thread's scan, then the warp's, then the block's
+  T acc;
+  int fl;
+  const unsigned seen = thread_scan(x, sb, acc, fl);
+  T iv = acc;
+  int ifl = fl;
   warp_scan(iv, ifl, lane);
-  // exclusive within the warp
   T xv = __shfl_up_sync(FULL, iv, 1);
   int xf = __shfl_up_sync(FULL, ifl, 1);
   if (lane == 0) {
@@ -93,212 +576,149 @@ __device__ __forceinline__ void block_exclusive(T v, int f, T* wv, int* wf,
   if (lane == 31) {
     wv[warp] = iv;
     wf[warp] = ifl;
+    // the last warp's total is the tile's trailing-segment total when it
+    // holds a start: publish the tile's prefix now
+    if (warp == WARPS - 1 && ifl) put(w.pre + 2 * d, iv, w.tag);
   }
-  __syncthreads();
+  scan_sync();
+
+  T tot = T(0);
+  int totf = 0;
   if (warp == 0) {
-    T a = lane < NWARPS ? wv[lane] : T(0);
-    int af = lane < NWARPS ? wf[lane] : 0;
+    T a = lane < WARPS ? wv[lane] : T(0);
+    int af = lane < WARPS ? wf[lane] : 0;
+    const int published = __shfl_sync(FULL, af, WARPS - 1);
     warp_scan(a, af, lane);
-    T ea = __shfl_up_sync(FULL, a, 1);
-    int eaf = __shfl_up_sync(FULL, af, 1);
-    const T tot = __shfl_sync(FULL, a, NWARPS - 1);
-    const int totf = __shfl_sync(FULL, af, NWARPS - 1);
-    __syncwarp();
-    if (lane < NWARPS) {
+    const T ea = __shfl_up_sync(FULL, a, 1);
+    const int eaf = __shfl_up_sync(FULL, af, 1);
+    tot = __shfl_sync(FULL, a, WARPS - 1);
+    totf = __shfl_sync(FULL, af, WARPS - 1);
+    if (lane < WARPS) {
       wv[lane] = lane == 0 ? T(0) : ea;
       wf[lane] = lane == 0 ? 0 : eaf;
     }
-    if (lane == 0) {
-      wv[NWARPS] = tot;
-      wf[NWARPS] = totf;
-    }
+    // a tile that holds a start knows its prefix; one that does not
+    // publishes its aggregate, and its prefix once the carry is known
+    if (lane == 0 && !published)
+      put(totf ? w.pre + 2 * d : w.agg + 2 * d, tot, w.tag);
   }
-  __syncthreads();
-  // warp prefix, then the thread's exclusive prefix within its warp
-  ex_v = xf ? xv : wv[warp] + xv;
-  agg_v = wv[NWARPS];
-  agg_f = wf[NWARPS];
+  carry_sync();                       // the carry is known
+  if (tid == 0 && !totf) put(w.pre + 2 * d, s_carry + tot, w.tag);
+
+  // ---- each element: its own prefix, after the thread's incoming one
+  const T ex = xf ? xv : wv[warp] + xv;
+  const int exf = xf | wf[warp];
+  const T inc = exf ? ex : s_carry + ex;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k)
+    if (!((seen >> k) & 1u)) x[k] = inc + x[k];
+  {
+    T y[ITEMS];
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) y[k] = REV ? x[ITEMS - 1 - k] : x[k];
+    write_chunk<T>(sv, c, y);
+  }
+  scan_sync();
+  store_tile<T>(w.out + row * m, lo, m, sv);
 }
 
-template <typename T, bool IDS>
-__global__ void __launch_bounds__(THREADS)
-    tile_scan(const T* __restrict__ v, const int* __restrict__ ids,
-              const int8_t* __restrict__ end, T* __restrict__ out,
-              T* __restrict__ tile_v, int* __restrict__ tile_f,
-              int* __restrict__ tile_first, long long n) {
-  __shared__ T sv[TILE + TILE / 32];
-  __shared__ unsigned char sf[TILE + TILE / 32];
-  __shared__ T wv[WARPS + 1];
-  __shared__ int wf[WARPS + 1];
-  __shared__ int first;
-
-  const long long base = (long long)blockIdx.x * TILE;
-  const int tid = threadIdx.x;
-  if (tid == 0) first = TILE;
-  __syncthreads();
-
-  // striped, coalesced load; past the end: value 0, a segment of its own
-  int my_first = TILE;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const int j = k * THREADS + tid;
-    const long long i = base + j;
-    T x = T(0);
-    int s = 1;
-    if (i < n) {
-      x = v[i];
-      if (i > 0) s = IDS ? (ids[i] != ids[i - 1]) : (end[i - 1] != 0);
-      if (s && j < my_first) my_first = j;
-    }
-    sv[padded(j)] = x;
-    sf[padded(j)] = (unsigned char)s;
-  }
-  if (my_first < TILE) atomicMin(&first, my_first);   // an int minimum
-  __syncthreads();
-
-  // each thread scans its ITEMS consecutive elements in order
-  T loc[ITEMS];
-  unsigned seen = 0;     // bit k: a start at or before item k
-  T acc = T(0);
-  int fl = 0;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const int j = tid * ITEMS + k;
-    const T x = sv[padded(j)];
-    const int s = sf[padded(j)];
-    acc = s ? x : acc + x;
-    fl |= s;
-    loc[k] = acc;
-    if (fl) seen |= 1u << k;
-  }
-
-  T ex_v, agg_v;
-  int agg_f;
-  block_exclusive<T, WARPS>(acc, fl, wv, wf, ex_v, agg_v, agg_f);
-
-  __syncthreads();          // every thread has read sv
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const T y = (seen >> k) & 1u ? loc[k] : ex_v + loc[k];
-    sv[padded(tid * ITEMS + k)] = y;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const int j = k * THREADS + tid;
-    const long long i = base + j;
-    if (i < n) out[i] = sv[padded(j)];
-  }
-  if (tid == 0) {
-    tile_v[blockIdx.x] = agg_v;
-    tile_f[blockIdx.x] = agg_f;
-    tile_first[blockIdx.x] = first;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(CARRY_THREADS)
-    carry_scan(const T* __restrict__ tile_v, const int* __restrict__ tile_f,
-               T* __restrict__ carry, int tiles) {
-  __shared__ T wv[CARRY_THREADS / 32 + 1];
-  __shared__ int wf[CARRY_THREADS / 32 + 1];
-  const int per = (tiles + CARRY_THREADS - 1) / CARRY_THREADS;
-  const int lo = threadIdx.x * per;
-  const int hi = min(lo + per, tiles);
-  T a = T(0);
-  int af = 0;
-  for (int t = lo; t < hi; ++t) {
-    const int f = tile_f[t];
-    a = f ? tile_v[t] : a + tile_v[t];
-    af |= f;
-  }
-  T ex_v, agg_v;
-  int agg_f;
-  block_exclusive<T, CARRY_THREADS / 32>(a, af, wv, wf, ex_v, agg_v, agg_f);
-  // carry[t] = the aggregate of tiles 0 .. t-1
-  T c = ex_v;
-  for (int t = lo; t < hi; ++t) {
-    carry[t] = c;
-    c = tile_f[t] ? tile_v[t] : c + tile_v[t];
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    carry_apply(T* __restrict__ out, const T* __restrict__ carry,
-                const int* __restrict__ tile_first, long long n) {
-  const int t = blockIdx.x + 1;         // tile 0 has no carry
-  const T c = carry[t];
-  const long long base = (long long)t * TILE;
-  const long long stop = min(base + (long long)tile_first[t], n);
-  for (long long i = base + threadIdx.x; i < stop; i += THREADS)
-    out[i] = out[i] + c;
-}
-
-inline long long tiles_of(long long n) { return (n + TILE - 1) / TILE; }
+inline long long tiles_of(long long m) { return (m + TILE - 1) / TILE; }
 
 inline size_t align256(size_t b) { return (b + 255) / 256 * 256; }
 
-// workspace: tile_v, carry (T each), tile_f, tile_first (int each), a tile
+template <typename T, bool IDS>
+constexpr size_t dyn_smem() {
+  return sizeof(T) * PADDED +
+         (IDS ? sizeof(int) * PADDED : 0);
+}
+
+template <typename T, bool IDS, bool REV>
+int launch(const Work<T>& w, unsigned blocks, cudaStream_t s) {
+  constexpr size_t bytes = dyn_smem<T, IDS>();
+  if (bytes > 48 * 1024) {      // float64 with ids
+    const cudaError_t e = cudaFuncSetAttribute(
+        scan_kernel<T, IDS, REV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  scan_kernel<T, IDS, REV><<<blocks, BLOCK, bytes, s>>>(w);
+  return (int)cudaGetLastError();
+}
+
+// workspace of `capacity` tiles: the counter, then an aggregate and a
+// prefix slot (16 bytes each) a tile
 template <typename T>
 int run(const void* v, const void* ids, const void* end, void* out, void* ws,
-        long long n, void* stream) {
-  if (n <= 0) return 0;
+        long long capacity, long long rows, long long m, int reverse,
+        unsigned epoch, void* stream) {
+  if (rows <= 0 || m <= 0) return 0;
   if ((ids == nullptr) == (end == nullptr)) return (int)cudaErrorInvalidValue;
-  const long long tiles = tiles_of(n);
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  char* w = (char*)ws;
-  T* tile_v = (T*)w;
-  w += align256(sizeof(T) * tiles);
-  T* carry = (T*)w;
-  w += align256(sizeof(T) * tiles);
-  int* tile_f = (int*)w;
-  w += align256(sizeof(int) * tiles);
-  int* tile_first = (int*)w;
+  if (epoch == 0 || epoch >= (1u << 30)) return (int)cudaErrorInvalidValue;
+  const long long tpr = tiles_of(m);
+  const long long tiles = rows * tpr;
+  if (tiles > 0x7fffffffLL || tiles > capacity)
+    return (int)cudaErrorInvalidValue;
+  char* p = (char*)ws;
+  Work<T> w;
+  w.v = (const T*)v;
+  w.ids = (const int*)ids;
+  w.end = (const int8_t*)end;
+  w.out = (T*)out;
+  w.counter = (unsigned*)p;
+  p += 256;
+  w.agg = (u64*)p;
+  p += align256(16 * capacity);
+  w.pre = (u64*)p;
+  w.m = m;
+  w.tiles_per_row = tpr;
+  w.total = (unsigned)tiles;
+  w.tag = epoch;
   cudaStream_t s = (cudaStream_t)stream;
-  if (ids != nullptr) {
-    tile_scan<T, true><<<(unsigned)tiles, THREADS, 0, s>>>(
-        (const T*)v, (const int*)ids, nullptr, (T*)out, tile_v, tile_f,
-        tile_first, n);
-  } else {
-    tile_scan<T, false><<<(unsigned)tiles, THREADS, 0, s>>>(
-        (const T*)v, nullptr, (const int8_t*)end, (T*)out, tile_v, tile_f,
-        tile_first, n);
-  }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || tiles == 1) return (int)e;
-  carry_scan<T><<<1, CARRY_THREADS, 0, s>>>(tile_v, tile_f, carry,
-                                            (int)tiles);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  carry_apply<T><<<(unsigned)(tiles - 1), THREADS, 0, s>>>(
-      (T*)out, carry, tile_first, n);
-  return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)tiles;
+  if (ids != nullptr)
+    return reverse ? launch<T, true, true>(w, blocks, s)
+                   : launch<T, true, false>(w, blocks, s);
+  return reverse ? launch<T, false, true>(w, blocks, s)
+                 : launch<T, false, false>(w, blocks, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of scratch memory a call on n elements of elem_bytes each needs.
-size_t segcumsum_workspace_bytes(long long n, int elem_bytes) {
-  const long long tiles = n > 0 ? tiles_of(n) : 0;
-  return 2 * align256((size_t)elem_bytes * tiles) +
-         2 * align256(sizeof(int) * tiles);
+// Elements a tile (the block's share of a row).
+int segcumsum_tile() { return TILE; }
+
+// Tiles a call on rows x m elements takes.
+long long segcumsum_tiles(long long rows, long long m) {
+  return rows > 0 && m > 0 ? rows * tiles_of(m) : 0;
 }
 
-// values and out (n,) contiguous on the current device; exactly one of ids
-// (int32, n) and end (int8, n) given, the other null; ws of
-// segcumsum_workspace_bytes(n, 4 or 8) bytes.  Launches on `stream` and
-// returns cudaGetLastError() (0 on success); does not synchronise.
+// Bytes of a workspace for calls of up to `capacity` tiles.  The caller
+// zeroes it once and keeps it: each call passes a new epoch.
+size_t segcumsum_workspace_bytes(long long capacity) {
+  return 256 + 2 * align256(16 * capacity);
+}
+
+// values and out (rows, m) contiguous on the current device; exactly one
+// of ids (int32, m) and end (int8, m) given, the other null, shared by
+// every row; reverse 0 or 1; ws of segcumsum_workspace_bytes(capacity)
+// bytes for capacity >= segcumsum_tiles(rows, m), zero at first use and
+// used by no other stream, with a new epoch in 1 .. 2^30 - 1 each call.
+// Launches one kernel on `stream` and returns cudaGetLastError() (0 on
+// success); does not synchronise.
 int segcumsum_f32(const void* values, const void* ids, const void* end,
-                  void* out, void* ws, long long n, void* stream) {
-  return run<float>(values, ids, end, out, ws, n, stream);
+                  void* out, void* ws, long long capacity, long long rows,
+                  long long m, int reverse, unsigned epoch, void* stream) {
+  return run<float>(values, ids, end, out, ws, capacity, rows, m, reverse,
+                    epoch, stream);
 }
 
 int segcumsum_f64(const void* values, const void* ids, const void* end,
-                  void* out, void* ws, long long n, void* stream) {
-  return run<double>(values, ids, end, out, ws, n, stream);
+                  void* out, void* ws, long long capacity, long long rows,
+                  long long m, int reverse, unsigned epoch, void* stream) {
+  return run<double>(values, ids, end, out, ws, capacity, rows, m, reverse,
+                     epoch, stream);
 }
 
 }  // extern "C"

@@ -39,7 +39,7 @@ widths `chip_smoke.py` measures (PERF.md).
 The CSR graph path (`fsw_embed_graph`) sorts every slice's projections
 within each recipient's segment and takes c with the segmented cumsum,
 kernel K3 on the card (ops/segcumsum.py), over all slices of a chunk in
-one call.
+one call of its row form.
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ import torch
 from .graph import Graph
 from .ops.fsw_rank import (fsw_rank_aggregate, fsw_rank_aggregate_cart,
                            fsw_rank_aggregate_proj, misfit)
-from .ops.segcumsum import segcumsum, segment_boundaries
+from .ops.segcumsum import segcumsum_rows, segment_boundaries
 from .ops.segment import segment_argsort, segment_sum
 
 # the widest bucket the JAX package routes to its rank kernels (its
@@ -591,14 +591,13 @@ def fsw_embed_graph(X, graph, projVecs, freqs, cfg: FSWConfig,
     Where the JAX package maps one slice at a time, a chunk of S_b slices
     goes at once: the projections are laid out as (S_b, E), each row
     sorted within the segments (recipients), and the cumsum of the sorted
-    weights is one K3 call over the S_b * E elements, its segments given
-    by the graph's E-long is_end mask repeated S_b times (sorting within a
-    segment leaves every edge in its segment).  Padded edges (weight 0,
+    weights is one K3 call over the (S_b, E) rows, every row scanned on its
+    own over the graph's E-long is_end mask (sorting within a segment
+    leaves every edge in its segment).  Padded edges (weight 0,
     sender 0, recipient R - 1) contribute exactly 0."""
     graph = graph.to(X.device)
     dt = X.dtype
     R = graph.num_recipients
-    E = graph.padded_num_edges
     dst = graph.dst
     w_sum, wn, pad_e = graph_weights(graph, cfg)
     is_end = segment_boundaries(dst)
@@ -615,8 +614,7 @@ def fsw_embed_graph(X, graph, projVecs, freqs, cfg: FSWConfig,
         order = segment_argsort(keys, dst)
         ps = torch.gather(keys, 1, order)
         ws = wn[order]
-        c = segcumsum(ws.reshape(-1).contiguous(),
-                      boundaries=is_end.repeat(S_b)).reshape(S_b, E)
+        c = segcumsum_rows(ws, is_end)
         c = c + pad_e * (ps > 0)
         if cfg.cartesian_mode:
             sd = _sinc_diff(ws[..., None], c[..., None], f_block)

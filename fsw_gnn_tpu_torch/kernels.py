@@ -87,6 +87,13 @@ def build(names) -> dict:
         return {n: _finish(n, s) for n, s in started.items() if s is not None}
 
 
+def build_log(name: str) -> str:
+    """The compiler log (ptxas' report included) saved beside the built
+    library of `csrc/<name>.cu`, or '' when it is not built."""
+    log = _target(name).with_suffix('.log')
+    return log.read_text() if log.exists() else ''
+
+
 def sources() -> list:
     """Names of every kernel source in the package."""
     return sorted(p.stem for p in CSRC.glob('*.cu'))

@@ -3,9 +3,11 @@ from .fsw_rank import (fsw_rank_aggregate, fsw_rank_aggregate_cart,
                        fsw_rank_aggregate_cart_plain,
                        fsw_rank_aggregate_plain, fsw_rank_aggregate_proj,
                        fsw_rank_aggregate_proj_plain)
-from .segcumsum import segcumsum, segcumsum_plain, segment_boundaries
+from .segcumsum import (segcumsum, segcumsum_plain, segcumsum_rows,
+                        segcumsum_rows_plain, segment_boundaries)
 
 __all__ = ['fsw_rank_aggregate', 'fsw_rank_aggregate_cart',
            'fsw_rank_aggregate_cart_plain', 'fsw_rank_aggregate_plain',
            'fsw_rank_aggregate_proj', 'fsw_rank_aggregate_proj_plain',
-           'segcumsum', 'segcumsum_plain', 'segment_boundaries']
+           'segcumsum', 'segcumsum_plain', 'segcumsum_rows',
+           'segcumsum_rows_plain', 'segment_boundaries']

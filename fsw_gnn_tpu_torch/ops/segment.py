@@ -18,7 +18,7 @@ import math
 
 import torch
 
-from .segcumsum import segcumsum, segment_boundaries
+from .segcumsum import segcumsum, segcumsum_rows, segment_boundaries
 
 
 def segment_cumsum(values, segment_ids, row_ptr=None,
@@ -28,7 +28,8 @@ def segment_cumsum(values, segment_ids, row_ptr=None,
 
     method='restart' (default): restarted at every segment start, the
     rounding error about eps times the segment's prefix (K3 on the card;
-    any trailing dimensions are laid out as columns of one flat call).
+    any trailing dimensions are laid out as rows of one call of its row
+    form over the shared is_end mask).
     method='global': one global cumsum minus each segment's exclusive
     prefix at its start, the error about eps times the global prefix."""
     n = values.shape[0]
@@ -36,10 +37,9 @@ def segment_cumsum(values, segment_ids, row_ptr=None,
         if values.dim() == 1:
             return segcumsum(values.contiguous(), segment_ids)
         k = math.prod(values.shape[1:])
-        cols = values.reshape(n, k).t().contiguous().reshape(-1)
-        mask = segment_boundaries(segment_ids).repeat(k)
-        out = segcumsum(cols, boundaries=mask)
-        return out.reshape(k, n).t().reshape(values.shape)
+        cols = values.reshape(n, k).t().contiguous()
+        out = segcumsum_rows(cols, segment_boundaries(segment_ids))
+        return out.t().reshape(values.shape)
     if method != 'global':
         raise ValueError(f"method must be 'restart' or 'global', "
                          f"got {method!r}")

@@ -405,40 +405,120 @@ def _segments(rng, n, avg):
     return np.sort(rng.integers(0, max(n // avg, 1), n)).astype(np.int32)
 
 
-def _k3_close(got, values, ids):
+def _k3_close(got, values, ids, reverse=False):
     """Per element |kernel - plain| <= 8 eps (the segment's prefix of
-    |v|): both restart at every segment, so each error is a few roundings
-    of partial sums no larger than that prefix."""
-    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum_plain
-    want = segcumsum_plain(values, ids)
-    prefix = segcumsum_plain(values.abs().double(), ids)
+    |v|, its suffix in reverse): both restart at every segment, so each
+    error is a few roundings of partial sums no larger than that prefix.
+    values (n,) or (rows, n) over the ids (n,)."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import (segcumsum_rows_plain,
+                                                 segment_boundaries)
+    mask = segment_boundaries(ids)
+    v = values.reshape(-1, values.shape[-1])
+    want = segcumsum_rows_plain(v, mask, reverse=reverse)
+    prefix = segcumsum_rows_plain(v.abs().double(), mask, reverse=reverse)
     eps = torch.finfo(values.dtype).eps
-    err = (got.double() - want.double()).abs()
+    err = (got.reshape(v.shape).double() - want.double()).abs()
     assert bool(torch.all(err <= 8 * eps * prefix)), float(
         (err / prefix.clamp(min=1e-300)).max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('n,avg', [(1, 1), (1000, 27), (2048, 2048),
-                                   (2049, 7), (70000, 14000), (4096, 1),
-                                   (1 << 20, 32), (1 << 20, 4096)])
-@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-def test_segcumsum_kernel_matches_plain(cuda_device, n, avg, dtype):
-    """K3 with the ids and with the mask against the plain version, across
-    tile edges, singletons and segments spanning many tiles; the kernel
-    gives the same bits twice and counts one launch a call."""
-    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum, segment_boundaries
-    rng = np.random.default_rng(n + avg)
-    ids = torch.from_numpy(_segments(rng, n, avg)).to(cuda_device)
-    v = torch.from_numpy(rng.standard_normal(n)).to(cuda_device, dtype)
+def _k3_calls(v, ids, reverse):
+    """K3 on v (rows, n) three times: with the ids, again, and with the
+    mask; forward through the public wrappers, reverse through the
+    launcher the backward uses."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import (_run, segcumsum,
+                                                 segcumsum_rows,
+                                                 segment_boundaries)
+    mask = segment_boundaries(ids)
+    if reverse:
+        return [_run(v, ids, None, True), _run(v, ids, None, True),
+                _run(v, None, mask, True)]
+    if v.shape[0] == 1:
+        return [segcumsum(v[0], ids)[None], segcumsum(v[0], ids)[None],
+                segcumsum(v[0], boundaries=mask)[None]]
+    return [_run(v, ids, None, False), _run(v, ids, None, False),
+            segcumsum_rows(v, mask)]
+
+
+def _k3_check(v, ids, reverse):
+    """The same bits twice and by ids and by mask, one launch a call,
+    within 8 eps x prefix of the plain version, and bit for bit the numpy
+    emulation of the kernel's order (its first two rows, at small n)."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum
+    from test_torch_segcumsum_order import _bits, emulate
     before = segcumsum.launches
-    got = segcumsum(v, ids)
-    again = segcumsum(v, ids)
-    by_mask = segcumsum(v, boundaries=segment_boundaries(ids))
+    got, again, by_mask = _k3_calls(v, ids, reverse)
     torch.cuda.synchronize()
     assert segcumsum.launches == before + 3
     assert torch.equal(got, again) and torch.equal(got, by_mask)
-    _k3_close(got, v, ids)
+    _k3_close(got, v, ids, reverse)
+    if v.shape[1] <= 1 << 20:
+        want = emulate(v[:2].cpu().numpy(), ids=ids.cpu().numpy(),
+                       reverse=reverse)
+        assert np.array_equal(_bits(got[:2].cpu().numpy()), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,avg', [(1, 1), (1000, 27), (2048, 2048),
+                                   (2049, 7), (4096, 4096), (4097, 4097),
+                                   (70000, 14000), (4096, 1), (65536, 65536),
+                                   (1 << 20, 32), (1 << 20, 4096),
+                                   (1 << 20, 1 << 20)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_segcumsum_kernel_matches_plain(cuda_device, n, avg, dtype,
+                                        reverse):
+    """K3 with the ids and with the mask against the plain version, forward
+    and reverse, across tile edges (a tile is 4096 elements: n = 1, a tile
+    and one more), singletons, and one segment over every tile (avg = n,
+    the longest look-back); the kernel gives the same bits twice, by ids
+    and by mask, the emulation's bits, and counts one launch a call."""
+    rng = np.random.default_rng(n + avg)
+    ids = torch.from_numpy(_segments(rng, n, avg)).to(cuda_device)
+    v = torch.from_numpy(rng.standard_normal((1, n))).to(cuda_device, dtype)
+    _k3_check(v, ids, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rows,m', [(127, 130944), (5, 4097), (3, 130943),
+                                    (2, 1), (9, 333), (4, 12288)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_segcumsum_rows_kernel_matches_plain(cuda_device, rows, m, dtype,
+                                             reverse):
+    """The row form over one shared mask: the CSR path's shape (127 slices
+    of the bench graph's 130944 padded edges, segments of about 16) and
+    ragged row lengths, whose rows start off 16-byte alignment (the
+    element-by-element loads)."""
+    rng = np.random.default_rng(rows * m)
+    ids = torch.from_numpy(_segments(rng, m, 16)).to(cuda_device)
+    v = torch.from_numpy(rng.standard_normal((rows, m))).to(cuda_device,
+                                                            dtype)
+    _k3_check(v, ids, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_segcumsum_rows_backward_is_one_reverse_launch(cuda_device, dtype):
+    """The row form's gradient: one launch of the reverse scan on the
+    cotangent as it lies, the same bits as a direct reverse call."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import (_run, segcumsum,
+                                                 segcumsum_rows,
+                                                 segment_boundaries)
+    rng = np.random.default_rng(7)
+    rows, m = 9, 30000
+    ids = torch.from_numpy(_segments(rng, m, 300)).to(cuda_device)
+    mask = segment_boundaries(ids)
+    g = torch.from_numpy(rng.standard_normal((rows, m))).to(cuda_device,
+                                                            dtype)
+    v = torch.from_numpy(rng.standard_normal((rows, m))).to(
+        cuda_device, dtype).requires_grad_(True)
+    before = segcumsum.launches
+    (segcumsum_rows(v, mask) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert segcumsum.launches == before + 2
+    assert torch.equal(v.grad, _run(g, None, mask, True))
+    _k3_close(v.grad, g, ids, reverse=True)
 
 
 @pytest.mark.cuda
