@@ -96,7 +96,12 @@ Phases (any failure exits non-zero before the last line is printed):
      against autograd through its plain version on the captured
      cotangent; the reverse call and the forward + backward with the edge
      weights' gradient timed, and a trace of the latter, whose kernels
-     must hold no flip and two K3 launches (the `CSR conv:` line);
+     must hold no flip and two K3 launches (the `CSR conv:` line); then
+     the scatter-free adjoints: the gradients of X, the slice vectors,
+     the frequencies and the edge weights from two calls must be the same
+     bits, and a trace of one backward alone must hold no scatter-add
+     kernel or op (`SCATTER_KERNELS`, `SCATTER_OPS`; its kernels printed
+     as `csr_bwd_kernels`);
  14. FSWGraphClassifier(64, (64, 64), 2, mlp_layers=3) on 256 graphs of
      64 nodes (in-degrees 4 or 8 by class), the convs on the CSR Graph and
      the readout on `readout_graph`: logits against the CPU, the first
@@ -150,12 +155,27 @@ Phases (any failure exits non-zero before the last line is printed):
  22. where K1's time goes (`k1_ab_phase`) on a served request, a bench
      step and Cora's layer 0: K1f's projection alone, K1b's step 1 alone
      and torch.matmul of the same product;
- 23. one JSON line listing the seven kernels with their launches, errors,
+ 23. the coherence minimizer (`coherence_phase`) on the card at Cora's
+     layer-0 frame, 2865 x 1433 in float64 from seed 0: the stages kept,
+     the iterations of each stage, the total time and the time an
+     iteration beside its bound (two products of 2 n^2 d operations at
+     the 67 TFLOP/s of float64 on the tensor cores), the coherence before
+     and after (it must fall), the rows unit within 1e-12; the card's
+     result against the CPU's at 127 x 64, within 1e-9;
+ 24. models with their default arguments (`defaults_phase`), whose
+     constructors run the minimizer on the card: FSWConv(64, 64) served
+     on the bench envelope (K1f), a request against a CPU copy; the
+     Trainer's FSWGNN on the Cora stand-in with minimize_slice_coherence
+     on, built (timed) and trained 5 steps at learning rate 1e-3, the
+     loss falling (K1f, K1b, K2f, K2b); FSWConv(64, 64, mlp_layers=0) (concat_self: the
+     coherence-minimized dim_reduct) forward on the bench graph against
+     its CPU copy;
+ 25. one JSON line listing the seven kernels with their launches, errors,
      times and bounds (the launches are those of the main-path runs 4, 6,
-     7, 8, 9, 10, 12-16, 18, 19 and 20 together; K2's times and bounds at
-     phase 8's shape, K3's at phase 12's, K4's at phase 17's with B = 32,
-     K4b's with with_dw);
- 24. the last line: {"ok": true, "device": {...}}.
+     7, 8, 9, 10, 12-16, 18, 19, 20 and 24 together; K2's times and
+     bounds at phase 8's shape, K3's at phase 12's, K4's at phase 17's
+     with B = 32, K4b's with with_dw);
+ 26. the last line: {"ok": true, "device": {...}}.
 
 Tolerances:
   * K1f against its plain version, both on the card in float32:
@@ -207,6 +227,11 @@ Tolerances:
     project features computed in another order on each side; their
     float32 projections differ by ulps, which swaps near-ties and jumps
     the gradient, so its gradients are compared in float64.
+  * the coherence minimizer, card against CPU in float64: 1e-9
+    elementwise.  Both run the same state machine; cuBLAS and the CPU
+    round the products in another order (about 1e-14 after the schedule
+    on the CPU against JAX), and every step decision falls alike.
+  * phase 24's outputs against the CPU: as the served output above.
 
 Bounds: the least time the card could take for a kernel's work, the
 largest of (bytes that must move) / 3.35 TB/s, (float32 operations
@@ -303,6 +328,13 @@ CITESEER_EPOCHS, CITESEER_LR = 10, 1e-3
 CITESEER_SUB_NODES, CITESEER_SUB_HUBS = 1024, 8
 ROUTE_DS, ROUTE_BENCH_S = (64, 128, 256, 512, 1024), 127
 CORA_D, CORA_S = 1433, 2865
+PEAK_F64_TC_OPS = 67e12
+COH_CHECK, COH_CPU_TOL, COH_UNIT_TOL = (127, 64), 1e-9, 1e-12
+DEFAULTS_REQUESTS, DEFAULTS_EPOCHS, DEFAULTS_LR = 8, 5, 1e-3
+SCATTER_KERNELS = ('indexing_backward', 'indexFunc', 'index_add',
+                   'scatter_add', 'ReduceAdd')
+SCATTER_OPS = ('aten::index_add', 'aten::index_add_', 'aten::scatter_add',
+               'aten::scatter_add_', 'aten::_index_put_impl_')
 
 
 def fail(msg):
@@ -1665,6 +1697,36 @@ def k3_phase(torch, dev, errs):
     return rows
 
 
+def backward_kernels(torch, forward):
+    """([[name, ms, calls]] of every kernel and copy on the card in a
+    torch.profiler trace of one backward of forward()'s result, costliest
+    first, names cut to 90 characters; and the kernels and host ops among
+    them that add by scattering (SCATTER_KERNELS, SCATTER_OPS)).  Fails
+    where the trace holds no device activity."""
+    from collections import defaultdict
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    loss = forward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    us, calls, bad = defaultdict(float), defaultdict(int), set()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us[e.name[:90]] += e.time_range.elapsed_us()
+            calls[e.name[:90]] += 1
+            if any(k in e.name for k in SCATTER_KERNELS):
+                bad.add(e.name[:90])
+        elif e.name in SCATTER_OPS:
+            bad.add(e.name)
+    if not us:
+        fail('the backward\'s trace holds no device activity')
+    rows = sorted(us.items(), key=lambda kv: -kv[1])
+    return [[k, v / 1e3, calls[k]] for k, v in rows], sorted(bad)
+
+
 def capture_k3_calls(run, cotangents=False):
     """Run `run()` with the CSR path's K3 entry point, the row form
     (`fsw_gnn_tpu_torch.embedding.segcumsum_rows`), wrapped; return one
@@ -1844,6 +1906,30 @@ def csr_conv_phase(torch, T, dev, counts, errs):
     t['csr_weight_fwd_bwd_busy_ms'] = busy
     t['csr_weight_fwd_bwd_top'] = kern[:8]
     t['csr_weight_k3_traced_per_call'] = k3_traced
+
+    # the scatter-free adjoints: every gradient (X, the slice vectors, the
+    # frequencies, the edge weights) twice, the same bits; a trace of the
+    # backward alone holds no scatter-add kernel and no scatter-add op
+    Xg = Xd.clone().requires_grad_(True)
+    emb = model.fsw_embed
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        Xg.grad = gw.weight.grad = None
+        loss_of(model(Xg, gw)).backward()
+        return [v.grad.clone() for v in (Xg, emb.proj_vecs, emb.freqs,
+                                         gw.weight)]
+    first, second = grads(), grads()
+    if not all(bool(torch.equal(a, b)) for a, b in zip(first, second)):
+        fail('CSR adjoints: two calls gave other gradient bits for dX, dV, '
+             'df or dw')
+    del first, second
+    t['csr_bwd_kernels'], bad = backward_kernels(
+        torch, lambda: loss_of(model(Xg, gw)))
+    if bad:
+        fail(f'CSR adjoints: the backward runs scatters: {bad}; its '
+             f'kernels: {t["csr_bwd_kernels"]}')
+    t['csr_grads_same_bits'] = True
     res = {'nodes': N_NODES, 'edges': e_real, 'padded_edges': E,
            'slices': S, 'k3_elements': S * E, 'k3_max_abs_err': e,
            'k3_backward_max_abs_err': e_b,
@@ -2495,6 +2581,7 @@ def citeseer_phase(torch, T, dev, counts, errs):
                                    p.grad, GRAD_RTOL, GRAD_ATOL_REL)
     res = {'dataset': data.name, 'nodes': data.num_nodes, 'features': d,
            'routes': routes, 'launches_k1f_k1b_k2f_k2b': got,
+           'subgraph_launches_k1f_k1b_k2f_k2b': sub,
            'epochs': out['epochs_run'], 'fit_s': fit_s,
            'seconds_per_epoch_fit': out['seconds'] / out['epochs_run'],
            'loss_first': losses[0], 'loss_first_cpu': loss0_cpu,
@@ -2635,6 +2722,190 @@ def k1_ab_phase(torch, dev, call_sets):
         print(f'  k1 ab {label}: ' + ', '.join(
             f'{k} {v:.4f} ms' for k, v in tot.items()), flush=True)
     print('k1 ab: ' + json.dumps(res), flush=True)
+
+
+def coherence_phase(torch, dev):
+    """Phase 23: the coherence minimizer on the card at Cora's layer-0
+    frame (CORA_S x CORA_D, float64, N(0, 1) from seed 0, rows
+    normalized): the stages kept and each stage's iterations, the total
+    time and the time an iteration beside its bound, the two products of
+    one iteration timed alone, the coherence before and after (it must
+    fall) and the rows unit within 1e-12, and a trace of the first stage
+    (its device-busy ms an iteration, its costliest kernels); then the
+    card's result against the CPU's at COH_CHECK in float64, within
+    1e-9."""
+    from fsw_gnn_tpu_torch.ops.coherence import (
+        _STEP_INIT, P_SCHEDULE, _minimize_p, gram_offdiag,
+        minimize_mutual_coherence, mutual_coherence)
+    f64 = torch.float64
+    X = torch.randn((CORA_S, CORA_D), generator=torch.Generator()
+                    .manual_seed(0), dtype=f64)
+    Xd = (X / torch.linalg.norm(X, dim=1, keepdim=True)).to(dev)
+    mu0 = mutual_coherence(Xd).item()
+    # minimize_mutual_coherence's loop, stage by stage (Xd's rows are unit)
+    stages = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    V, step = Xd, _STEP_INIT
+    for p in P_SCHEDULE:
+        V, step, it, kept = _minimize_p(V, p, step)
+        stages.append({'iterations': it, 'kept': kept})
+    torch.cuda.synchronize()
+    total_ms = 1e3 * (time.perf_counter() - t0)
+    mu1 = mutual_coherence(V).item()
+    iters = sum(st['iterations'] for st in stages)
+    unit_err = (torch.linalg.norm(V, dim=1) - 1).abs().max().item()
+    if not (mu1 < mu0 and unit_err <= COH_UNIT_TOL):
+        fail(f'coherence: mu {mu0} -> {mu1}, rows off unit by {unit_err}')
+    G = gram_offdiag(V)
+    products_ms, _ = device_ms(torch, lambda: (G @ V, V @ V.t()), 5)
+    # where an iteration's time goes: a trace of the first stage
+    iters0 = []
+
+    def stage0():
+        iters0.append(_minimize_p(Xd, P_SCHEDULE[0], _STEP_INIT)[2])
+    busy0, top0 = traced_top_kernels(torch, stage0, 1, top=6)
+    n, d = CORA_S, CORA_D
+    bound_ms = 1e3 * 2 * 2 * n * n * d / PEAK_F64_TC_OPS
+
+    m, k = COH_CHECK
+    Xs = torch.randn((m, k), generator=torch.Generator().manual_seed(1),
+                     dtype=f64)
+    got = minimize_mutual_coherence(Xs.to(dev)).cpu()
+    want = minimize_mutual_coherence(Xs)
+    cpu_err = (got - want).abs().max().item()
+    if not cpu_err <= COH_CPU_TOL:
+        fail(f'coherence: the card differs from the CPU at {m} x {k} by '
+             f'{cpu_err:.3e}')
+    res = {'frame': [n, d], 'dtype': 'float64', 'mu_before': mu0,
+           'mu_after': mu1, 'unit_row_max_err': unit_err,
+           'stages_kept': sum(st['kept'] for st in stages),
+           'iterations': iters,
+           'iterations_per_stage': [st['iterations'] for st in stages],
+           'kept_per_stage': [st['kept'] for st in stages],
+           'total_ms': total_ms, 'ms_per_iteration': total_ms / iters,
+           'bound_ms_per_iteration': bound_ms,
+           'products_ms_per_iteration': products_ms,
+           'stage0_iterations': iters0[-1],
+           'stage0_busy_ms_per_iteration': busy0 / iters0[-1],
+           'stage0_top_kernels_ms_per_stage': top0,
+           'cpu_check': [m, k], 'cpu_max_abs_err': cpu_err}
+    print('coherence: ' + json.dumps(res), flush=True)
+
+
+def defaults_phase(torch, T, dev, counts, errs):
+    """Phase 24: models with their default arguments, which minimize their
+    slice coherence on the card as they are built.  FSWConv(64, 64) served
+    through a GraphServer on the bench envelope (K1f), request 0 against a
+    CPU copy (its state_dict loaded); the Trainer's FSWGNN on the Cora
+    stand-in with minimize_slice_coherence=True (layer 0's frame 2865 x
+    1433), built and timed, then DEFAULTS_EPOCHS steps at learning rate
+    1e-3 with the loss falling (K1f, K1b, K2f, K2b; at the default 1e-2
+    the stand-in's loss climbs for the first steps); FSWConv(64, 64, mlp_layers=0) (the
+    coherence-minimized dim_reduct, concat_self) forward on the bench graph
+    against its CPU copy."""
+    from fsw_gnn_tpu_torch.data import load
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    res = {}
+
+    def fresh(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = T.FSWConv(D_IN, D_OUT, device=dev,
+                      generator=torch.Generator().manual_seed(0), **kw)
+        torch.cuda.synchronize()
+        build_ms = 1e3 * (time.perf_counter() - t0)
+        cpu = T.FSWConv(D_IN, D_OUT, minimize_slice_coherence=False,
+                        device='cpu', **kw)
+        cpu.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+        return m, cpu, build_ms
+
+    # FSWConv(64, 64) served
+    model, cpu_model, res['conv_build_ms'] = fresh()
+    res['conv_slice_mu'] = T.mutual_coherence(
+        model.fsw_embed.proj_vecs.detach()).item()
+    ref_ei, _ = simple_graph(0, N_NODES)
+    classes, class_rows = T.multi_envelope(
+        T.from_edge_index(ref_ei, N_NODES), N_NODES)
+    env = dict(classes=classes, class_rows=class_rows,
+               assume_uniform_w=True)
+    server = T.GraphServer(model, N_NODES, MAX_EDGES, device=dev, **env)
+    server.warmup(D_IN)
+    reqs = []
+    for i in range(DEFAULTS_REQUESTS):
+        ei, rng = simple_graph(70 + i, N_NODES)
+        reqs.append((ei, rng.standard_normal((N_NODES, D_IN))
+                     .astype(np.float32)))
+    R.fsw_rank_aggregate_proj.launches = 0
+    outs = [server.predict(ei, X) for ei, X in reqs]
+    torch.cuda.synchronize()
+    n_f = R.fsw_rank_aggregate_proj.launches
+    if n_f != len(classes) * len(reqs):
+        fail(f'defaults: K1f launched {n_f} times for {len(reqs)} '
+             f'requests of {len(classes)} classes')
+    counts['fsw_rank_fwdp'] += n_f
+    for out in outs:
+        if out.shape != (N_NODES, D_OUT) or not np.isfinite(out).all():
+            fail('defaults: a served output is not finite')
+    cpu_server = T.GraphServer(cpu_model, N_NODES, MAX_EDGES, device='cpu',
+                               **env)
+    res['served_cpu_max_rel_err'] = close_to_cpu(
+        torch, 'defaults: served FSWConv(64, 64)',
+        torch.from_numpy(outs[0]), torch.from_numpy(
+            cpu_server.predict(*reqs[0])), GRAD_RTOL, SERVE_ATOL_REL)
+    res['served_k1f_launches'] = n_f
+    del server, cpu_server, model, cpu_model
+
+    # the Trainer's FSWGNN, every coherence minimizer on
+    data = load('cora')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = T.Trainer(data, T.TrainConfig(hidden_dims=(64, 64),
+                                       learning_rate=DEFAULTS_LR,
+                                       minimize_slice_coherence=True),
+                   device=dev)
+    torch.cuda.synchronize()
+    res['trainer_build_ms'] = 1e3 * (time.perf_counter() - t0)
+    V0 = tr.model.convs[0].fsw_embed.proj_vecs.detach()
+    res['layer0_frame'] = list(V0.shape)
+    res['layer0_slice_mu'] = T.mutual_coherence(V0).item()
+    names = ('fsw_rank_aggregate_proj', 'fsw_rank_aggregate_proj_bwd',
+             'fsw_rank_aggregate', 'fsw_rank_aggregate_bwd')
+    for name in names:
+        getattr(R, name).launches = 0
+    losses = [tr.train_epoch() for _ in range(DEFAULTS_EPOCHS)]
+    torch.cuda.synchronize()
+    n = [getattr(R, name).launches for name in names]
+    if min(n) == 0 or any(k % DEFAULTS_EPOCHS for k in n):
+        fail(f'defaults: the Trainer launched K1f, K1b, K2f, K2b {n} times '
+             f'in {DEFAULTS_EPOCHS} steps')
+    for key, k in zip(('fsw_rank_fwdp', 'fsw_rank_bwdp', 'fsw_rank_fwd',
+                       'fsw_rank_bwd'), n):
+        counts[key] += k
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f'defaults: the Trainer\'s loss is not finite and falling: '
+             f'{losses}')
+    res['trainer_losses'] = losses
+    res['trainer_launches_k1f_k1b_k2f_k2b'] = n
+    del tr
+
+    # mlp_layers=0 with concat_self: the dim_reduct head
+    model, cpu_model, res['dim_reduct_build_ms'] = fresh(mlp_layers=0)
+    _, X, mt = bench_setup(torch, T)
+    R.fsw_rank_aggregate_proj.launches = 0
+    with torch.no_grad():
+        out = model(X.to(dev), mt.to(dev))
+        torch.cuda.synchronize()
+        n_f = R.fsw_rank_aggregate_proj.launches
+        want = cpu_model(X, mt)
+    if n_f != len(tables_of(mt)):
+        fail(f'defaults: mlp_layers=0 launched K1f {n_f} times')
+    counts['fsw_rank_fwdp'] += n_f
+    res['dim_reduct_shape'] = list(model.head.dim_reduct.shape)
+    res['dim_reduct_cpu_max_rel_err'] = close_to_cpu(
+        torch, 'defaults: mlp_layers=0', out, want, GRAD_RTOL,
+        SERVE_ATOL_REL)
+    print('defaults: ' + json.dumps(res), flush=True)
 
 
 def main():
@@ -2789,7 +3060,11 @@ def main():
                              'bench step': bench_calls,
                              "Cora's layer 0": cora_calls})
 
-    # ---- 23. kernels line, 24. last line ------------------------------------
+    # ---- 23. the coherence minimizer, 24. models with default arguments --
+    coherence_phase(torch, dev)
+    defaults_phase(torch, T, dev, counts, errs)
+
+    # ---- 25. kernels line, 26. last line ------------------------------------
     src = 'fsw_gnn_tpu_torch/csrc/'
     pallas = 'fsw_gnn_tpu/ops/fsw_rank_pallas.py:'
     line = {'kernels': [

@@ -23,7 +23,9 @@ from .graph import (Graph, MultiTable, NeighborTable, auto_layout,
 from .models import FSWGNN, FSWGraphClassifier, gnn_layer_conv
 from .modules import (FSWEmbedding, get_mutual_coherence,
                       spread_freqs_at_interval)
-from .params import bias_shape, generate_freqs, generate_proj_vecs
+from .ops.coherence import minimize_mutual_coherence, mutual_coherence
+from .params import (bias_shape, generate_freqs, generate_params,
+                     generate_proj_vecs)
 from .serving import GraphServer, multi_envelope
 from .train import TrainConfig, Trainer
 

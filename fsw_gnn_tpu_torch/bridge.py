@@ -50,6 +50,8 @@ def _targets(conv: FSWConv) -> dict:
     of the port module."""
     t = _embed_targets(conv.fsw_embed, ('fsw_embed',))
     head = conv.head
+    if hasattr(head, 'dim_reduct'):    # 'params' or 'fsw_fixed'
+        t[('head', 'dim_reduct')] = (head.dim_reduct, False)
     for i, layer in enumerate(head.dense):
         t[('head', f'dense_{i}', 'kernel')] = (layer.weight, True)
         if layer.bias is not None:

@@ -6,8 +6,9 @@
 Counterpart of the `train` subcommand of `fsw_gnn_tpu/cli.py`, on one
 device (the card unless --device says otherwise).  A dataset whose npz file
 is absent (FSW_DATA_DIR, else `data/`) runs on its size-matched synthetic
-stand-in.  Neighbor-sampled minibatch training (item 11 in ROADMAP.md) and
-more than one device (item 14) are not ported and raise; `bench`,
+stand-in.  Neighbor-sampled minibatch training ("Training, the rest" in
+ROADMAP.md) and more than one device ("Parallel and the distributed
+trainer") are not ported and raise; `bench`,
 `autotune` and `export` are not ported yet.
 """
 from __future__ import annotations
@@ -62,8 +63,8 @@ def cmd_train(args) -> int:
 
     if args.minibatch:
         raise NotImplementedError(
-            'minibatch training (train/minibatch.py, data/sampler.py, item '
-            '11 in ROADMAP.md) is not ported yet')
+            'minibatch training (train/minibatch.py, data/sampler.py; '
+            '"Training, the rest" in ROADMAP.md) is not ported yet')
     data = load(args.dataset)
     cfg = TrainConfig(
         hidden_dims=tuple(args.hidden), embed_dim=args.embed_dim,

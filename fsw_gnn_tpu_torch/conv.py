@@ -11,6 +11,8 @@ the same defaults:
   * MLP layer order Linear -> BatchNorm -> activation -> Dropout, with
     LeakyReLU(0.2) activations by default;
   * BatchNorm in train mode is flax's (`FlaxBatchNorm`);
+  * mlp_layers == 0 with concat_self reduces the dimension by a random
+    (out_channels, in) frame, coherence-minimized, in place of an MLP;
   * Dropout draws its mask from the `generator` the caller passes to
     `forward` (it cannot match JAX's random stream).
 The convolution consumes a prebuilt CSR Graph, NeighborTable or
@@ -29,6 +31,7 @@ from torch import nn
 from .device import resolve_device
 from .embedding import FSWConfig
 from .modules import FSWEmbedding
+from .ops.coherence import minimize_mutual_coherence
 from .registry import register_layer, register_pooling
 
 
@@ -101,7 +104,14 @@ class _MLPHead(nn.Module):
     """The post-aggregation head: `mlp_layers` Linear layers, each followed
     by optional BatchNorm, activation and Dropout.  Layer i is
     `dense[i]`; its BatchNorm is `bn[str(i)]`, its dropout rate
-    `rates[i]`."""
+    `rates[i]`.
+
+    With mlp_layers == 0 the head is `bn['final']` alone, after
+    `x @ dim_reduct.T` when concat_self: dim_reduct (out_channels, in_dim)
+    is drawn N(0, 1) in float64 on the CPU from `gen`, coherence-minimized
+    in float64 on `device` (None: the card) and cast to dtype; a parameter when
+    `learnable_dim_reduct`, else a buffer (the JAX package's 'fsw_fixed'
+    variable)."""
 
     def __init__(self, in_dim: int, out_channels: int, mlp_layers: int,
                  mlp_hidden_dim: int, bias: bool, mlp_init: Optional[str],
@@ -110,13 +120,10 @@ class _MLPHead(nn.Module):
                  batchnorm_final: bool, batchnorm_hidden: bool,
                  dropout_final: float, dropout_hidden: float,
                  concat_self: bool, gen: torch.Generator,
-                 dtype=torch.float32):
+                 learnable_dim_reduct: bool = True,
+                 dtype=torch.float32, device=None):
         super().__init__()
-        if mlp_layers == 0 and concat_self:
-            raise NotImplementedError(
-                'mlp_layers=0 with concat_self=True initializes its '
-                'dimensionality reduction with the coherence minimizer '
-                '(item 9 in ROADMAP.md), which is not ported yet')
+        device = resolve_device(device)
         if mlp_init is not None and mlp_init not in _MLP_INITS:
             raise ValueError(f'invalid mlp_init {mlp_init!r}')
         self.mlp_layers = mlp_layers
@@ -125,8 +132,18 @@ class _MLPHead(nn.Module):
         self.acts = []
         self.rates = []
         if mlp_layers == 0:
+            width = in_dim
+            if concat_self:
+                w = torch.randn((out_channels, in_dim), generator=gen,
+                                dtype=torch.float64)
+                w = minimize_mutual_coherence(w.to(device)).to(dtype)
+                if learnable_dim_reduct:
+                    self.dim_reduct = nn.Parameter(w)
+                else:
+                    self.register_buffer('dim_reduct', w)
+                width = out_channels
             if batchnorm_final:
-                self.bn['final'] = FlaxBatchNorm(in_dim, dtype=dtype)
+                self.bn['final'] = FlaxBatchNorm(width, dtype=dtype)
             return
         in_d = in_dim
         for i in range(mlp_layers):
@@ -150,6 +167,8 @@ class _MLPHead(nn.Module):
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         if self.mlp_layers == 0:
+            if hasattr(self, 'dim_reduct'):
+                x = x @ self.dim_reduct.t()
             return self.bn['final'](x) if 'final' in self.bn else x
         for i, layer in enumerate(self.dense):
             x = layer(x)
@@ -233,8 +252,9 @@ class FSWConv(nn.Module):
             minimize_slice_coherence=minimize_slice_coherence,
             enable_bias=bias and mlp_layers == 0,
         )
+        # built where it will live, so the coherence minimizers run there
         self.fsw_embed = FSWEmbedding(self.embed_cfg, dtype=dtype,
-                                      device='cpu', generator=gen)
+                                      device=device, generator=gen)
         head_in = embed_dim + (in_channels if concat_self
                                and self._self_features else 0)
         self.head = _MLPHead(
@@ -248,7 +268,9 @@ class FSWConv(nn.Module):
             batchnorm_final=batchnorm_final,
             batchnorm_hidden=batchnorm_hidden,
             dropout_final=dropout_final, dropout_hidden=dropout_hidden,
-            concat_self=concat_self, gen=gen, dtype=dtype)
+            concat_self=concat_self, gen=gen,
+            learnable_dim_reduct=learnable_embedding, dtype=dtype,
+            device=device)
         self.to(device)
 
     @classmethod

@@ -53,7 +53,8 @@ from .graph import Graph
 from .ops.fsw_rank import (fsw_rank_aggregate, fsw_rank_aggregate_cart,
                            fsw_rank_aggregate_proj, misfit)
 from .ops.segcumsum import segcumsum_rows, segment_boundaries
-from .ops.segment import segment_argsort, segment_sum
+from .ops.segment import (rows_gather, segment_expand, segment_lengths,
+                          segment_sort_fused, segment_sum)
 
 # the widest bucket the JAX package routes to its rank kernels (its
 # `RANK_AGGREGATE_MAX_BUCKET_NO_DW`): the kernels hold a whole row in a
@@ -567,15 +568,19 @@ def fsw_embed_graph_dense(X, W, projVecs, freqs, cfg: FSWConfig,
     return _finalize(emb, w_sum, cfg, bias, total_mass_scale)
 
 
-def graph_weights(graph, cfg: FSWConfig):
+def graph_weights(graph, cfg: FSWConfig, dst_len):
     """(w_sum (R,), wn (E,), pad_norm_e (E,)) of a CSR graph on X's device:
     each recipient's total mass, the edge weights normalized by their
     recipient's max(total, thresh), and the recipient's phantom mass per
-    edge."""
-    w_sum = segment_sum(graph.weight, graph.dst, graph.num_recipients)
+    edge.  `dst_len`: each recipient's edge count (diff of row_ptr)."""
+    dst = graph.dst
+    w_sum = segment_sum(graph.weight, dst, graph.num_recipients,
+                        lengths=dst_len)
     w_sum_padded = lowclamp(w_sum, cfg.total_mass_pad_thresh)
     pad_norm = lowclamp(cfg.total_mass_pad_thresh - w_sum, 0.0) / w_sum_padded
-    return w_sum, graph.weight / w_sum_padded[graph.dst], pad_norm[graph.dst]
+    return (w_sum,
+            graph.weight / segment_expand(w_sum_padded, dst, lengths=dst_len),
+            segment_expand(pad_norm, dst, lengths=dst_len))
 
 
 def fsw_embed_graph(X, graph, projVecs, freqs, cfg: FSWConfig,
@@ -594,12 +599,26 @@ def fsw_embed_graph(X, graph, projVecs, freqs, cfg: FSWConfig,
     weights is one K3 call over the (S_b, E) rows, every row scanned on its
     own over the graph's E-long is_end mask (sorting within a segment
     leaves every edge in its segment).  Padded edges (weight 0,
-    sender 0, recipient R - 1) contribute exactly 0."""
+    sender 0, recipient R - 1) contribute exactly 0.
+
+    As in the JAX package, no step backs up through a scatter: the
+    senders' gather (`rows_gather`, by the graph's src_order/src_sorted),
+    the fused sort, the per-recipient sums and the weights' expansion over
+    the edges each have a gather or a sorted segment-sum for backward
+    (ops/segment.py), so the gradients are the same bits from call to
+    call."""
     graph = graph.to(X.device)
     dt = X.dtype
     R = graph.num_recipients
     dst = graph.dst
-    w_sum, wn, pad_e = graph_weights(graph, cfg)
+    # the recipients' and the senders' run lengths, once for every chunk
+    dst_len = torch.diff(graph.row_ptr.long())
+    if graph.src_sorted is None:
+        src_sorted, src_order = torch.sort(graph.src, stable=True)
+    else:
+        src_sorted, src_order = graph.src_sorted, graph.src_order
+    src_len = segment_lengths(src_sorted, graph.num_nodes)
+    w_sum, wn, pad_e = graph_weights(graph, cfg, dst_len)
     is_end = segment_boundaries(dst)
     if cfg.d_edge > 0 and graph.edge_feat is None:
         raise ValueError('the graph has no edge features')
@@ -608,22 +627,21 @@ def fsw_embed_graph(X, graph, projVecs, freqs, cfg: FSWConfig,
         """V_block (S_b, d_in + d_edge); f_block (S_b,) or (F,)."""
         S_b = V_block.shape[0]
         # projections laid out (S_b, E), each slice's row contiguous
-        keys = (V_block[:, :cfg.d_in] @ X.t()).index_select(1, graph.src)
+        keys = rows_gather(graph.num_nodes, V_block[:, :cfg.d_in] @ X.t(),
+                           graph.src, src_order, src_sorted, dim=1,
+                           lengths=src_len)
         if cfg.d_edge > 0:
             keys = keys + V_block[:, cfg.d_in:] @ graph.edge_feat.to(dt).t()
-        order = segment_argsort(keys, dst)
-        ps = torch.gather(keys, 1, order)
-        ws = wn[order]
+        ps, ws = segment_sort_fused(keys, wn, dst)
         c = segcumsum_rows(ws, is_end)
         c = c + pad_e * (ps > 0)
         if cfg.cartesian_mode:
             sd = _sinc_diff(ws[..., None], c[..., None], f_block)
             terms = ps[..., None] * sd                          # (S_b, E, F)
-            out = terms.new_zeros((S_b, R) + terms.shape[2:]).index_add(
-                1, dst, terms)
+            out = segment_sum(terms, dst, R, 1, dst_len)
             return ((1.0 + f_block) * out).transpose(0, 1)      # (R, S_b, F)
         terms = ps * _sinc_diff(ws, c, f_block[:, None])
-        out = terms.new_zeros((S_b, R)).index_add(1, dst, terms)
+        out = segment_sum(terms, dst, R, 1, dst_len)
         return ((1.0 + f_block)[:, None] * out).t()             # (R, S_b)
 
     emb = _chunked(slices_block, projVecs, freqs, cfg, slice_chunk)
@@ -638,7 +656,8 @@ def fsw_embed_graph_batched(X, graphs, projVecs, freqs, cfg: FSWConfig,
     batch dims multiplying out to G; returns (*batch, R, d_out).
 
     The stack runs as one block-diagonal graph (node ids offset by g * n,
-    recipients by g * R), so every chunk of slices is still one K3 call."""
+    recipients by g * R, edges by g * E), so every chunk of slices is still
+    one K3 call."""
     batch_shape = tuple(X.shape[:-2])
     graphs = graphs.to(X.device)
     G = graphs.src.shape[0]
@@ -651,13 +670,17 @@ def fsw_embed_graph_batched(X, graphs, projVecs, freqs, cfg: FSWConfig,
     ef = graphs.edge_feat
     row_ptr = torch.cat([(graphs.row_ptr[:, :-1] + g * E).reshape(-1),
                          graphs.row_ptr.new_full((1,), G * E)])
+    # each graph's stable sort by sender, offset, is the flat graph's
+    order = {} if graphs.src_order is None else dict(
+        src_order=(graphs.src_order + g * E).reshape(-1),
+        src_sorted=(graphs.src_sorted + g * N).reshape(-1))
     flat = Graph(
         src=(graphs.src + g * N).reshape(-1),
         dst=(graphs.dst + g * R).reshape(-1),
         weight=graphs.weight.reshape(-1), row_ptr=row_ptr,
         in_degrees=graphs.in_degrees.reshape(-1),
         edge_feat=None if ef is None else ef.reshape(G * E, -1),
-        num_nodes=G * N, num_recipients=G * R, num_edges=G * E)
+        num_nodes=G * N, num_recipients=G * R, num_edges=G * E, **order)
     out = fsw_embed_graph(X.reshape(G * N, X.shape[-1]), flat, projVecs,
                           freqs, cfg, bias=bias,
                           total_mass_scale=total_mass_scale,

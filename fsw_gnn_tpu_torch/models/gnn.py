@@ -4,7 +4,8 @@ Counterpart of `fsw_gnn_tpu/models/gnn.py` for one device: `FSWGNN`, an
 N-layer node classifier of `FSWConv`s, and `FSWGraphClassifier`, a conv
 stack with FSW readout pooling and a linear head.  The edge-partitioned
 exchanges (`gather_fn`, `proj_gather_fn`) and cross-shard BatchNorm belong
-to the distributed trainer (item 14 in ROADMAP.md), not ported yet.
+to the distributed trainer ("Parallel and the distributed trainer" in
+ROADMAP.md), not ported yet.
 """
 from __future__ import annotations
 
@@ -19,8 +20,9 @@ from ..conv import FSWConv, FSWReadout, leaky_relu_02
 from ..device import resolve_device
 
 _DIST_TODO = ('the edge-partitioned exchanges (gather_fn, proj_gather_fn, '
-              'bn_axis_name) belong to the distributed trainer, item 14 in '
-              'ROADMAP.md, which is not ported yet')
+              'bn_axis_name) belong to the distributed trainer ("Parallel '
+              'and the distributed trainer" in ROADMAP.md), which is not '
+              'ported yet')
 
 
 class FSWGNN(nn.Module):
@@ -68,7 +70,7 @@ class FSWGNN(nn.Module):
         self.aggregate = aggregate
         self.dtype = dtype
         self.convs = nn.ModuleList(
-            gnn_layer_conv(self, i, generator=gen)
+            gnn_layer_conv(self, i, generator=gen, device=device)
             for i in range(len(self.hidden_dims)))
         self.to(device)
 
@@ -89,10 +91,11 @@ class FSWGNN(nn.Module):
 
 
 def gnn_layer_conv(model: FSWGNN, i: int, *,
-                   generator: Optional[torch.Generator] = None) -> FSWConv:
-    """The i-th layer's FSWConv of an FSWGNN, built on the CPU as the JAX
-    package's `gnn_layer_conv` builds it: the last layer has no
-    activation, no BatchNorm and no dropout."""
+                   generator: Optional[torch.Generator] = None,
+                   device=None) -> FSWConv:
+    """The i-th layer's FSWConv of an FSWGNN, built on `device` (None:
+    the card) as the JAX package's `gnn_layer_conv` builds it: the last
+    layer has no activation, no BatchNorm and no dropout."""
     d_in = model.in_channels if i == 0 else model.hidden_dims[i - 1]
     is_last = i == len(model.hidden_dims) - 1
     return FSWConv(
@@ -109,7 +112,7 @@ def gnn_layer_conv(model: FSWGNN, i: int, *,
         batchnorm_final=model.batchnorm and not is_last,
         dropout_final=0.0 if is_last else model.dropout,
         dtype=model.dtype,
-        device='cpu',
+        device=device,
         generator=generator)
 
 
@@ -138,12 +141,13 @@ class FSWGraphClassifier(nn.Module):
         rd = readout_dim or hidden_dims[-1]
         self.gnn = FSWGNN(in_channels, hidden_dims,
                           minimize_slice_coherence=minimize_slice_coherence,
-                          mlp_layers=mlp_layers, dtype=dtype, device='cpu',
+                          mlp_layers=mlp_layers, dtype=dtype, device=device,
                           generator=gen)
         self.readout = FSWReadout(
             hidden_dims[-1], rd, concat_self=False,
             minimize_slice_coherence=minimize_slice_coherence,
-            mlp_layers=mlp_layers, dtype=dtype, device='cpu', generator=gen)
+            mlp_layers=mlp_layers, dtype=dtype, device=device,
+            generator=gen)
         self.cls_head = nn.Linear(rd, num_classes, dtype=dtype)
         with torch.no_grad():
             # flax's lecun_normal: a normal truncated at two standard

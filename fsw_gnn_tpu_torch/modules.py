@@ -66,8 +66,11 @@ class FSWEmbedding(nn.Module):
 
         if cfg.out_dim == 0:
             return
-        put('proj_vecs', generate_proj_vecs(gen, cfg), cfg.learnable_slices)
-        put('freqs', generate_freqs(gen, cfg), cfg.learnable_freqs)
+        # the slice vectors' coherence minimizer runs on `device`
+        put('proj_vecs', generate_proj_vecs(gen, cfg, dtype, device),
+            cfg.learnable_slices)
+        put('freqs', generate_freqs(gen, cfg, dtype, device),
+            cfg.learnable_freqs)
         if cfg.enable_bias:
             put('bias', torch.zeros(bias_shape(cfg)), cfg.learnable_slices)
         if cfg.encode_total_mass:
@@ -105,8 +108,9 @@ class FSWEmbedding(nn.Module):
         if graph is not None:
             if proj_gather_fn is not None:
                 raise NotImplementedError(
-                    'proj_gather_fn (the distributed overlap exchange) is '
-                    'item 14 in ROADMAP.md, not ported yet')
+                    'proj_gather_fn (the distributed overlap exchange) '
+                    'belongs to "Parallel and the distributed trainer" in '
+                    'ROADMAP.md, not ported yet')
             if isinstance(graph, Graph):
                 return fsw_embed_graph(X, graph, self.proj_vecs, self.freqs,
                                        cfg, **kw)

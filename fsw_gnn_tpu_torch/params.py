@@ -3,9 +3,10 @@
 Counterpart of `fsw_gnn_tpu/params.py`: slice vectors are drawn N(0, 1)
 and row-normalized, frequencies follow one of four schemes, the bias
 starts at zero.  Values are drawn in float64 on the CPU (so a seed gives
-the same parameters on every device), then cast and moved.  The two
-packages draw different numbers from the same seed; the bridge
-(`bridge.py`) carries one package's parameters into the other.
+the same parameters on every device), then moved and cast; the slice
+vectors' coherence minimizer runs on the target device in float64, before
+the cast.  The two packages draw different numbers from the same seed; the
+bridge (`bridge.py`) carries one package's parameters into the other.
 """
 from __future__ import annotations
 
@@ -14,29 +15,32 @@ from typing import Tuple
 
 import torch
 
+from .device import resolve_device
 from .embedding import FSWConfig
+from .ops.coherence import minimize_mutual_coherence
 
 
 def generate_proj_vecs(generator: torch.Generator, cfg: FSWConfig,
-                       dtype=torch.float32, device='cpu') -> torch.Tensor:
-    """Row-normalized random slice vectors, (nSlices, d_in + d_edge)."""
-    if cfg.minimize_slice_coherence and cfg.nSlices > 1 and cfg.proj_dim > 0:
-        raise NotImplementedError(
-            'minimize_slice_coherence=True needs the coherence minimizer '
-            '(ops/coherence.py, item 9 in ROADMAP.md), which is not ported '
-            'yet: pass minimize_slice_coherence=False, or carry trained '
-            'weights across with bridge.fswconv_from_jax')
+                       dtype=torch.float32, device=None) -> torch.Tensor:
+    """Row-normalized random slice vectors, (nSlices, d_in + d_edge), on
+    `device` (None: the card), coherence-minimized (in float64, on
+    `device`) when cfg.minimize_slice_coherence."""
+    device = resolve_device(device)
     V = torch.randn((cfg.nSlices, cfg.proj_dim), generator=generator,
                     dtype=torch.float64)
-    V = V / torch.linalg.norm(V, dim=1, keepdim=True)
-    return V.to(device=device, dtype=dtype)
+    V = (V / torch.linalg.norm(V, dim=1, keepdim=True)).to(device)
+    if cfg.minimize_slice_coherence and cfg.nSlices > 1 and cfg.proj_dim > 0:
+        V = minimize_mutual_coherence(V)
+    return V.to(dtype)
 
 
 def generate_freqs(generator: torch.Generator, cfg: FSWConfig,
-                   dtype=torch.float32, device='cpu') -> torch.Tensor:
-    """Frequency initialization: a constant, an equispaced interval,
-    'random' (i.i.d. with density 1/(1+x)^2, sorted) or 'spread' (the
-    equi-probability quantiles of that density)."""
+                   dtype=torch.float32, device=None) -> torch.Tensor:
+    """Frequency initialization, on `device` (None: the card): a
+    constant, an equispaced interval, 'random' (i.i.d. with density
+    1/(1+x)^2, sorted) or 'spread' (the equi-probability quantiles of that
+    density)."""
+    device = resolve_device(device)
     f64 = torch.float64
     nF = cfg.nFreqs
     fi = cfg.freqs_init
@@ -71,3 +75,24 @@ def bias_shape(cfg: FSWConfig) -> Tuple[int, ...]:
     if cfg.cartesian_mode and cfg.collapse_freqs:
         return (cfg.nSlices * cfg.nFreqs + cfg.total_mass_dim,)
     return (cfg.nSlices + cfg.total_mass_dim,)
+
+
+def generate_params(generator: torch.Generator, cfg: FSWConfig,
+                    dtype=torch.float32, device=None) -> dict:
+    """Every parameter of one FSW embedding, as a dict of tensors on
+    `device` (None: the card): proj_vecs, freqs, and bias and
+    total_mass_scale where the configuration has them.  The generator is
+    drawn from in this order: the slice vectors first, then the
+    frequencies."""
+    device = resolve_device(device)
+    params = {
+        'proj_vecs': generate_proj_vecs(generator, cfg, dtype, device),
+        'freqs': generate_freqs(generator, cfg, dtype, device),
+    }
+    if cfg.enable_bias:
+        params['bias'] = torch.zeros(bias_shape(cfg), dtype=dtype,
+                                     device=device)
+    if cfg.encode_total_mass:
+        params['total_mass_scale'] = torch.tensor(
+            cfg.total_mass_encoding_scale, dtype=dtype, device=device)
+    return params

@@ -18,7 +18,8 @@ CSR graph [src, dst, row_ptr, src_order, src_sorted | weight, in_degrees,
 edge_feat | X].  The device side takes it apart with slices and
 `Tensor.view(dtype)` bit views, so no value is converted on the wire.
 
-Not ported yet (ROADMAP.md item 13): export_forward / load_forward, the
+Not ported yet ("The kernels as torch custom ops, CUDA graphs, and the
+rest of serving" in ROADMAP.md): export_forward / load_forward, the
 'triple' transfer layout, bf16 floats and uint16 index packing.
 """
 from __future__ import annotations
@@ -71,8 +72,10 @@ class GraphServer:
                  classes=None, class_rows=None,
                  assume_uniform_w: bool = False, device=None):
         if dtype != torch.float32:
-            raise NotImplementedError('only the float32 carrier is ported '
-                                      '(bf16 is item 13 in ROADMAP.md)')
+            raise NotImplementedError(
+                'only the float32 carrier is ported (bf16 belongs to "The '
+                'kernels as torch custom ops, CUDA graphs, and the rest of '
+                'serving" in ROADMAP.md)')
         if (classes is None) != (class_rows is None):
             raise ValueError('pass classes and class_rows together (see '
                              'multi_envelope)')

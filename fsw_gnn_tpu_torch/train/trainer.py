@@ -13,8 +13,9 @@ Counterpart of the single-device path of `fsw_gnn_tpu/train/trainer.py`
     metrics, and a `torch.profiler` trace for performance work.
 
 The graph is built once on the host and moved to the device; one optimizer
-step per epoch.  `num_devices > 1` (the edge-partitioned trainer, item 14 in
-ROADMAP.md) and `eval_node_chunk` (layer-wise inference, item 11) raise.
+step per epoch.  `num_devices > 1` (the edge-partitioned trainer,
+"Parallel and the distributed trainer" in ROADMAP.md) and
+`eval_node_chunk` (layer-wise inference, "Training, the rest") raise.
 """
 from __future__ import annotations
 
@@ -55,13 +56,13 @@ class TrainConfig:
     batchnorm: bool = False
     slice_chunk: Optional[int] = None       # serialize slices to cap memory
     seed: int = 0
-    num_devices: Optional[int] = None       # > 1: not ported (item 14)
+    num_devices: Optional[int] = None       # > 1: not ported
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 50
     auto_resume: bool = True                # fit() restores the latest
                                             # checkpoint in checkpoint_dir
     metrics_path: Optional[str] = None      # per-epoch metrics as JSON lines
-    eval_node_chunk: Optional[int] = None   # not ported (item 11)
+    eval_node_chunk: Optional[int] = None   # not ported
     trace_dir: Optional[str] = None         # torch.profiler trace output
 
 
@@ -118,12 +119,14 @@ class Trainer:
                  *, device=None, model: Optional[FSWGNN] = None):
         if config.num_devices and config.num_devices > 1:
             raise NotImplementedError(
-                'num_devices > 1 needs the edge-partitioned trainer (item 14 '
-                'in ROADMAP.md), which is not ported yet')
+                'num_devices > 1 needs the edge-partitioned trainer '
+                '("Parallel and the distributed trainer" in ROADMAP.md), '
+                'which is not ported yet')
         if config.eval_node_chunk:
             raise NotImplementedError(
-                'eval_node_chunk needs layer-wise inference (train/infer.py, '
-                'item 11 in ROADMAP.md), which is not ported yet')
+                'eval_node_chunk needs layer-wise inference (train/infer.py; '
+                '"Training, the rest" in ROADMAP.md), which is not ported '
+                'yet')
         self.data = data
         self.cfg = config
         self.device = resolve_device(device)

@@ -189,8 +189,13 @@ def test_unported_routes_raise():
     got = wide(X, T.to_multi_table(g), aggregate='rank')
     assert got.shape == (16, 4) and torch.isfinite(got).all()
     assert wide(X, T.to_multi_table(g)).shape == (16, 4)   # 'auto': K2
-    with pytest.raises(NotImplementedError, match='item 9'):
-        T.FSWConv(4, 4, device='cpu')           # coherence minimizer
+    # the default minimize_slice_coherence=True builds: the same draws as
+    # `conv`'s, coherence-minimized
+    default = T.FSWConv(4, 4, device='cpu')
+    with torch.no_grad():
+        assert torch.isfinite(default(X, g)).all()
+    assert (T.get_mutual_coherence(default.fsw_embed.proj_vecs.detach())
+            < T.get_mutual_coherence(conv.fsw_embed.proj_vecs.detach()))
 
 
 def test_generated_params_and_registry():
