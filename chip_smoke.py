@@ -170,12 +170,38 @@ Phases (any failure exits non-zero before the last line is printed):
      loss falling (K1f, K1b, K2f, K2b); FSWConv(64, 64, mlp_layers=0) (concat_self: the
      coherence-minimized dim_reduct) forward on the bench graph against
      its CPU copy;
- 25. one JSON line listing the seven kernels with their launches, errors,
+ 25. K3 in CUDA graphs (`k3_graph_phase`): two graphs captured on one
+     stream (one K3 workspace), the flat scan on 2^24 values and the row
+     form at the CSR call's shape, replayed in turns on two inputs each,
+     every replay the eager call's bits, no launch counted at capture;
+     eager call and replay timed (`K3 graphs:` line);
+ 26. the headline server through its graphs (`graph_server_phase`): the
+     bench FSWConv behind a graph server and an eager one
+     (cuda_graphs=False), with phase 4's envelope and without classes
+     (the CSR route); each route's warm-up and capture under sync debug
+     mode 'error'; `warmup` 2 (1), its eager warm-up's K1f and K3
+     launches counted; 50 requests of 4096-8192 nodes (20 on the CSR
+     server) leave `num_compiles()` as it was and launch nothing from
+     Python; then both servers take the requests in turns: outputs
+     against the eager server's (bit for bit, or the largest difference),
+     p50 and p90 eager against graph; the full-size request's forward,
+     device and host-enqueue time and a kernel trace, eager against one
+     replay, and the smallest request's replay (`graph server:` line);
+ 27. the other layouts (`dtype_server_phase`): a bfloat16 server at the
+     headline envelope beside a float32 one (the largest difference
+     relative to the float32 scale, wire bytes a request); at Cora's
+     envelope (2708 nodes, 10556 edges) uint16 indices against int32 ones
+     bit for bit, and bfloat16 with uint16 (`dtype servers:` line);
+ 28. export on the card (`export_phase`): the bench FSWConv closed over
+     the bench graph in the `multi` layout and as a CSR Graph, saved,
+     loaded and called (K1f or K3 through their ops), against the eager
+     module and timed beside it (`export:` line);
+ 29. one JSON line listing the seven kernels with their launches, errors,
      times and bounds (the launches are those of the main-path runs 4, 6,
-     7, 8, 9, 10, 12-16, 18, 19, 20 and 24 together; K2's times and
-     bounds at phase 8's shape, K3's at phase 12's, K4's at phase 17's
-     with B = 32, K4b's with with_dw);
- 26. the last line: {"ok": true, "device": {...}}.
+     7, 8, 9, 10, 12-16, 18, 19, 20, 24, 26, 27 and 28 together; K2's
+     times and bounds at phase 8's shape, K3's at phase 12's, K4's at
+     phase 17's with B = 32, K4b's with with_dw);
+ 30. the last line: {"ok": true, "device": {...}}.
 
 Tolerances:
   * K1f against its plain version, both on the card in float32:
@@ -232,6 +258,13 @@ Tolerances:
     round the products in another order (about 1e-14 after the schedule
     on the CPU against JAX), and every step decision falls alike.
   * phase 24's outputs against the CPU: as the served output above.
+  * phases 25-28: K3's replays and the uint16 server against their eager
+    or int32 twins bit for bit; the graph server and the artifact against
+    the eager server and module within 1e-4 of the output's scale (the
+    same kernels and products on the same inputs: bit for bit is
+    expected, and printed); the bfloat16 servers' difference from float32
+    is printed, not bounded (bfloat16 features and weights, about 3
+    significant digits, through phases up to f = 253).
 
 Bounds: the least time the card could take for a kernel's work, the
 largest of (bytes that must move) / 3.35 TB/s, (float32 operations
@@ -285,6 +318,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -331,6 +365,9 @@ CORA_D, CORA_S = 1433, 2865
 PEAK_F64_TC_OPS = 67e12
 COH_CHECK, COH_CPU_TOL, COH_UNIT_TOL = (127, 64), 1e-9, 1e-12
 DEFAULTS_REQUESTS, DEFAULTS_EPOCHS, DEFAULTS_LR = 8, 5, 1e-3
+K3G_REPLAYS = 3
+GRAPH_REQUESTS, GRAPH_CSR_REQUESTS, BF16_REQUESTS = 50, 20, 10
+CORA_NODES, CORA_EDGES = 2708, 10556     # Cora's published graph
 SCATTER_KERNELS = ('indexing_backward', 'indexFunc', 'index_add',
                    'scatter_add', 'ReduceAdd')
 SCATTER_OPS = ('aten::index_add', 'aten::index_add_', 'aten::scatter_add',
@@ -811,9 +848,12 @@ def serve_and_check_k1f(torch, T, dev, model, counts, errs):
         T.from_edge_index(ref_ei, N_NODES), N_NODES)
     print(f'envelope: classes {classes} rows {class_rows}; slices '
           f'{cfg.nSlices}, feature width {cfg.proj_dim}')
+    # eager (cuda_graphs=False): this phase counts each request's launches
+    # and captures the rank calls, which a graph's replay does not pass
+    # through; phase 26 serves the same model through the graphs
     server = T.GraphServer(model, N_NODES, MAX_EDGES, classes=classes,
                            class_rows=class_rows, assume_uniform_w=True,
-                           device=dev)
+                           cuda_graphs=False, device=dev)
 
     def request(seed, n):
         ei, rng = simple_graph(seed, n)
@@ -913,11 +953,13 @@ def serve_and_check_k1f(torch, T, dev, model, counts, errs):
             mt = T.to_multi_table(g, classes=classes, class_rows=class_rows)
             Xp = np.zeros((N_NODES, D_IN), np.float32)
             Xp[:] = seq[0][1]
-            host = server._pack(mt, Xp)
+            host, = server._pack(mt, Xp)
         host_ms = 1e3 * (time.perf_counter() - t0) / 5
         h2d_ms, _ = device_ms(
             torch, lambda: host.to(dev, non_blocking=True), 10)
-        Xd, mtd = server._unpack(host.to(dev))
+        buf = host.to(dev)
+        Xd = server._unpack_x(buf, server._li, server._lf)
+        mtd = server._unpack(*server._split(buf, server._li, server._lf))
         fwd_ms, fwd_host_ms = device_ms(torch, lambda: model(Xd, mtd), 10)
     p50_ms = 1e3 * float(np.median(latencies))
     main = {
@@ -2083,7 +2125,10 @@ def csr_server_phase(torch, T, dev, model, counts):
     size every in-degree-16 row fits the envelope's class rows.  Outputs
     against the same servers on the CPU, K3 launched once a CSR request."""
     from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum
-    server = T.GraphServer(model, N_NODES, MAX_EDGES, device=dev)
+    # eager: K3's launches are counted a request (phase 26 serves the CSR
+    # route through its graph)
+    server = T.GraphServer(model, N_NODES, MAX_EDGES, cuda_graphs=False,
+                           device=dev)
     cpu_server = T.GraphServer(copy.deepcopy(model), N_NODES, MAX_EDGES,
                                device='cpu')
     server.warmup(D_IN)
@@ -2117,7 +2162,8 @@ def csr_server_phase(torch, T, dev, model, counts):
     classes, class_rows = T.multi_envelope(
         T.from_edge_index(ref_ei, N_NODES), N_NODES)
     env = dict(classes=classes, class_rows=class_rows, assume_uniform_w=True)
-    cls_server = T.GraphServer(model, N_NODES, MAX_EDGES, device=dev, **env)
+    cls_server = T.GraphServer(model, N_NODES, MAX_EDGES, cuda_graphs=False,
+                               device=dev, **env)
     cls_cpu = T.GraphServer(copy.deepcopy(model), N_NODES, MAX_EDGES,
                             device='cpu', **env)
     for label, req, counter in (
@@ -2829,7 +2875,8 @@ def defaults_phase(torch, T, dev, counts, errs):
         T.from_edge_index(ref_ei, N_NODES), N_NODES)
     env = dict(classes=classes, class_rows=class_rows,
                assume_uniform_w=True)
-    server = T.GraphServer(model, N_NODES, MAX_EDGES, device=dev, **env)
+    server = T.GraphServer(model, N_NODES, MAX_EDGES, cuda_graphs=False,
+                           device=dev, **env)
     server.warmup(D_IN)
     reqs = []
     for i in range(DEFAULTS_REQUESTS):
@@ -2906,6 +2953,377 @@ def defaults_phase(torch, T, dev, counts, errs):
         torch, 'defaults: mlp_layers=0', out, want, GRAD_RTOL,
         SERVE_ATOL_REL)
     print('defaults: ' + json.dumps(res), flush=True)
+
+
+def _strict(torch, fn):
+    """fn with torch's sync debug mode at 'error' while it runs: any host
+    synchronisation inside it (a read of a device value, a blocking copy)
+    raises instead of passing unseen."""
+    def run(*args):
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            return fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return run
+
+
+def k3_graph_phase(torch, T, dev):
+    """Phase 25: K3 replayed in CUDA graphs.  Two graphs captured on one
+    stream, so they share its K3 workspace: the flat scan on 2^24 values
+    (mask, segments of about 32) and the row form at the CSR call's shape
+    (127 rows of the bench graph's padded edges over its mask), each over
+    a static input.  They are replayed alternately, each on two different
+    inputs in turn, K3G_REPLAYS rounds; every output must be the eager
+    call's bits.  The captures run under sync debug mode 'error' and count
+    no launch.  Returns a summary."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import (segcumsum, segcumsum_rows,
+                                                 segment_boundaries)
+    rng = np.random.default_rng(40)
+    ids = np.sort(rng.integers(0, K3_N // 32, K3_N)).astype(np.int32)
+    mask = segment_boundaries(torch.from_numpy(ids).to(dev))
+    g = T.from_edge_index(simple_graph(0, N_NODES)[0], N_NODES)
+    rmask = segment_boundaries(torch.from_numpy(g.dst).to(dev))
+    m = rmask.shape[0]
+    flat = [torch.from_numpy(rng.standard_normal(K3_N).astype(np.float32))
+            .to(dev) for _ in range(2)]
+    rows = [torch.from_numpy(rng.standard_normal((127, m))
+                             .astype(np.float32)).to(dev) for _ in range(2)]
+    flat_want = [segcumsum(v, boundaries=mask) for v in flat]
+    rows_want = [segcumsum_rows(v, rmask) for v in rows]
+    sf, sr = flat[0].clone(), rows[0].clone()
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):      # the stream's workspace, made here
+        segcumsum(sf, boundaries=mask)
+        segcumsum_rows(sr, rmask)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    g1, g2 = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    before = segcumsum.launches
+    with torch.cuda.graph(g1, stream=stream):
+        o1 = _strict(torch, lambda: segcumsum(sf, boundaries=mask))()
+    with torch.cuda.graph(g2, stream=stream):
+        o2 = _strict(torch, lambda: segcumsum_rows(sr, rmask))()
+    if segcumsum.launches != before:
+        fail('K3 graphs: a capture counted as a launch')
+    checks = 0
+    for _ in range(K3G_REPLAYS):
+        for i in (0, 1):
+            sf.copy_(flat[i])
+            g1.replay()
+            sr.copy_(rows[i])
+            g2.replay()
+            if not (torch.equal(o1, flat_want[i])
+                    and torch.equal(o2, rows_want[i])):
+                fail(f'K3 graphs: a replay on input {i} differs from the '
+                     f'eager bits')
+            checks += 2
+    eager_ms, eager_host = device_ms(
+        torch, lambda: segcumsum(sf, boundaries=mask), 20)
+    replay_ms, replay_host = device_ms(torch, g1.replay, 20)
+    res = {'graphs': 2, 'shared_stream_workspace': True,
+           'replays_checked_bit_equal': checks,
+           'flat_2^24': {'eager_ms': eager_ms, 'eager_host_ms': eager_host,
+                         'replay_ms': replay_ms,
+                         'replay_host_ms': replay_host},
+           'rows': [127, m]}
+    print('K3 graphs: ' + json.dumps(res), flush=True)
+    del g1, g2
+    return res
+
+
+def _requests(seed, n_req, n_min, n_max, deg=AVG_DEG):
+    sizes = np.random.default_rng(seed).integers(n_min, n_max + 1, n_req)
+    sizes[0] = n_max
+    out = []
+    for i, n in enumerate(sizes):
+        ei, rng = simple_graph(seed * 1000 + i, int(n), deg)
+        out.append((ei, rng.standard_normal((int(n), D_IN))
+                    .astype(np.float32)))
+    return out
+
+
+def _serve(servers, reqs):
+    """{name: (outputs, latencies in s)} of `predict` on every request by
+    each server, the servers taking each request in turns (the first
+    server first on even requests, last on odd ones), so that drift of
+    the shared host's speed falls on both alike."""
+    res = {k: ([], []) for k in servers}
+    for i, (ei, X) in enumerate(reqs):
+        order = list(servers) if i % 2 == 0 else list(servers)[::-1]
+        for k in order:
+            t0 = time.perf_counter()
+            res[k][0].append(servers[k].predict(ei, X))
+            res[k][1].append(time.perf_counter() - t0)
+    return res
+
+
+def _pct(lat):
+    return (1e3 * float(np.median(lat)),
+            1e3 * float(np.percentile(lat, 90)))
+
+
+def graph_server_phase(torch, T, dev, model, counts):
+    """Phase 26: the headline server through CUDA graphs.  The bench
+    FSWConv behind two GraphServers each on the `multi` route (phase 4's
+    envelope, assume_uniform_w) and on the CSR route (no classes): one
+    serving through its graphs (the default), one eagerly
+    (cuda_graphs=False).  The graph server's routes run their warm-up and
+    capture under sync debug mode 'error'; `warmup` must return 2 (1
+    without classes) and count its eager warm-up's launches (K1f a class,
+    K3 once a CSR forward); then GRAPH_REQUESTS requests of 4096-8192
+    nodes (GRAPH_CSR_REQUESTS on the CSR server) must leave
+    `num_compiles()` as it was and launch nothing from Python; every
+    output against the eager server's (bit for bit, else the largest
+    difference); predict_many's window against predict; p50 and p90 of
+    `predict`, and the route's device time and host-enqueue time, eager
+    against graph (the graph's as one replay)."""
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum
+    ref_ei, _ = simple_graph(0, N_NODES)
+    classes, class_rows = T.multi_envelope(
+        T.from_edge_index(ref_ei, N_NODES), N_NODES)
+    env = dict(classes=classes, class_rows=class_rows, assume_uniform_w=True)
+    res = {}
+    for route, kw, n_req in (('multi', env, GRAPH_REQUESTS),
+                             ('csr', {}, GRAPH_CSR_REQUESTS)):
+        eager = T.GraphServer(model, N_NODES, MAX_EDGES, cuda_graphs=False,
+                              device=dev, **kw)
+        graph = T.GraphServer(model, N_NODES, MAX_EDGES, device=dev, **kw)
+        graph._graphs._fns = {k: _strict(torch, f)
+                              for k, f in graph._graphs._fns.items()}
+        eager.warmup(D_IN)
+        R.fsw_rank_aggregate_proj.launches = 0
+        segcumsum.launches = 0
+        new = graph.warmup(D_IN)
+        torch.cuda.synchronize()
+        k1f, k3 = R.fsw_rank_aggregate_proj.launches, segcumsum.launches
+        want = (2, len(classes), 1) if kw else (1, 0, 1)
+        if (new, k1f, k3) != want:
+            fail(f'graph server ({route}): warmup returned {new}, launched '
+                 f'K1f {k1f} and K3 {k3} times; expected {want}')
+        counts['fsw_rank_fwdp'] += k1f
+        counts['segcumsum'] += k3
+        reqs = _requests(50 + len(kw), n_req, MIN_NODES, N_NODES)
+        for s in (graph, eager):     # each host path once before timing
+            s.predict(*reqs[1])
+        R.fsw_rank_aggregate_proj.launches = 0
+        segcumsum.launches = 0
+        served = _serve({'graph': graph}, reqs)
+        torch.cuda.synchronize()
+        if (R.fsw_rank_aggregate_proj.launches, segcumsum.launches) != (
+                0, 0):
+            fail(f'graph server ({route}): a request launched a kernel from '
+                 f'Python')
+        served.update(_serve({'eager': eager, 'graph': graph}, reqs))
+        (outs_g, lat_g), (outs_e, lat_e) = served['graph'], served['eager']
+        if graph.num_compiles() != want[0]:
+            fail(f'graph server ({route}): num_compiles() '
+                 f'{graph.num_compiles()} after {n_req} requests')
+        if graph.fallbacks or graph.uniform_w_fallbacks:
+            fail(f'graph server ({route}): a request left the envelope')
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(outs_g,
+                                                               outs_e))
+        equal = all(np.array_equal(a, b) for a, b in zip(outs_g, outs_e))
+        scale = max(float(np.abs(b).max()) for b in outs_e)
+        if not all(np.isfinite(a).all() for a in outs_g):
+            fail(f'graph server ({route}): an output is not finite')
+        if not diff <= SERVE_ATOL_REL * scale:
+            fail(f'graph server ({route}): graph against eager max abs err '
+                 f'{diff:.3e}, scale {scale:.3e}')
+        many = graph.predict_many(reqs[:2 * WINDOW], window=WINDOW)
+        if not all(np.array_equal(a, b) for a, b in zip(many, outs_g)):
+            fail(f'graph server ({route}): predict_many differs from '
+                 f'predict')
+        # one forward of the full-size request, eager and replayed (the
+        # graph's input buffer holds the same request)
+        rt, host, _ = graph._host_request(*reqs[0])
+        buf = [t.to(dev) for t in host]
+        fn = eager._graphs._fns[rt]
+        e_ms, e_host = device_ms(torch, lambda: fn(*buf), 10)
+        entry = graph._graphs._graphs[graph._graphs._key(rt, host)]
+        entry._copy_in(buf)
+        g_ms, g_host = device_ms(torch, entry.graph.replay, 10)
+        # where the device time of one forward goes, eager and replayed
+        traces = {k: traced_top_kernels(torch, f, 5, top=12) for k, f in
+                  (('eager', lambda: fn(*buf)), ('graph', entry.graph.replay))}
+        # the smallest request: its padding edges all land in the last
+        # recipient's segment
+        small = min(reqs, key=lambda r: r[1].shape[0])
+        entry._copy_in([t.to(dev) for t in graph._host_request(*small)[1]])
+        s_ms, _ = device_ms(torch, entry.graph.replay, 10)
+        res[route] = {
+            'warmup_compiles': new, 'num_compiles': graph.num_compiles(),
+            'requests': n_req, 'warmup_launches': {'k1f': k1f, 'k3': k3},
+            'bit_equal_to_eager': equal, 'max_abs_diff': diff,
+            'output_scale': scale,
+            'p50_ms': {'eager': _pct(lat_e)[0], 'graph': _pct(lat_g)[0]},
+            'p90_ms': {'eager': _pct(lat_e)[1], 'graph': _pct(lat_g)[1]},
+            'forward_device_ms': {'eager': e_ms, 'graph': g_ms},
+            'smallest_request': {'nodes': small[1].shape[0],
+                                 'edges': small[0].shape[1],
+                                 'graph_device_ms': s_ms},
+            'forward_host_enqueue_ms': {'eager': e_host, 'graph': g_host},
+            'wire_bytes': sum(t.nbytes for t in host),
+            'traced_busy_ms': {k: v[0] for k, v in traces.items()},
+            'top_kernels': {k: v[1] for k, v in traces.items()}}
+        del eager, graph, entry
+    print('graph server: ' + json.dumps(res), flush=True)
+    return res
+
+
+def dtype_server_phase(torch, T, dev, model, counts):
+    """Phase 27: the other wire layouts through graphs.  A bfloat16 server
+    at the headline envelope (the single carrier with pair-packed floats;
+    int32 indices, since the envelope's 131072 edges exceed uint16), beside
+    a float32 server, on BF16_REQUESTS requests: the largest difference
+    relative to the float32 output's scale, and the wire bytes of a
+    request.  Then Cora's envelope (2708 nodes, 10556 edges: uint16
+    indices by the JAX rule; the degree classes from the Cora stand-in)
+    with the same model on random 64-wide features, the stand-in's graph
+    and its subgraphs on its first nodes as requests (every degree within
+    the envelope): the float32 server with uint16 indices against one with
+    int32 indices (pack_indices=False), bit for bit, and a bfloat16 one,
+    each request's wire bytes."""
+    from fsw_gnn_tpu_torch.data.datasets import load
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum
+    ref_ei, _ = simple_graph(0, N_NODES)
+    classes, class_rows = T.multi_envelope(
+        T.from_edge_index(ref_ei, N_NODES), N_NODES)
+    env = dict(classes=classes, class_rows=class_rows, assume_uniform_w=True)
+    reqs = _requests(60, BF16_REQUESTS, MIN_NODES, N_NODES)
+    res = {}
+
+    def run(servers, reqs):
+        R.fsw_rank_aggregate_proj.launches = 0
+        segcumsum.launches = 0
+        for s in servers.values():
+            if s.warmup(D_IN) != 2:
+                fail('dtype servers: warmup did not capture two graphs')
+        torch.cuda.synchronize()
+        k1f, k3 = R.fsw_rank_aggregate_proj.launches, segcumsum.launches
+        if not (k1f and k3 == len(servers)):
+            fail(f'dtype servers: the warm-ups launched K1f {k1f} and K3 '
+                 f'{k3} times')
+        counts['fsw_rank_fwdp'] += k1f
+        counts['segcumsum'] += k3
+        outs = {k: [s.predict(*r) for r in reqs] for k, s in servers.items()}
+        wire = {k: sum(t.nbytes for t in s._host_request(*reqs[0])[1])
+                for k, s in servers.items()}
+        for k, s in servers.items():
+            if s.num_compiles() != 2 or s.fallbacks:
+                fail(f'dtype servers ({k}): {s.num_compiles()} graphs, '
+                     f'{s.fallbacks} fallbacks')
+            if not all(np.isfinite(o).all() for o in outs[k]):
+                fail(f'dtype servers ({k}): an output is not finite')
+        return outs, wire
+
+    servers = {
+        'float32': T.GraphServer(model, N_NODES, MAX_EDGES, device=dev,
+                                 **env),
+        'bfloat16': T.GraphServer(model, N_NODES, MAX_EDGES, device=dev,
+                                  dtype=torch.bfloat16, **env)}
+    if servers['bfloat16']._idx16 or not servers['bfloat16']._single:
+        fail('bfloat16 server: expected the single carrier, int32 indices')
+    outs, wire = run(servers, reqs)
+    res['headline'] = {
+        'bf16_max_rel_err': max(
+            float(np.abs(a - b).max() / np.abs(b).max())
+            for a, b in zip(outs['bfloat16'], outs['float32'])),
+        'wire_bytes': wire}
+    del servers
+
+    cora = load('cora')
+    n_c, e_c = CORA_NODES, CORA_EDGES
+    if cora.num_nodes != n_c or cora.edge_index.shape[1] > e_c:
+        fail(f'the Cora stand-in ({cora.num_nodes} nodes, '
+             f'{cora.edge_index.shape[1]} edges) leaves Cora\'s envelope')
+    c_classes, c_rows = T.multi_envelope(
+        T.from_edge_index(cora.edge_index, n_c), n_c)
+    c_env = dict(classes=c_classes, class_rows=c_rows)
+    rng = np.random.default_rng(61)
+    creqs = []
+    for n in [n_c] + list(rng.integers(n_c // 2, n_c, BF16_REQUESTS - 1)):
+        keep = (cora.edge_index < n).all(axis=0)
+        creqs.append((cora.edge_index[:, keep],
+                      rng.standard_normal((int(n), D_IN))
+                      .astype(np.float32)))
+    servers = {
+        'uint16': T.GraphServer(model, n_c, e_c, device=dev, **c_env),
+        'int32': T.GraphServer(model, n_c, e_c, device=dev,
+                               pack_indices=False, **c_env),
+        'uint16 bfloat16': T.GraphServer(model, n_c, e_c, device=dev,
+                                         dtype=torch.bfloat16, **c_env)}
+    if not (servers['uint16']._idx16 and servers['uint16 bfloat16']._idx16):
+        fail('Cora envelope: uint16 indices expected')
+    outs, wire = run(servers, creqs)
+    if not all(np.array_equal(a, b)
+               for a, b in zip(outs['uint16'], outs['int32'])):
+        fail('Cora envelope: uint16 and int32 indices served other bits')
+    res['cora'] = {
+        'envelope': [n_c, e_c], 'requests': len(creqs),
+        'uint16_bit_equal_to_int32': True,
+        'bf16_max_rel_err': max(
+            float(np.abs(a - b).max() / np.abs(b).max())
+            for a, b in zip(outs['uint16 bfloat16'], outs['uint16'])),
+        'wire_bytes': wire}
+    del servers
+    print('dtype servers: ' + json.dumps(res), flush=True)
+    return res
+
+
+def export_phase(torch, T, dev, model, counts):
+    """Phase 28: `export_forward` on the card of the bench FSWConv closed
+    over the bench graph, in the `multi` layout and as a CSR Graph; each
+    artifact saved, loaded back (`load_artifact`) and called on the
+    bench features: its output against the eager module's, and one call
+    timed against it (device and host time).  The artifact's calls go
+    through the kernels' custom ops (K1f, K3), whose launches count."""
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum
+    ei, rng = simple_graph(0, N_NODES)
+    Xd = torch.from_numpy(rng.standard_normal((N_NODES, D_IN))
+                          .astype(np.float32)).to(dev)
+    g = T.from_edge_index(ei, N_NODES)
+    res = {}
+    for layout, graph in (('multi', T.to_multi_table(g)), ('csr', g)):
+        t0 = time.perf_counter()
+        blob = T.export_forward(model, Xd, graph, device=dev)
+        export_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f'{layout}.pt2')
+            T.save_artifact(path, blob)
+            fwd = T.load_artifact(path)
+        gd = graph.to(dev)
+        R.fsw_rank_aggregate_proj.launches = 0
+        segcumsum.launches = 0
+        got = fwd(Xd)
+        torch.cuda.synchronize()
+        k1f, k3 = R.fsw_rank_aggregate_proj.launches, segcumsum.launches
+        if (k1f > 0) != (layout == 'multi') or (k3 > 0) != (layout == 'csr'):
+            fail(f'export ({layout}): the artifact launched K1f {k1f} and '
+                 f'K3 {k3} times')
+        counts['fsw_rank_fwdp'] += k1f
+        counts['segcumsum'] += k3
+        with torch.inference_mode():
+            want = model(Xd, gd)
+            m_ms, m_host = device_ms(torch, lambda: model(Xd, gd), 10)
+            a_ms, a_host = device_ms(torch, lambda: fwd(Xd), 10)
+        diff = float((got - want).abs().max().detach())
+        scale = float(want.abs().max())
+        if not (bool(torch.isfinite(got).all())
+                and diff <= SERVE_ATOL_REL * scale):
+            fail(f'export ({layout}): artifact against module max abs err '
+                 f'{diff:.3e}, scale {scale:.3e}')
+        res[layout] = {'bytes': len(blob), 'export_s': export_s,
+                       'bit_equal': bool(torch.equal(got, want)),
+                       'max_abs_diff': diff,
+                       'device_ms': {'module': m_ms, 'artifact': a_ms},
+                       'host_ms': {'module': m_host, 'artifact': a_host},
+                       'launches': {'k1f': k1f, 'k3': k3}}
+    print('export: ' + json.dumps(res), flush=True)
+    return res
 
 
 def main():
@@ -3064,7 +3482,14 @@ def main():
     coherence_phase(torch, dev)
     defaults_phase(torch, T, dev, counts, errs)
 
-    # ---- 25. kernels line, 26. last line ------------------------------------
+    # ---- 25. K3 in graphs, 26. the server through graphs, 27. bfloat16 and
+    # uint16 servers, 28. export ---------------------------------------------
+    k3_graph_phase(torch, T, dev)
+    graph_server_phase(torch, T, dev, model, counts)
+    dtype_server_phase(torch, T, dev, model, counts)
+    export_phase(torch, T, dev, model, counts)
+
+    # ---- 29. kernels line, 30. last line ------------------------------------
     src = 'fsw_gnn_tpu_torch/csrc/'
     pallas = 'fsw_gnn_tpu/ops/fsw_rank_pallas.py:'
     line = {'kernels': [

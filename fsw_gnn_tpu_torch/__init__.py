@@ -26,7 +26,9 @@ from .modules import (FSWEmbedding, get_mutual_coherence,
 from .ops.coherence import minimize_mutual_coherence, mutual_coherence
 from .params import (bias_shape, generate_freqs, generate_params,
                      generate_proj_vecs)
-from .serving import GraphServer, multi_envelope
+from .serving import (GraphServer, export_forward, export_from_checkpoint,
+                      load_artifact, load_forward, multi_envelope,
+                      save_artifact)
 from .train import TrainConfig, Trainer
 
 __version__ = '0.4.0'

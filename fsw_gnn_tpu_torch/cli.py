@@ -1,15 +1,20 @@
-"""Command-line interface of the port: full-graph training of an FSW-GNN.
+"""Command-line interface of the port: full-graph training of an FSW-GNN
+and the export of a trained checkpoint.
 
-  python -m fsw_gnn_tpu_torch.cli train --dataset cora --hidden 64 64
+  python -m fsw_gnn_tpu_torch.cli train --dataset cora --hidden 64 64 \
+      --checkpoint-dir ckpt
+  python -m fsw_gnn_tpu_torch.cli export --dataset cora --hidden 64 64 \
+      --checkpoint-dir ckpt --out cora.pt2
   python -m fsw_gnn_tpu_torch.cli train --dataset cora --device cpu
 
-Counterpart of the `train` subcommand of `fsw_gnn_tpu/cli.py`, on one
-device (the card unless --device says otherwise).  A dataset whose npz file
-is absent (FSW_DATA_DIR, else `data/`) runs on its size-matched synthetic
-stand-in.  Neighbor-sampled minibatch training ("Training, the rest" in
-ROADMAP.md) and more than one device ("Parallel and the distributed
-trainer") are not ported and raise; `bench`,
-`autotune` and `export` are not ported yet.
+Counterpart of the `train` and `export` subcommands of
+`fsw_gnn_tpu/cli.py`, on one device (the card unless --device says
+otherwise; for `export`, --device is where the artifact runs, as the JAX
+command's --platform).  A dataset whose npz file is absent (FSW_DATA_DIR,
+else `data/`) runs on its size-matched synthetic stand-in.
+Neighbor-sampled minibatch training ("Training, the rest" in ROADMAP.md)
+and more than one device ("Parallel and the distributed trainer") are not
+ported and raise; `bench` and `autotune` are not ported yet.
 """
 from __future__ import annotations
 
@@ -86,12 +91,52 @@ def cmd_train(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    """The latest checkpoint in --checkpoint-dir -> a torch.export
+    artifact of the model's forward on the dataset's graph."""
+    from .data.datasets import load
+    from .serving import export_forward, save_artifact
+    from .train import TrainConfig, Trainer
+
+    data = load(args.dataset)
+    cfg = TrainConfig(hidden_dims=tuple(args.hidden),
+                      embed_dim=args.embed_dim, mlp_layers=args.mlp_layers,
+                      seed=args.seed, checkpoint_dir=args.checkpoint_dir,
+                      slice_chunk=args.slice_chunk)
+    tr = Trainer(data, cfg, device=args.device)
+    step = tr.restore_checkpoint()
+    blob = export_forward(tr.model, tr.X, tr.compute_graph,
+                          device=args.device)
+    save_artifact(args.out, blob)
+    print(json.dumps({'artifact': args.out, 'bytes': len(blob),
+                      'checkpoint_step': step}))
+    return 0
+
+
+def _add_export_args(p):
+    p.add_argument('--dataset', default='cora')
+    p.add_argument('--hidden', type=int, nargs='+', default=[64])
+    p.add_argument('--embed-dim', type=int, default=None)
+    p.add_argument('--mlp-layers', type=int, default=1)
+    p.add_argument('--slice-chunk', type=int, default=None)
+    p.add_argument('--seed', type=int, default=0)
+    p.add_argument('--checkpoint-dir', required=True)
+    p.add_argument('--device', default=None,
+                   help="where the artifact runs: 'cuda' (the default) or "
+                        "'cpu'")
+    p.add_argument('--out', required=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog='fsw_gnn_tpu_torch')
     sub = parser.add_subparsers(dest='cmd', required=True)
     p_train = sub.add_parser('train', help='full-graph node classification')
     _add_train_args(p_train)
     p_train.set_defaults(fn=cmd_train)
+    p_export = sub.add_parser('export', help='checkpoint -> torch.export '
+                                             'artifact')
+    _add_export_args(p_export)
+    p_export.set_defaults(fn=cmd_export)
     args = parser.parse_args(argv)
     return args.fn(args)
 

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from .device import resolve_device
-from .embedding import FSWConfig
+from .embedding import FSWConfig, promoted
 from .modules import FSWEmbedding
 from .ops.coherence import minimize_mutual_coherence
 from .registry import register_layer, register_pooling
@@ -76,6 +76,8 @@ class FlaxBatchNorm(nn.BatchNorm1d):
                          dtype=dtype)
 
     def forward(self, x):
+        # computes in its own type, as flax's BatchNorm(dtype=...) does
+        x = x.to(self.running_mean.dtype)
         if not self.training:
             return super().forward(x)
         mean = x.mean(dim=0)
@@ -166,12 +168,17 @@ class _MLPHead(nn.Module):
             in_d = out_d
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
+        """x (..., in_dim) of any float type: each Linear and BatchNorm
+        computes in its own parameters' type, as flax's Dense(dtype=...)
+        and BatchNorm(dtype=...) do; the dim_reduct product in the type the
+        two promote to."""
         if self.mlp_layers == 0:
             if hasattr(self, 'dim_reduct'):
-                x = x @ self.dim_reduct.t()
+                x, w = promoted(x, self.dim_reduct)
+                x = x @ w.t()
             return self.bn['final'](x) if 'final' in self.bn else x
         for i, layer in enumerate(self.dense):
-            x = layer(x)
+            x = layer(x.to(layer.weight.dtype))
             if str(i) in self.bn:
                 x = self.bn[str(i)](x)
             if self.acts[i] is not None:

@@ -28,7 +28,7 @@
 //     thread), so a tile only ever waits on tiles whose blocks are already
 //     running.  Tickets run row by row; in reverse a row's tiles are taken
 //     from its end.  The block that draws the last ticket sets the counter
-//     back to 0 for the next call.
+//     back to 0 for the next call and counts the call.
 //   * Loads.  Values move as 16-byte copies (cp.async: four float4 or
 //     eight double2 a thread, no registers held), neighbouring threads on
 //     neighbouring addresses, into shared memory, where each thread reads
@@ -61,9 +61,9 @@
 //     hundred elements.  Otherwise the carry is the fold, in tile order, of
 //     the nearest published prefix and the published aggregates after it,
 //     read again until there is one.  Each slot word holds 32 bits of the
-//     value under the call's epoch tag, so one read from L2 gives a value
-//     and whether it is published.  A row's first tile always holds a
-//     start, so the look-back never crosses a row.
+//     value under a published tag, so one read from L2 gives a value and
+//     whether it is published.  A row's first tile always holds a start, so
+//     the look-back never crosses a row.
 //   * Deterministic bits.  The carry into tile t is always the left-to-
 //     right fold of the aggregates from the nearest tile that holds a start
 //     up to t - 1, and a published prefix is that same fold up to its tile,
@@ -72,10 +72,19 @@
 //     (every lane the same sequence of adds), not by a shuffle tree.  No
 //     atomics touch a value: the same bits every run, and the ids and the
 //     mask, which give the same flags, give the same bits.
-//   * The slots are reset by an epoch tag, not by a memset: the caller
-//     keeps the workspace (zeroed once) and passes a new epoch each call,
-//     and a word of another epoch reads as not yet published.  The
-//     workspace holds nothing but tagged words and the counter.
+//   * The slots live on the device from call to call with nothing passed
+//     in by the host, so a call captured in a CUDA graph replays safely.
+//     The workspace holds two banks of slots and one 64-bit word: the
+//     ticket counter in its low half, the calls made in its high half.
+//     Every block reads the call count with its ticket (one atomicAdd), so
+//     all blocks of a call agree on its bank, the count's parity; the block
+//     that draws the last ticket resets the counter and counts the call.
+//     While a call works in its bank, each block clears its share of the
+//     other bank (32 bytes a tile, and the tiles a call of fewer tiles
+//     leaves out), which no block of this call reads: the next call on the
+//     stream finds its bank all zero.  Nothing published by an earlier
+//     call, or an earlier replay of the same graph, is ever taken for this
+//     call's.  The workspace is zeroed once, when it is made.
 //
 // What bounds it on an H100: memory.  It reads the values once and writes
 // the output once, and reads the m-long segment structure once for all
@@ -87,8 +96,9 @@
 // it does not do: it hides the ticket's latency, and with segments longer
 // than the previous tile's last warp the wait for its aggregate, only by
 // running several blocks an SM (4 in float32); the previous tile's last
-// warp read again (2.5 KB a tile in float32 with the mask, from L2) and the
-// slots (32 bytes a tile) are extra traffic.
+// warp read again (2.5 KB a tile in float32 with the mask, from L2), the
+// slots (32 bytes a tile) and the other bank's clearing (32 bytes a tile)
+// are extra traffic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,6 +111,7 @@ constexpr int ITEMS = 16;                  // elements a thread; 16 mask bytes
 constexpr int TILE = THREADS * ITEMS;
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned PUBLISHED = 1u;         // a slot word's tag once written
 // Blocks an SM the registers are sized for (ptxas: 56 registers a thread in
 // float32, 72 in float64).  The kernel waits on memory, so blocks in
 // flight count: on an H100 4 ran faster than 3, and 5 (40 registers)
@@ -142,8 +153,9 @@ __device__ __forceinline__ void st_relaxed(u64* p, u64 v) {
                : "memory");
 }
 
-// A published value: 32 bits of payload under the epoch tag in each 8-byte
-// word, so one load reads a value and whether it is this call's.
+// A published value: 32 bits of payload under the tag PUBLISHED in each
+// 8-byte word (a cleared word reads as not published), so one load reads
+// a value and whether it is there.
 __device__ __forceinline__ void put(u64* s, float v, unsigned tag) {
   st_relaxed(s, (u64)tag << 32 | __float_as_uint(v));
 }
@@ -299,11 +311,12 @@ struct Work {
   const int* ids;
   const int8_t* end;
   T* out;
-  unsigned* counter;
-  u64* agg;                // a ticket's aggregate (trailing-segment total)
-  u64* pre;                // a ticket's inclusive prefix; 2 words a ticket
+  u64* state;              // ticket counter (low 32 bits), calls (high)
+  u64* agg;                // a slot's aggregate (trailing-segment total)
+  u64* pre;                // a slot's inclusive prefix; 2 words a slot
   long long m, tiles_per_row;
-  unsigned total, tag;
+  long long capacity;      // tickets a bank; bank b's slots at b * capacity
+  unsigned total;
 };
 
 // Whether the tile's first element, in processing order, starts a
@@ -319,8 +332,9 @@ __device__ __forceinline__ bool first_starts(const Work<T>& w, long long lo) {
   return IDS ? w.ids[lo] != w.ids[lo - 1] : w.end[lo - 1] != 0;
 }
 
-// One pass of the look-back: the prefix and aggregate slots of ticket j
-// (lane i reads j = d - 1 - i), each with whether it is published.
+// One pass of the look-back: the prefix and aggregate slots j of this
+// call's bank (lane i reads ticket d - 1 - i), each with whether it is
+// published.
 template <typename T>
 struct Window {
   T pv = T(0), av = T(0);
@@ -332,8 +346,8 @@ __device__ __forceinline__ Window<T> read_window(const Work<T>& w,
                                                  long long j, bool mine) {
   Window<T> r;
   if (mine) {
-    r.hp = get(w.pre + 2 * j, w.tag, r.pv);
-    r.ha = get(w.agg + 2 * j, w.tag, r.av);
+    r.hp = get(w.pre + 2 * j, PUBLISHED, r.pv);
+    r.ha = get(w.agg + 2 * j, PUBLISHED, r.av);
   }
   return r;
 }
@@ -459,17 +473,22 @@ __global__ void __launch_bounds__(BLOCK, sizeof(T) == 4 ? MIN_BLOCKS_F32
   __shared__ T wv[WARPS + 1];
   __shared__ int wf[WARPS + 1];
   __shared__ int edge[WARPS + 1];     // the element before each warp's first
-  __shared__ unsigned s_ticket;
+  __shared__ unsigned s_ticket, s_bank;
   __shared__ T s_carry;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tid == 0) {
-    const unsigned t = atomicAdd(w.counter, 1u);
-    if (t == w.total - 1) atomicExch(w.counter, 0u);   // the last ticket
+    const u64 st = atomicAdd(w.state, 1ull);
+    const unsigned t = (unsigned)st;
+    const u64 calls = st >> 32;
+    // the last ticket: the counter back to 0, one more call counted
+    if (t == w.total - 1) atomicExch(w.state, (calls + 1) << 32);
     s_ticket = t;
+    s_bank = (unsigned)(calls & 1);
   }
   __syncthreads();
   const long long d = s_ticket;
+  const long long sd = d + s_bank * w.capacity;   // d's slot in the bank
   const long long row = d / w.tiles_per_row;
   const long long k_in_row = d - row * w.tiles_per_row;
   const long long row_first = row * w.tiles_per_row;
@@ -487,7 +506,7 @@ __global__ void __launch_bounds__(BLOCK, sizeof(T) == 4 ? MIN_BLOCKS_F32
     // for its block)
     const bool need = !first_starts<T, IDS, REV>(w, lo);
     const long long j = d - 1 - lane;
-    Window<T> win = read_window(w, j, j >= row_first);
+    Window<T> win = read_window(w, sd - 1 - lane, j >= row_first);
     T pv = T(0);
     int pf = 0;
     if (d > row_first)
@@ -499,7 +518,7 @@ __global__ void __launch_bounds__(BLOCK, sizeof(T) == 4 ? MIN_BLOCKS_F32
         carry = pv;
       } else {
         while (!fold_window(win, lane, carry))
-          win = read_window(w, j, j >= row_first);
+          win = read_window(w, sd - 1 - lane, j >= row_first);
       }
     }
     if (lane == 0) s_carry = carry;
@@ -578,7 +597,7 @@ __global__ void __launch_bounds__(BLOCK, sizeof(T) == 4 ? MIN_BLOCKS_F32
     wf[warp] = ifl;
     // the last warp's total is the tile's trailing-segment total when it
     // holds a start: publish the tile's prefix now
-    if (warp == WARPS - 1 && ifl) put(w.pre + 2 * d, iv, w.tag);
+    if (warp == WARPS - 1 && ifl) put(w.pre + 2 * sd, iv, PUBLISHED);
   }
   scan_sync();
 
@@ -600,10 +619,10 @@ __global__ void __launch_bounds__(BLOCK, sizeof(T) == 4 ? MIN_BLOCKS_F32
     // a tile that holds a start knows its prefix; one that does not
     // publishes its aggregate, and its prefix once the carry is known
     if (lane == 0 && !published)
-      put(totf ? w.pre + 2 * d : w.agg + 2 * d, tot, w.tag);
+      put(totf ? w.pre + 2 * sd : w.agg + 2 * sd, tot, PUBLISHED);
   }
   carry_sync();                       // the carry is known
-  if (tid == 0 && !totf) put(w.pre + 2 * d, s_carry + tot, w.tag);
+  if (tid == 0 && !totf) put(w.pre + 2 * sd, s_carry + tot, PUBLISHED);
 
   // ---- each element: its own prefix, after the thread's incoming one
   const T ex = xf ? xv : wv[warp] + xv;
@@ -620,6 +639,15 @@ __global__ void __launch_bounds__(BLOCK, sizeof(T) == 4 ? MIN_BLOCKS_F32
   }
   scan_sync();
   store_tile<T>(w.out + row * m, lo, m, sv);
+
+  // ---- the other bank cleared for the next call (no block of this call
+  // reads it): tickets d, d + total, ... below the capacity, the four
+  // words of each by four threads (d and the bank read again from shared
+  // memory, so that neither stays in a register through the scan)
+  const long long other = (long long)(s_bank ^ 1u) * w.capacity;
+  for (long long t = s_ticket + (tid >> 2) * (long long)w.total;
+       t < w.capacity; t += (THREADS / 4) * (long long)w.total)
+    ((tid & 2) ? w.pre : w.agg)[2 * (other + t) + (tid & 1)] = 0ull;
 }
 
 inline long long tiles_of(long long m) { return (m + TILE - 1) / TILE; }
@@ -645,15 +673,14 @@ int launch(const Work<T>& w, unsigned blocks, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// workspace of `capacity` tiles: the counter, then an aggregate and a
-// prefix slot (16 bytes each) a tile
+// workspace of `capacity` tiles: the state word, then the aggregate slots
+// and the prefix slots (16 bytes each) of two banks of `capacity`
 template <typename T>
 int run(const void* v, const void* ids, const void* end, void* out, void* ws,
         long long capacity, long long rows, long long m, int reverse,
-        unsigned epoch, void* stream) {
+        void* stream) {
   if (rows <= 0 || m <= 0) return 0;
   if ((ids == nullptr) == (end == nullptr)) return (int)cudaErrorInvalidValue;
-  if (epoch == 0 || epoch >= (1u << 30)) return (int)cudaErrorInvalidValue;
   const long long tpr = tiles_of(m);
   const long long tiles = rows * tpr;
   if (tiles > 0x7fffffffLL || tiles > capacity)
@@ -664,15 +691,15 @@ int run(const void* v, const void* ids, const void* end, void* out, void* ws,
   w.ids = (const int*)ids;
   w.end = (const int8_t*)end;
   w.out = (T*)out;
-  w.counter = (unsigned*)p;
+  w.state = (u64*)p;
   p += 256;
   w.agg = (u64*)p;
-  p += align256(16 * capacity);
+  p += align256(32 * capacity);
   w.pre = (u64*)p;
   w.m = m;
   w.tiles_per_row = tpr;
+  w.capacity = capacity;
   w.total = (unsigned)tiles;
-  w.tag = epoch;
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned blocks = (unsigned)tiles;
   if (ids != nullptr)
@@ -695,30 +722,31 @@ long long segcumsum_tiles(long long rows, long long m) {
 }
 
 // Bytes of a workspace for calls of up to `capacity` tiles.  The caller
-// zeroes it once and keeps it: each call passes a new epoch.
+// zeroes it once and keeps it for every later call on its stream.
 size_t segcumsum_workspace_bytes(long long capacity) {
-  return 256 + 2 * align256(16 * capacity);
+  return 256 + 2 * align256(32 * capacity);
 }
 
 // values and out (rows, m) contiguous on the current device; exactly one
 // of ids (int32, m) and end (int8, m) given, the other null, shared by
 // every row; reverse 0 or 1; ws of segcumsum_workspace_bytes(capacity)
-// bytes for capacity >= segcumsum_tiles(rows, m), zero at first use and
-// used by no other stream, with a new epoch in 1 .. 2^30 - 1 each call.
+// bytes for capacity >= segcumsum_tiles(rows, m), zero when it was made,
+// kept with the same capacity for every call, and used by no other
+// stream.
 // Launches one kernel on `stream` and returns cudaGetLastError() (0 on
 // success); does not synchronise.
 int segcumsum_f32(const void* values, const void* ids, const void* end,
                   void* out, void* ws, long long capacity, long long rows,
-                  long long m, int reverse, unsigned epoch, void* stream) {
+                  long long m, int reverse, void* stream) {
   return run<float>(values, ids, end, out, ws, capacity, rows, m, reverse,
-                    epoch, stream);
+                    stream);
 }
 
 int segcumsum_f64(const void* values, const void* ids, const void* end,
                   void* out, void* ws, long long capacity, long long rows,
-                  long long m, int reverse, unsigned epoch, void* stream) {
+                  long long m, int reverse, void* stream) {
   return run<double>(values, ids, end, out, ws, capacity, rows, m, reverse,
-                     epoch, stream);
+                     stream);
 }
 
 }  // extern "C"

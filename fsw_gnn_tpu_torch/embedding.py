@@ -211,9 +211,28 @@ def _homog_alt_part2(tm):
     return torch.where(tm <= 1, tm * tm, 2 * tm - 1)
 
 
+def promoted(*ts):
+    """`ts` cast to the type JAX promotes them to together (torch keeps a
+    dimensioned tensor's type against a 0-dim one of the same kind, JAX
+    does not), e.g. bfloat16 features and float32 parameters go to
+    float32, as a served bfloat16 request meets the model in the JAX
+    package."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t if t.dtype == dt else t.to(dt) for t in ts)
+
+
+def _mm(a, b):
+    """a @ b in the promoted type (torch's matmul takes one type)."""
+    a, b = promoted(a, b)
+    return a @ b
+
+
 def _append_total_mass(emb, w_sum, scale, cfg: FSWConfig):
     """Prepend the encoded total mass along the last axis."""
-    tm = (_total_mass_value(w_sum, cfg) * scale)[..., None]
+    tm, scale = promoted(_total_mass_value(w_sum, cfg), scale)
+    tm = (tm * scale)[..., None]
     if cfg.total_mass_encoding_method == 'plain':
         return torch.cat([tm, emb], dim=-1)
     emb_norm = torch.mean(torch.abs(emb), dim=-1, keepdim=True)
@@ -428,12 +447,12 @@ def fsw_embed_table(X, table, projVecs, freqs, cfg: FSWConfig,
                 proj_block.t().to(torch.float32).contiguous(),
                 uniform_w=unif, with_dw=weights_grad)
             return out.to(dt)                                  # (R, S_blk)
-        Xp = X @ proj_block[:, :cfg.d_in].t()                  # (N, S_blk)
+        Xp = _mm(X, proj_block[:, :cfg.d_in].t())              # (N, S_blk)
         P = Xp[table.idx]                                      # (R, B, S_blk)
         if cfg.d_edge > 0:
             if table.edge_feat is None:
                 raise ValueError('the table has no edge features')
-            P = P + table.edge_feat @ proj_block[:, cfg.d_in:].t()
+            P = P + _mm(table.edge_feat, proj_block[:, cfg.d_in:].t())
         return bucket_quadrature(P, wn, pad_norm, f_block, cfg, agg,
                                  weights_grad, uniform_w=unif)
 
@@ -627,13 +646,19 @@ def fsw_embed_graph(X, graph, projVecs, freqs, cfg: FSWConfig,
         """V_block (S_b, d_in + d_edge); f_block (S_b,) or (F,)."""
         S_b = V_block.shape[0]
         # projections laid out (S_b, E), each slice's row contiguous
-        keys = rows_gather(graph.num_nodes, V_block[:, :cfg.d_in] @ X.t(),
+        keys = rows_gather(graph.num_nodes, _mm(V_block[:, :cfg.d_in], X.t()),
                            graph.src, src_order, src_sorted, dim=1,
                            lengths=src_len)
         if cfg.d_edge > 0:
-            keys = keys + V_block[:, cfg.d_in:] @ graph.edge_feat.to(dt).t()
+            keys = keys + _mm(V_block[:, cfg.d_in:],
+                              graph.edge_feat.to(dt).t())
         ps, ws = segment_sort_fused(keys, wn, dst)
-        c = segcumsum_rows(ws, is_end)
+        if ws.dtype.itemsize == 2:
+            # K3 has float32 and float64 kernels: 2-byte weights (a
+            # bfloat16 server's) are summed in float32 and rounded once
+            c = segcumsum_rows(ws.float(), is_end).to(ws.dtype)
+        else:
+            c = segcumsum_rows(ws, is_end)
         c = c + pad_e * (ps > 0)
         if cfg.cartesian_mode:
             sd = _sinc_diff(ws[..., None], c[..., None], f_block)

@@ -43,15 +43,23 @@ fsw_rank_fwdp.cu, fsw_rank_bwdp.cu, fsw_rank_cart_fwd.cu,
 fsw_rank_cart_bwd.cu, sharing csrc/fsw_rank_common.cuh) say what bounds
 them on an H100 and what their design does about it.
 
-The public functions are `torch.autograd.Function`s: on CPU tensors their
-forward and backward are the plain versions, on CUDA tensors the kernels.
-On the card they never fall back.  Like the TPU kernels they save only
-their inputs and recompute the ranks (and K1 the projection) in the
-backward.  A width whose row the kernel's shared memory cannot hold raises
-a ValueError naming the width and the limit.  `smem_bytes` gives each
+Each kernel is a `torch.library` custom op in the namespace
+fsw_gnn_tpu_torch (`torch.ops.fsw_gnn_tpu_torch.fsw_rank_aggregate`,
+`..._bwd`, `fsw_rank_aggregate_proj`, `..._proj_bwd`,
+`fsw_rank_aggregate_cart`, `..._cart_bwd`): on CPU tensors its
+implementation is the plain version, on CUDA tensors the kernel, and its
+fake implementation gives the shapes, so `torch.export` and CUDA-graph
+capture see one op.  On the card they never fall back.  Each forward op's
+autograd calls its backward op; like the TPU kernels they save only their
+inputs and recompute the ranks (and K1 the projection) in the backward.
+The public functions below keep their names, arguments and launch
+counters; a counter counts the launches that run, not a capture.  A
+width whose row the kernel's shared memory cannot hold raises a
+ValueError naming the width and the limit.  `smem_bytes` gives each
 kernel's shared-memory need from its shape, as the libraries' own
-`*_smem_bytes` exports do but without loading one: `_fits` checks it
-before every launch, and the embedding's routing (`_resolve_aggregate`)
+`*_smem_bytes` exports do but without loading one: the public functions
+check it (`_fits`, on shapes) before any op runs, and the embedding's
+routing (`_resolve_aggregate`)
 sends a width only to kernels that hold it, on the CPU as on the card.
 """
 from __future__ import annotations
@@ -60,6 +68,7 @@ import ctypes
 import math
 
 import torch
+from torch import Tensor
 
 _FN = {}
 
@@ -403,12 +412,55 @@ def _launch(name, fn, *args):
         raise RuntimeError(f'{name} launch failed: CUDA error {rc}')
 
 
+def _count(wrapper):
+    """One more launch on `wrapper`'s counter, unless the stream is
+    capturing a graph: a capture records the kernel and runs nothing, and
+    a replay does not pass through Python."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
+
+
+def _grads_wanted(*ts):
+    """Whether autograd will ask for a gradient of any of `ts`."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _outs(ts, like):
+    """The op's outputs: contiguous, None (no gradient asked) as an empty
+    tensor, since an op returns tensors only."""
+    return tuple(like.new_empty((0,)) if t is None else t.contiguous()
+                 for t in ts)
+
+
+def _grads(outs, with_dw):
+    """The public backward's tuple: dwn and dpad None without with_dw."""
+    return tuple(None if i in (1, 2) and not with_dw else t
+                 for i, t in enumerate(outs))
+
+
+# Each kernel pair is one `torch.library` custom op for the forward and one
+# for the backward, in the namespace fsw_gnn_tpu_torch: the CPU
+# implementation is the plain version, the CUDA implementation the kernel,
+# the fake implementation gives the shapes (so torch.export and graph
+# capture see one op).  The forward op's autograd calls the backward op;
+# the widths are checked against shared memory (`_fits`) in the public
+# functions, on shapes, before any op runs.
+
 # ---- K2: the unfused weighted-rank aggregation ----------------------------
 
-def _fwd2(P, wn, pad_norm, freqs, uniform_w):
-    """K2's forward on P's device: plain on the CPU, K2f on the card."""
-    if _device(P) == 'cpu':
-        return fsw_rank_aggregate_plain(P, wn, pad_norm, freqs, uniform_w)
+@torch.library.custom_op('fsw_gnn_tpu_torch::fsw_rank_aggregate',
+                         mutates_args=(), device_types='cpu')
+def _rank_op(P: Tensor, wn: Tensor, pad_norm: Tensor, freqs: Tensor,
+             uniform_w: bool, with_dw: bool) -> Tensor:
+    """K2's forward on the CPU: the plain version.  with_dw is for the
+    backward only."""
+    return fsw_rank_aggregate_plain(P, wn, pad_norm, freqs,
+                                    uniform_w).contiguous()
+
+
+@_rank_op.register_kernel('cuda')
+def _rank_cuda(P, wn, pad_norm, freqs, uniform_w, with_dw):
+    """K2f."""
     R, B, S = P.shape
     _check(list(zip(('P', 'wn', 'pad_norm', 'freqs'),
                     (P, wn, pad_norm, freqs))),
@@ -418,23 +470,31 @@ def _fwd2(P, wn, pad_norm, freqs, uniform_w):
         return out
     if B == 0:
         return out.zero_()
-    _fits('fsw_rank_fwd', B)
     _launch('fsw_rank_fwd', _kernel('fsw_rank_fwd')[0], P, wn, pad_norm,
             freqs, out, R, B, S, int(bool(uniform_w)))
-    fsw_rank_aggregate.launches += 1
+    _count(fsw_rank_aggregate)
     return out
 
 
-def fsw_rank_aggregate_bwd(P, wn, pad_norm, freqs, g,
-                           uniform_w: bool = False, with_dw: bool = True):
-    """K2's backward on P's device: (dP, dwn, dpad, df), dwn and dpad None
-    without with_dw.  CPU tensors: the plain version.  CUDA tensors:
-    kernel K2b (float32, contiguous), or an error; each call adds one to
-    `fsw_rank_aggregate_bwd.launches`."""
-    if _device(P) == 'cpu':
-        return fsw_rank_aggregate_bwd_plain(P, wn, pad_norm, freqs, g,
-                                            uniform_w=uniform_w,
-                                            with_dw=with_dw)
+@_rank_op.register_fake
+def _rank_fake(P, wn, pad_norm, freqs, uniform_w, with_dw):
+    return P.new_empty((P.shape[0], P.shape[2]))
+
+
+@torch.library.custom_op('fsw_gnn_tpu_torch::fsw_rank_aggregate_bwd',
+                         mutates_args=(), device_types='cpu')
+def _rank_bwd_op(P: Tensor, wn: Tensor, pad_norm: Tensor, freqs: Tensor,
+                 g: Tensor, uniform_w: bool, with_dw: bool
+                 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """K2's backward on the CPU: the plain version; dwn and dpad empty
+    without with_dw."""
+    return _outs(fsw_rank_aggregate_bwd_plain(
+        P, wn, pad_norm, freqs, g, uniform_w=uniform_w, with_dw=with_dw), P)
+
+
+@_rank_bwd_op.register_kernel('cuda')
+def _rank_bwd_cuda(P, wn, pad_norm, freqs, g, uniform_w, with_dw):
+    """K2b."""
     R, B, S = P.shape
     _check(list(zip(('P', 'wn', 'pad_norm', 'freqs', 'g'),
                     (P, wn, pad_norm, freqs, g))),
@@ -442,51 +502,66 @@ def fsw_rank_aggregate_bwd(P, wn, pad_norm, freqs, g,
     f32 = dict(dtype=torch.float32, device=P.device)
     dP = torch.empty((R, B, S), **f32)
     df = torch.empty((S,), **f32)
-    dwn = torch.empty((R, B), **f32) if with_dw else None
-    dpad = torch.empty((R,), **f32) if with_dw else None
+    dwn = torch.empty((R, B) if with_dw else (0,), **f32)
+    dpad = torch.empty((R,) if with_dw else (0,), **f32)
     if R == 0 or B == 0 or S == 0:
-        for t in (dP, df, dwn, dpad):
-            if t is not None:
-                t.zero_()
-        return dP, dwn, dpad, df
+        return tuple(t.zero_() for t in (dP, dwn, dpad, df))
     fn, aux = _kernel('fsw_rank_bwd')
-    _fits('fsw_rank_bwd', B, with_dw=with_dw)
     ws = torch.empty((aux['workspace_bytes'](R, B, S, int(with_dw)),),
                      dtype=torch.uint8, device=P.device)
     _launch('fsw_rank_bwd', fn, P, wn, pad_norm, freqs, g, dP,
             dwn if with_dw else None, dpad if with_dw else None, df, ws,
             R, B, S, int(bool(uniform_w)), int(bool(with_dw)))
-    fsw_rank_aggregate_bwd.launches += 1
+    _count(fsw_rank_aggregate_bwd)
     return dP, dwn, dpad, df
 
 
-class _Rank(torch.autograd.Function):
-    """K2f forward, K2b backward (their plain versions on the CPU).  Saves
-    the inputs only; the backward recomputes the ranks, as `_fsw_fwd`
-    does."""
+@_rank_bwd_op.register_fake
+def _rank_bwd_fake(P, wn, pad_norm, freqs, g, uniform_w, with_dw):
+    R, B, S = P.shape
+    return (P.new_empty((R, B, S)), P.new_empty((R, B) if with_dw else (0,)),
+            P.new_empty((R,) if with_dw else (0,)), P.new_empty((S,)))
 
-    @staticmethod
-    def forward(ctx, P, wn, pad_norm, freqs, uniform_w, with_dw):
-        ctx.save_for_backward(P, wn, pad_norm, freqs)
-        ctx.uniform_w, ctx.with_dw = uniform_w, with_dw
-        if P.device.type == 'cuda' and any(ctx.needs_input_grad[:4]):
-            # refuse now a width the backward could not take
-            _fits('fsw_rank_bwd', P.shape[1], with_dw=with_dw and any(
-                ctx.needs_input_grad[1:3]))
-        return _fwd2(P, wn, pad_norm, freqs, uniform_w)
 
-    @staticmethod
+def fsw_rank_aggregate_bwd(P, wn, pad_norm, freqs, g,
+                           uniform_w: bool = False, with_dw: bool = True):
+    """K2's backward on P's device: (dP, dwn, dpad, df), dwn and dpad None
+    without with_dw.  CPU tensors: the plain version.  CUDA tensors:
+    kernel K2b (float32, contiguous), or an error; each launch adds one to
+    `fsw_rank_aggregate_bwd.launches`."""
+    if _device(P) == 'cuda':
+        _fits('fsw_rank_bwd', P.shape[1], with_dw=with_dw)
+    return _grads(_rank_bwd_op(P, wn, pad_norm, freqs, g, bool(uniform_w),
+                               bool(with_dw)), with_dw)
+
+
+def _setup(ctx, inputs, output):
+    """Saves the tensor inputs only: the backward recomputes the ranks (and
+    K1 the projection), as the TPU kernels do."""
+    *tensors, uniform_w, with_dw = inputs
+    ctx.save_for_backward(*tensors)
+    ctx.uniform_w, ctx.with_dw = uniform_w, with_dw
+
+
+def _backward(bwd):
+    """The forward op's backward: `bwd` (a public backward) on the saved
+    inputs, with_dw only where wn or pad_norm takes a gradient."""
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         need = ctx.needs_input_grad
-        if not any(need[:4]):
-            return (None,) * 6
+        n = len(ctx.saved_tensors)
+        if not any(need[:n]):
+            return (None,) * (n + 2)
         with_dw = ctx.with_dw and (need[1] or need[2])
-        grads = fsw_rank_aggregate_bwd(
-            *ctx.saved_tensors, g.contiguous(), uniform_w=ctx.uniform_w,
-            with_dw=with_dw)
-        return tuple(t if n else None for t, n in zip(grads, need)) + (
+        grads = bwd(*ctx.saved_tensors, g.contiguous(),
+                    uniform_w=ctx.uniform_w, with_dw=with_dw)
+        return tuple(t if w else None for t, w in zip(grads, need)) + (
             None, None)
+    return backward
+
+
+_rank_op.register_autograd(_backward(fsw_rank_aggregate_bwd),
+                           setup_context=_setup)
 
 
 def fsw_rank_aggregate(P, wn, pad_norm, freqs, uniform_w: bool = False,
@@ -503,17 +578,31 @@ def fsw_rank_aggregate(P, wn, pad_norm, freqs, uniform_w: bool = False,
     docstring); it is honoured only with with_dw=False, as in the JAX
     package: weights that take a gradient may change after the flag was
     detected."""
-    return _Rank.apply(P, wn, pad_norm, freqs,
-                       bool(uniform_w) and not with_dw, bool(with_dw))
+    if _device(P) == 'cuda':
+        B = P.shape[1]
+        _fits('fsw_rank_fwd', B)
+        if _grads_wanted(P, wn, pad_norm, freqs):
+            # refuse now a width the backward could not take
+            _fits('fsw_rank_bwd', B, with_dw=with_dw and (
+                wn.requires_grad or pad_norm.requires_grad))
+    return _rank_op(P, wn, pad_norm, freqs, bool(uniform_w) and not with_dw,
+                    bool(with_dw))
 
 
 # ---- K4: the cartesian weighted-rank aggregation ---------------------------
 
-def _fwd4(P, wn, pad_norm, freqs, uniform_w):
-    """K4's forward on P's device: plain on the CPU, K4f on the card."""
-    if _device(P) == 'cpu':
-        return fsw_rank_aggregate_cart_plain(P, wn, pad_norm, freqs,
-                                             uniform_w)
+@torch.library.custom_op('fsw_gnn_tpu_torch::fsw_rank_aggregate_cart',
+                         mutates_args=(), device_types='cpu')
+def _rank_cart_op(P: Tensor, wn: Tensor, pad_norm: Tensor, freqs: Tensor,
+                  uniform_w: bool, with_dw: bool) -> Tensor:
+    """K4's forward on the CPU: the plain version."""
+    return fsw_rank_aggregate_cart_plain(P, wn, pad_norm, freqs,
+                                         uniform_w).contiguous()
+
+
+@_rank_cart_op.register_kernel('cuda')
+def _rank_cart_cuda(P, wn, pad_norm, freqs, uniform_w, with_dw):
+    """K4f."""
     R, B, S = P.shape
     F = freqs.shape[1]
     _check(list(zip(('P', 'wn', 'pad_norm', 'freqs'),
@@ -524,23 +613,30 @@ def _fwd4(P, wn, pad_norm, freqs, uniform_w):
         return out
     if B == 0:
         return out.zero_()
-    _fits('fsw_rank_cart_fwd', B, F)
     _launch('fsw_rank_cart_fwd', _kernel('fsw_rank_cart_fwd')[0], P, wn,
             pad_norm, freqs, out, R, B, S, F, int(bool(uniform_w)))
-    fsw_rank_aggregate_cart.launches += 1
+    _count(fsw_rank_aggregate_cart)
     return out
 
 
-def fsw_rank_aggregate_cart_bwd(P, wn, pad_norm, freqs, g,
-                                uniform_w: bool = False,
-                                with_dw: bool = True):
-    """K4's backward on P's device: (dP, dwn, dpad, df), df (S, F), dwn and
-    dpad None without with_dw.  CPU tensors: the plain version.  CUDA
-    tensors: kernel K4b (float32, contiguous), or an error; each call adds
-    one to `fsw_rank_aggregate_cart_bwd.launches`."""
-    if _device(P) == 'cpu':
-        return fsw_rank_aggregate_cart_bwd_plain(
-            P, wn, pad_norm, freqs, g, uniform_w=uniform_w, with_dw=with_dw)
+@_rank_cart_op.register_fake
+def _rank_cart_fake(P, wn, pad_norm, freqs, uniform_w, with_dw):
+    return P.new_empty((P.shape[0], P.shape[2], freqs.shape[1]))
+
+
+@torch.library.custom_op('fsw_gnn_tpu_torch::fsw_rank_aggregate_cart_bwd',
+                         mutates_args=(), device_types='cpu')
+def _rank_cart_bwd_op(P: Tensor, wn: Tensor, pad_norm: Tensor,
+                      freqs: Tensor, g: Tensor, uniform_w: bool,
+                      with_dw: bool) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """K4's backward on the CPU: the plain version."""
+    return _outs(fsw_rank_aggregate_cart_bwd_plain(
+        P, wn, pad_norm, freqs, g, uniform_w=uniform_w, with_dw=with_dw), P)
+
+
+@_rank_cart_bwd_op.register_kernel('cuda')
+def _rank_cart_bwd_cuda(P, wn, pad_norm, freqs, g, uniform_w, with_dw):
+    """K4b."""
     R, B, S = P.shape
     F = freqs.shape[1]
     _check(list(zip(('P', 'wn', 'pad_norm', 'freqs', 'g'),
@@ -551,52 +647,44 @@ def fsw_rank_aggregate_cart_bwd(P, wn, pad_norm, freqs, g,
     f32 = dict(dtype=torch.float32, device=P.device)
     dP = torch.empty((R, B, S), **f32)
     df = torch.empty((S, F), **f32)
-    dwn = torch.empty((R, B), **f32) if with_dw else None
-    dpad = torch.empty((R,), **f32) if with_dw else None
+    dwn = torch.empty((R, B) if with_dw else (0,), **f32)
+    dpad = torch.empty((R,) if with_dw else (0,), **f32)
     if R == 0 or B == 0 or S == 0 or F == 0:
-        for t in (dP, df, dwn, dpad):
-            if t is not None:
-                t.zero_()
-        return dP, dwn, dpad, df
+        return tuple(t.zero_() for t in (dP, dwn, dpad, df))
     fn, aux = _kernel('fsw_rank_cart_bwd')
-    _fits('fsw_rank_cart_bwd', B, F, with_dw, unif)
     ws = torch.empty((aux['workspace_bytes'](R, B, S, F, int(with_dw)),),
                      dtype=torch.uint8, device=P.device)
     _launch('fsw_rank_cart_bwd', fn, P, wn, pad_norm, freqs, g, dP,
             dwn if with_dw else None, dpad if with_dw else None, df, ws,
             R, B, S, F, int(unif), int(bool(with_dw)))
-    fsw_rank_aggregate_cart_bwd.launches += 1
+    _count(fsw_rank_aggregate_cart_bwd)
     return dP, dwn, dpad, df
 
 
-class _RankCart(torch.autograd.Function):
-    """K4f forward, K4b backward (their plain versions on the CPU).  Saves
-    the inputs only; the backward recomputes the ranks, as `_fswc_fwd`
-    does."""
+@_rank_cart_bwd_op.register_fake
+def _rank_cart_bwd_fake(P, wn, pad_norm, freqs, g, uniform_w, with_dw):
+    R, B, S = P.shape
+    return (P.new_empty((R, B, S)), P.new_empty((R, B) if with_dw else (0,)),
+            P.new_empty((R,) if with_dw else (0,)),
+            P.new_empty((S, freqs.shape[1])))
 
-    @staticmethod
-    def forward(ctx, P, wn, pad_norm, freqs, uniform_w, with_dw):
-        ctx.save_for_backward(P, wn, pad_norm, freqs)
-        ctx.uniform_w, ctx.with_dw = uniform_w, with_dw
-        if P.device.type == 'cuda' and any(ctx.needs_input_grad[:4]):
-            # refuse now a width the backward could not take
-            dw = with_dw and any(ctx.needs_input_grad[1:3])
-            _fits('fsw_rank_cart_bwd', P.shape[1], freqs.shape[1], dw,
-                  uniform_w)
-        return _fwd4(P, wn, pad_norm, freqs, uniform_w)
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        need = ctx.needs_input_grad
-        if not any(need[:4]):
-            return (None,) * 6
-        with_dw = ctx.with_dw and (need[1] or need[2])
-        grads = fsw_rank_aggregate_cart_bwd(
-            *ctx.saved_tensors, g.contiguous(), uniform_w=ctx.uniform_w,
-            with_dw=with_dw)
-        return tuple(t if n else None for t, n in zip(grads, need)) + (
-            None, None)
+def fsw_rank_aggregate_cart_bwd(P, wn, pad_norm, freqs, g,
+                                uniform_w: bool = False,
+                                with_dw: bool = True):
+    """K4's backward on P's device: (dP, dwn, dpad, df), df (S, F), dwn and
+    dpad None without with_dw.  CPU tensors: the plain version.  CUDA
+    tensors: kernel K4b (float32, contiguous), or an error; each launch
+    adds one to `fsw_rank_aggregate_cart_bwd.launches`."""
+    if _device(P) == 'cuda':
+        _fits('fsw_rank_cart_bwd', P.shape[1], freqs.shape[1], with_dw,
+              bool(uniform_w) and not with_dw)
+    return _grads(_rank_cart_bwd_op(P, wn, pad_norm, freqs, g,
+                                    bool(uniform_w), bool(with_dw)), with_dw)
+
+
+_rank_cart_op.register_autograd(_backward(fsw_rank_aggregate_cart_bwd),
+                                setup_context=_setup)
 
 
 def fsw_rank_aggregate_cart(P, wn, pad_norm, freqs, uniform_w: bool = False,
@@ -612,17 +700,32 @@ def fsw_rank_aggregate_cart(P, wn, pad_norm, freqs, uniform_w: bool = False,
     (float32, contiguous), or an error; each forward launch adds one to
     `fsw_rank_aggregate_cart.launches`.  with_dw and uniform_w as in
     `fsw_rank_aggregate`."""
-    return _RankCart.apply(P, wn, pad_norm, freqs,
-                           bool(uniform_w) and not with_dw, bool(with_dw))
+    unif = bool(uniform_w) and not with_dw
+    if _device(P) == 'cuda':
+        B, F = P.shape[1], freqs.shape[1]
+        _fits('fsw_rank_cart_fwd', B, F)
+        if _grads_wanted(P, wn, pad_norm, freqs):
+            # refuse now a width the backward could not take
+            _fits('fsw_rank_cart_bwd', B, F, with_dw and (
+                wn.requires_grad or pad_norm.requires_grad), unif)
+    return _rank_cart_op(P, wn, pad_norm, freqs, unif, bool(with_dw))
 
 
 # ---- K1: the fused-projection weighted-rank aggregation --------------------
 
-def _fwd(Z, wn, pad_norm, freqs, V, uniform_w):
-    """K1's forward on Z's device: plain on the CPU, K1f on the card."""
+@torch.library.custom_op('fsw_gnn_tpu_torch::fsw_rank_aggregate_proj',
+                         mutates_args=(), device_types='cpu')
+def _rank_proj_op(Z: Tensor, wn: Tensor, pad_norm: Tensor, freqs: Tensor,
+                  V: Tensor, uniform_w: bool, with_dw: bool) -> Tensor:
+    """K1's forward on the CPU: the plain version."""
+    return fsw_rank_aggregate_proj_plain(Z, wn, pad_norm, freqs, V,
+                                         uniform_w=uniform_w).contiguous()
+
+
+@_rank_proj_op.register_kernel('cuda')
+def _rank_proj_cuda(Z, wn, pad_norm, freqs, V, uniform_w, with_dw):
+    """K1f."""
     args = (Z, wn, pad_norm, freqs, V)
-    if _device(Z) == 'cpu':
-        return fsw_rank_aggregate_proj_plain(*args, uniform_w=uniform_w)
     R, B, D = Z.shape
     S = V.shape[1]
     _check(list(zip(('Z', 'wn', 'pad_norm', 'freqs', 'V'), args)),
@@ -632,24 +735,33 @@ def _fwd(Z, wn, pad_norm, freqs, V, uniform_w):
         return out
     if B == 0:
         return out.zero_()
-    _fits('fsw_rank_fwdp', B)
     _launch('fsw_rank_fwdp', _kernel('fsw_rank_fwdp')[0], *args, out,
             R, B, D, S, int(bool(uniform_w)))
-    fsw_rank_aggregate_proj.launches += 1
+    _count(fsw_rank_aggregate_proj)
     return out
 
 
-def fsw_rank_aggregate_proj_bwd(Z, wn, pad_norm, freqs, V, g,
-                                uniform_w: bool = False,
-                                with_dw: bool = True):
-    """K1's backward on Z's device: (dZ, dwn, dpad, df, dV), dwn and dpad
-    None without with_dw.  CPU tensors: the plain version.  CUDA tensors:
-    kernel K1b (float32, contiguous), or an error; each call adds one to
-    `fsw_rank_aggregate_proj_bwd.launches`."""
+@_rank_proj_op.register_fake
+def _rank_proj_fake(Z, wn, pad_norm, freqs, V, uniform_w, with_dw):
+    return Z.new_empty((Z.shape[0], V.shape[1]))
+
+
+@torch.library.custom_op('fsw_gnn_tpu_torch::fsw_rank_aggregate_proj_bwd',
+                         mutates_args=(), device_types='cpu')
+def _rank_proj_bwd_op(Z: Tensor, wn: Tensor, pad_norm: Tensor,
+                      freqs: Tensor, V: Tensor, g: Tensor, uniform_w: bool,
+                      with_dw: bool
+                      ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """K1's backward on the CPU: the plain version."""
+    return _outs(fsw_rank_aggregate_proj_bwd_plain(
+        Z, wn, pad_norm, freqs, V, g, uniform_w=uniform_w,
+        with_dw=with_dw), Z)
+
+
+@_rank_proj_bwd_op.register_kernel('cuda')
+def _rank_proj_bwd_cuda(Z, wn, pad_norm, freqs, V, g, uniform_w, with_dw):
+    """K1b."""
     args = (Z, wn, pad_norm, freqs, V, g)
-    if _device(Z) == 'cpu':
-        return fsw_rank_aggregate_proj_bwd_plain(
-            *args, uniform_w=uniform_w, with_dw=with_dw)
     R, B, D = Z.shape
     S = V.shape[1]
     _check(list(zip(('Z', 'wn', 'pad_norm', 'freqs', 'V', 'g'), args)),
@@ -659,22 +771,43 @@ def fsw_rank_aggregate_proj_bwd(Z, wn, pad_norm, freqs, V, g,
     dZ = torch.empty((R, B, D), **f32)
     df = torch.empty((S,), **f32)
     dV = torch.empty((D, S), **f32)
-    dwn = torch.empty((R, B), **f32) if with_dw else None
-    dpad = torch.empty((R,), **f32) if with_dw else None
+    dwn = torch.empty((R, B) if with_dw else (0,), **f32)
+    dpad = torch.empty((R,) if with_dw else (0,), **f32)
     if R == 0 or B == 0 or S == 0 or D == 0:
-        for t in (dZ, df, dV, dwn, dpad):
-            if t is not None:
-                t.zero_()
-        return dZ, dwn, dpad, df, dV
+        return tuple(t.zero_() for t in (dZ, dwn, dpad, df, dV))
     fn, aux = _kernel('fsw_rank_bwdp')
-    _fits('fsw_rank_bwdp', B, with_dw=with_dw)
     ws = torch.empty((aux['workspace_bytes'](R, B, D, S, int(with_dw)),),
                      dtype=torch.uint8, device=Z.device)
     _launch('fsw_rank_bwdp', fn, *args, dZ, dwn if with_dw else None,
             dpad if with_dw else None, df, dV, ws,
             R, B, D, S, int(bool(uniform_w)), int(bool(with_dw)))
-    fsw_rank_aggregate_proj_bwd.launches += 1
+    _count(fsw_rank_aggregate_proj_bwd)
     return dZ, dwn, dpad, df, dV
+
+
+@_rank_proj_bwd_op.register_fake
+def _rank_proj_bwd_fake(Z, wn, pad_norm, freqs, V, g, uniform_w, with_dw):
+    R, B, D = Z.shape
+    return (Z.new_empty((R, B, D)), Z.new_empty((R, B) if with_dw else (0,)),
+            Z.new_empty((R,) if with_dw else (0,)),
+            Z.new_empty((V.shape[1],)), Z.new_empty(tuple(V.shape)))
+
+
+def fsw_rank_aggregate_proj_bwd(Z, wn, pad_norm, freqs, V, g,
+                                uniform_w: bool = False,
+                                with_dw: bool = True):
+    """K1's backward on Z's device: (dZ, dwn, dpad, df, dV), dwn and dpad
+    None without with_dw.  CPU tensors: the plain version.  CUDA tensors:
+    kernel K1b (float32, contiguous), or an error; each launch adds one to
+    `fsw_rank_aggregate_proj_bwd.launches`."""
+    if _device(Z) == 'cuda':
+        _fits('fsw_rank_bwdp', Z.shape[1], with_dw=with_dw)
+    return _grads(_rank_proj_bwd_op(Z, wn, pad_norm, freqs, V, g,
+                                    bool(uniform_w), bool(with_dw)), with_dw)
+
+
+_rank_proj_op.register_autograd(_backward(fsw_rank_aggregate_proj_bwd),
+                                setup_context=_setup)
 
 
 def fsw_rank_proj_projections(Z, V, kernel: str = 'fsw_rank_fwdp'):
@@ -695,34 +828,6 @@ def fsw_rank_proj_projections(Z, V, kernel: str = 'fsw_rank_fwdp'):
     return P
 
 
-class _RankProj(torch.autograd.Function):
-    """K1f forward, K1b backward (their plain versions on the CPU).  Saves
-    the inputs only; the backward recomputes P, as `_fswp_fwd` does."""
-
-    @staticmethod
-    def forward(ctx, Z, wn, pad_norm, freqs, V, uniform_w, with_dw):
-        ctx.save_for_backward(Z, wn, pad_norm, freqs, V)
-        ctx.uniform_w, ctx.with_dw = uniform_w, with_dw
-        if Z.device.type == 'cuda' and any(ctx.needs_input_grad[:5]):
-            # refuse now a width the backward could not take
-            _fits('fsw_rank_bwdp', Z.shape[1], with_dw=with_dw and any(
-                ctx.needs_input_grad[1:3]))
-        return _fwd(Z, wn, pad_norm, freqs, V, uniform_w)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        need = ctx.needs_input_grad
-        if not any(need[:5]):
-            return (None,) * 7
-        with_dw = ctx.with_dw and (need[1] or need[2])
-        grads = fsw_rank_aggregate_proj_bwd(
-            *ctx.saved_tensors, g.contiguous(), uniform_w=ctx.uniform_w,
-            with_dw=with_dw)
-        return tuple(t if n else None for t, n in zip(grads, need)) + (
-            None, None)
-
-
 def fsw_rank_aggregate_proj(Z, wn, pad_norm, freqs, V,
                             uniform_w: bool = False, with_dw: bool = True):
     """Z (R, B, D) gathered sender rows; wn (R, B) normalized weights;
@@ -735,8 +840,15 @@ def fsw_rank_aggregate_proj(Z, wn, pad_norm, freqs, V,
     pad_norm data: their gradient is None and its loop is skipped.
     uniform_w declares row-constant weights, honoured only with
     with_dw=False (see `fsw_rank_aggregate`)."""
-    return _RankProj.apply(Z, wn, pad_norm, freqs, V,
-                           bool(uniform_w) and not with_dw, bool(with_dw))
+    if _device(Z) == 'cuda':
+        B = Z.shape[1]
+        _fits('fsw_rank_fwdp', B)
+        if _grads_wanted(Z, wn, pad_norm, freqs, V):
+            # refuse now a width the backward could not take
+            _fits('fsw_rank_bwdp', B, with_dw=with_dw and (
+                wn.requires_grad or pad_norm.requires_grad))
+    return _rank_proj_op(Z, wn, pad_norm, freqs, V,
+                         bool(uniform_w) and not with_dw, bool(with_dw))
 
 
 fsw_rank_aggregate.launches = 0

@@ -14,11 +14,23 @@ slices, without a copy of the mask per row.
 
 `segcumsum` and `segcumsum_rows` run the CUDA kernel (csrc/segcumsum.cu,
 which says what bounds it and how it is built) on CUDA tensors and the
-plain versions on CPU tensors; on the card they never fall back.  Both are
-torch.autograd.Functions: the gradient of an inclusive segmented cumsum is
-the reverse segmented cumsum of the cotangent (the sum over the j >= i in
-i's segment), which the kernel computes in one launch on the cotangent as
-it lies.
+plain versions on CPU tensors; on the card they never fall back.  Each is
+a `torch.library` custom op (`torch.ops.fsw_gnn_tpu_torch.segcumsum` and
+`.segcumsum_rows`, with a `reverse` flag), so `torch.export` and CUDA-graph
+capture see one op: its CPU implementation is the plain version, its CUDA
+implementation the kernel, its fake implementation gives the shape.  The
+gradient of an inclusive segmented cumsum is the reverse segmented cumsum
+of the cotangent (the sum over the j >= i in i's segment), the same op
+with `reverse` flipped, which the kernel computes in one launch on the
+cotangent as it lies.
+
+The kernel keeps its look-back state in a workspace on the device, one per
+(device, stream), made and zeroed at the first call on that stream: a call
+passes nothing that changes from call to call, so a graph that captured it
+replays safely (see the source).  A call captured on a stream that has no
+workspace yet, or too small a one, raises: run it once on that stream
+before the capture (`utils.cache.CountingGraph` warms up on its capture
+stream).
 
 The TPU kernel's `method`, `precision`, `rows_per_block`, `nonnegative` and
 `interpret` choose its tiling and its MXU precision and are not carried
@@ -32,12 +44,16 @@ meaningful.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+from torch import Tensor
 
 _FN = {}
-_WS = {}       # (device index, stream) -> [workspace, epoch, capacity]
-_EPOCHS = 1 << 30
+# (device index, stream) -> (workspace, capacity in tiles); the workspaces
+# a stream outgrew stay alive, since a captured graph may still use them
+_WS = {}
+_RETIRED = []
 
 
 def segment_boundaries(segment_ids):
@@ -98,12 +114,14 @@ def segcumsum_rows_plain(values, boundaries, reverse=False):
 
 def _plain(values, segment_ids, boundaries, max_seg_size, reverse):
     """The doubling scan along the last axis of values (..., m) over the
-    ids or the mask (m,), stopped at an honest `max_seg_size`."""
+    ids or the mask (m,), stopped at an honest `max_seg_size`; a new
+    tensor, never `values` itself."""
     ids = segment_ids if segment_ids is not None else _ids_from_mask(
         boundaries)
     m = values.shape[-1]
     limit = m if max_seg_size is None else min(int(max_seg_size), m)
-    return _scan_plain(values, ids, limit, reverse)
+    out = _scan_plain(values, ids, limit, reverse)
+    return out.clone() if out is values else out
 
 
 def _segments(values, segment_ids, boundaries):
@@ -139,7 +157,7 @@ def _bind(lib):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_uint, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[dt] = fn
     fns['tiles'] = lib.segcumsum_tiles
@@ -161,27 +179,32 @@ def _kernel():
 
 
 def _workspace(dev, stream, tiles, ws_bytes):
-    """(workspace, capacity in tiles, epoch) of the stream: zeroed once and
-    kept, grown (zeroed anew) when a call needs more tiles, with a new
-    epoch each call: every value the kernel publishes there carries the
-    epoch, so no call has to clear it."""
+    """(workspace, capacity in tiles) of the stream: made and zeroed at its
+    first call, made anew (zeroed, twice as large) when a call needs more
+    tiles, else kept as it is (the kernel clears what the next call uses
+    itself).  Raises while the stream captures a graph, where nothing may
+    be made: the graph would keep a pointer to memory made outside it."""
     key = (dev.index, stream)
     ws = _WS.get(key)
-    if ws is None or ws[2] < tiles:
-        cap = max(tiles, 2 * ws[2] if ws else 0)
-        ws = _WS[key] = [torch.zeros((ws_bytes(cap),), dtype=torch.uint8,
-                                     device=dev), 0, cap]
-    ws[1] += 1
-    if ws[1] == _EPOCHS:
-        ws[0].zero_()
-        ws[1] = 1
-    return ws[0], ws[2], ws[1]
+    if ws is None or ws[1] < tiles:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f'segcumsum: the capturing stream has no workspace for '
+                f'{tiles} tiles; run the same call once on that stream '
+                f'before the capture')
+        if ws is not None:
+            _RETIRED.append(ws)
+        cap = max(tiles, 2 * ws[1] if ws else 0)
+        ws = _WS[key] = (torch.zeros((ws_bytes(cap),), dtype=torch.uint8,
+                                     device=dev), cap)
+    return ws
 
 
 def _run(values, segment_ids, boundaries, reverse):
     """K3 on the card: values (rows, m) float32 or float64, contiguous; the
     ids or the mask (m,) shared by every row.  Raises on what the kernel
-    does not take."""
+    does not take.  A launch that runs now (not one a graph captures)
+    adds one to `segcumsum.launches`."""
     dev = values.device
     if dev.type != 'cuda':
         raise ValueError(f'unsupported device {dev}')
@@ -210,40 +233,89 @@ def _run(values, segment_ids, boundaries, reverse):
     fns = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ws, cap, epoch = _workspace(dev, stream, fns['tiles'](rows, m),
-                                    fns['ws'])
+        ws, cap = _workspace(dev, stream, fns['tiles'](rows, m), fns['ws'])
         rc = fns[values.dtype](
             values.data_ptr(), None if ids is None else ids.data_ptr(),
             None if end is None else end.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), cap, rows, m, int(reverse), epoch, stream)
-    if rc != 0:
-        raise RuntimeError(f'segcumsum launch failed: CUDA error {rc}')
-    segcumsum.launches += 1
+            ws.data_ptr(), cap, rows, m, int(reverse), stream)
+        if rc != 0:
+            raise RuntimeError(f'segcumsum launch failed: CUDA error {rc}')
+        if not torch.cuda.is_current_stream_capturing():
+            segcumsum.launches += 1
     return out
 
 
-def _apply(values, segment_ids, boundaries, max_seg_size, reverse):
-    """values (rows, m) on its device: the plain version on the CPU, the
-    kernel on the card."""
-    if values.device.type == 'cpu':
-        return _plain(values, segment_ids, boundaries, max_seg_size, reverse)
-    return _run(values, segment_ids, boundaries, reverse)
+# ---- the custom ops: plain on the CPU, K3 on the card -----------------------
+
+@torch.library.custom_op('fsw_gnn_tpu_torch::segcumsum', mutates_args=(),
+                         device_types='cpu')
+def _segcumsum_op(values: Tensor, segment_ids: Optional[Tensor],
+                  boundaries: Optional[Tensor], max_seg_size: Optional[int],
+                  reverse: bool) -> Tensor:
+    """values (n,) over the ids or the mask (n,): the plain version."""
+    return _plain(values, segment_ids, boundaries, max_seg_size, reverse)
 
 
-class _SegCumsum(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, values, segment_ids, boundaries, max_seg_size):
-        ctx.save_for_backward(segment_ids, boundaries)
-        ctx.max_seg_size = max_seg_size
-        return _apply(values, segment_ids, boundaries, max_seg_size, False)
+@_segcumsum_op.register_kernel('cuda')
+def _segcumsum_cuda(values, segment_ids, boundaries, max_seg_size, reverse):
+    return _run(values[None], segment_ids, boundaries, reverse)[0]
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        segment_ids, boundaries = ctx.saved_tensors
-        dv = _apply(g.contiguous(), segment_ids, boundaries,
-                    ctx.max_seg_size, True)
-        return dv, None, None, None
+
+@_segcumsum_op.register_fake
+def _segcumsum_fake(values, segment_ids, boundaries, max_seg_size, reverse):
+    return values.new_empty(values.shape)
+
+
+def _setup_flat(ctx, inputs, output):
+    _, segment_ids, boundaries, max_seg_size, reverse = inputs
+    ctx.save_for_backward(segment_ids, boundaries)
+    ctx.max_seg_size, ctx.reverse = max_seg_size, reverse
+
+
+@torch.autograd.function.once_differentiable
+def _backward_flat(ctx, g):
+    segment_ids, boundaries = ctx.saved_tensors
+    dv = _segcumsum_op(g.contiguous(), segment_ids, boundaries,
+                       ctx.max_seg_size, not ctx.reverse)
+    return dv, None, None, None, None
+
+
+_segcumsum_op.register_autograd(_backward_flat, setup_context=_setup_flat)
+
+
+@torch.library.custom_op('fsw_gnn_tpu_torch::segcumsum_rows',
+                         mutates_args=(), device_types='cpu')
+def _segcumsum_rows_op(values: Tensor, boundaries: Tensor,
+                       reverse: bool) -> Tensor:
+    """values (rows, m) over one mask (m,): the plain version."""
+    return _plain(values, None, boundaries, None, reverse)
+
+
+@_segcumsum_rows_op.register_kernel('cuda')
+def _segcumsum_rows_cuda(values, boundaries, reverse):
+    return _run(values, None, boundaries, reverse)
+
+
+@_segcumsum_rows_op.register_fake
+def _segcumsum_rows_fake(values, boundaries, reverse):
+    return values.new_empty(values.shape)
+
+
+def _setup_rows(ctx, inputs, output):
+    _, boundaries, reverse = inputs
+    ctx.save_for_backward(boundaries)
+    ctx.reverse = reverse
+
+
+@torch.autograd.function.once_differentiable
+def _backward_rows(ctx, g):
+    boundaries, = ctx.saved_tensors
+    return (_segcumsum_rows_op(g.contiguous(), boundaries, not ctx.reverse),
+            None, None)
+
+
+_segcumsum_rows_op.register_autograd(_backward_rows,
+                                     setup_context=_setup_rows)
 
 
 def segcumsum(values, segment_ids=None, *, boundaries=None,
@@ -254,8 +326,9 @@ def segcumsum(values, segment_ids=None, *, boundaries=None,
     CUDA tensors: kernel K3 (float32 or float64), or an error; each launch
     adds one to `segcumsum.launches`.  Differentiable in `values`."""
     _segments(values, segment_ids, boundaries)
-    return _SegCumsum.apply(values[None], segment_ids, boundaries,
-                            max_seg_size)[0]
+    return _segcumsum_op(values, segment_ids, boundaries,
+                         None if max_seg_size is None else int(max_seg_size),
+                         False)
 
 
 def segcumsum_rows(values, boundaries):
@@ -265,7 +338,7 @@ def segcumsum_rows(values, boundaries):
     float64, one launch for all rows, counted in `segcumsum.launches`), or
     an error.  Differentiable in `values`."""
     _rows(values, boundaries)
-    return _SegCumsum.apply(values, None, boundaries, None)
+    return _segcumsum_rows_op(values, boundaries, False)
 
 
 segcumsum.launches = 0

@@ -345,7 +345,7 @@ def test_rank2_bwd_kernel_matches_plain(cuda_device, B, S, with_dw,
 
 @pytest.mark.cuda
 def test_rank2_autograd_and_width_limits(cuda_device):
-    """The autograd Function runs K2f and K2b on the card and its
+    """The custom ops run K2f and K2b on the card and its
     gradients equal the plain backward's; a width whose row does not fit
     in a block's shared memory raises a ValueError naming it, for all
     four kernels, before anything is launched."""
@@ -740,7 +740,7 @@ def test_rank_cart_bwd_kernel_matches_plain(cuda_device, B, S, F, with_dw,
 
 @pytest.mark.cuda
 def test_rank_cart_autograd_and_width_limits(cuda_device):
-    """The autograd Function runs K4f and K4b on the card and its
+    """The custom ops run K4f and K4b on the card and its
     gradients equal the plain backward's; a width whose row K4b cannot
     hold raises a ValueError naming it before anything is launched, also
     through an explicit aggregate='rank' of the embedding."""
@@ -791,3 +791,132 @@ def test_rank_cart_autograd_and_width_limits(cuda_device):
     huge = _args4(rng, 1, 4096, 8, 8, False, cuda_device)
     with pytest.raises(ValueError, match='bucket width 4096'):
         fsw_rank_aggregate_cart(*huge)
+
+
+# ---- the kernels as custom ops, CUDA graphs, the server's graphs, export ------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['K2f', 'K2f uniform', 'K2b dw', 'K2b',
+                                  'K1f', 'K1b dw', 'K1b', 'K4f', 'K4b dw',
+                                  'K4b uniform', 'K3 ids',
+                                  'K3 mask reverse', 'K3 rows',
+                                  'K3 rows reverse'])
+def test_custom_ops_opcheck_on_the_card(cuda_device, case):
+    """`torch.library.opcheck` of every op with its CUDA kernel (the cases
+    of test_torch_library_ops.py)."""
+    from test_torch_library_ops import op_cases
+    op, args = op_cases(cuda_device)[case]
+    torch.library.opcheck(op, args)
+
+
+@pytest.mark.cuda
+def test_segcumsum_replays_in_graphs(cuda_device):
+    """K3 captured in two graphs on one stream (one workspace): the flat
+    scan and the row form's reverse, each replayed in turn on two inputs;
+    every replay gives the eager call's bits, and the captures count no
+    launch."""
+    from fsw_gnn_tpu_torch.ops.segcumsum import (segcumsum, segcumsum_rows,
+                                                 segment_boundaries)
+    rng = np.random.default_rng(5)
+    n, rows, m = 300000, 9, 40000
+    mask = segment_boundaries(torch.from_numpy(
+        _segments(rng, n, 32)).to(cuda_device))
+    rmask = segment_boundaries(torch.from_numpy(
+        _segments(rng, m, 16)).to(cuda_device))
+    flat = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+            .to(cuda_device) for _ in range(2)]
+    rws = [torch.from_numpy(rng.standard_normal((rows, m)))
+           .to(cuda_device) for _ in range(2)]
+    from fsw_gnn_tpu_torch.ops.segcumsum import _run
+    want_f = [segcumsum(v, boundaries=mask) for v in flat]
+    want_r = [_run(v, None, rmask, True) for v in rws]
+    sf, sr = flat[0].clone(), rws[0].clone()
+    s = torch.cuda.Stream(cuda_device)
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        segcumsum(sf, boundaries=mask)
+        _run(sr, None, rmask, True)
+    torch.cuda.current_stream().wait_stream(s)
+    g1, g2 = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    before = segcumsum.launches
+    with torch.cuda.graph(g1, stream=s):
+        o1 = segcumsum(sf, boundaries=mask)
+    with torch.cuda.graph(g2, stream=s):
+        o2 = _run(sr, None, rmask, True)
+    assert segcumsum.launches == before
+    for _ in range(3):
+        for i in (1, 0):
+            sf.copy_(flat[i])
+            g1.replay()
+            sr.copy_(rws[i])
+            g2.replay()
+            assert torch.equal(o1, want_f[i]) and torch.equal(o2, want_r[i])
+    # and eager calls on the default stream after the replays
+    assert torch.equal(segcumsum(flat[1], boundaries=mask), want_f[1])
+    assert torch.equal(segcumsum_rows(rws[0], rmask),
+                       _run(rws[0], None, rmask, False))
+
+
+def _small_server_pair(cuda_device, dtype=torch.float32):
+    import fsw_gnn_tpu_torch as T
+    rng = np.random.default_rng(9)
+    n = 200
+    A = rng.random((n, n)) < 0.05
+    np.fill_diagonal(A, False)
+    ei = np.stack(np.nonzero(A))
+    model = T.FSWConv(8, 8, mlp_layers=3, minimize_slice_coherence=False,
+                      device=cuda_device)
+    classes, rows = T.multi_envelope(T.from_edge_index(ei, n), 256)
+    kw = dict(classes=classes, class_rows=rows, dtype=dtype,
+              device=cuda_device)
+    eager = T.GraphServer(model, 256, 4096, cuda_graphs=False, **kw)
+    graph = T.GraphServer(model, 256, 4096, **kw)
+    reqs = []
+    for seed, k in ((1, 200), (2, 131), (3, 256)):
+        r = np.random.default_rng(seed)
+        B = r.random((k, k)) < 0.05
+        np.fill_diagonal(B, False)
+        reqs.append((np.stack(np.nonzero(B)),
+                     r.standard_normal((k, 8)).astype(np.float32)))
+    star = np.stack([np.arange(1, 100), np.zeros(99, np.int64)])
+    reqs.append((star, np.ones((100, 8), np.float32)))
+    return eager, graph, reqs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_graph_server_matches_eager_server(cuda_device, dtype):
+    """The server's two routes through their CUDA graphs against the same
+    server eagerly: the same outputs (within 1e-4 of the output's scale;
+    the kernels and products are the same), warmup 2 graphs and none more
+    after requests on both routes, predict_many's window of copies."""
+    eager, graph, reqs = _small_server_pair(cuda_device, dtype)
+    assert graph.warmup(8) == 2 and eager.warmup(8) == 2
+    assert graph.warmup(8) == 0
+    want = [eager.predict(*r) for r in reqs]
+    got = [graph.predict(*r) for r in reqs]
+    many = graph.predict_many(reqs, window=2)
+    assert graph.num_compiles() == 2 and eager.fallbacks >= 1
+    assert graph.fallbacks == 2 * eager.fallbacks   # the star, at least
+    for g, m, w in zip(got, many, want):
+        assert np.array_equal(g, m)
+        np.testing.assert_allclose(g, w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max())
+
+
+@pytest.mark.cuda
+def test_export_on_the_card(cuda_device):
+    """export_forward for the card on a MultiTable and a CSR Graph; the
+    loaded artifact's output against the module's."""
+    import fsw_gnn_tpu_torch as T
+    eager, _, reqs = _small_server_pair(cuda_device)
+    ei, X = reqs[0]
+    Xd = torch.from_numpy(X).to(cuda_device)
+    g = T.from_edge_index(ei, X.shape[0])
+    for graph in (T.to_multi_table(g), g):
+        blob = T.export_forward(eager.model, Xd, graph, device=cuda_device)
+        got = T.load_forward(blob)(Xd)
+        with torch.no_grad():
+            want = eager.model(Xd, graph.to(cuda_device))
+        torch.testing.assert_close(got.detach(), want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())

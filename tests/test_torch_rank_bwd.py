@@ -1,5 +1,5 @@
 """The port's backward of the fused-projection rank aggregation (the plain
-version of kernel K1b, and the autograd Function around both directions)
+version of kernel K1b, and the custom ops around both directions)
 against `jax.vjp` of the JAX package's `fsw_rank_aggregate_proj` (its
 Pallas kernels in interpret mode).
 
@@ -109,7 +109,7 @@ def test_bwd_plain_matches_autograd_of_plain_forward(B):
 
 @pytest.mark.parametrize('with_dw', [False, True])
 def test_function_backward_is_plain_backward_on_cpu(with_dw):
-    """On CPU tensors the autograd Function's backward is the plain
+    """On CPU tensors the custom op's backward is the plain
     backward, bit for bit; no kernel launches; with_dw=False gives wn and
     pad_norm no gradient."""
     rng = np.random.default_rng(11)

@@ -1,5 +1,5 @@
 """The port's cartesian rank aggregation K4 (`fsw_rank_aggregate_cart`: the
-forward and backward plain versions, and the autograd Function on the CPU)
+forward and backward plain versions, and the custom ops on the CPU)
 against the JAX package's `fsw_rank_aggregate_cart` (its Pallas kernels in
 interpret mode) and `jax.vjp` of it.
 
@@ -80,7 +80,7 @@ def test_cart_f64_forward_matches_jax(R, B, S, F, ties):
 
 
 def _port_grads(args, G, with_dw, uniform_w=False):
-    """The gradients of sum(out * G) through the autograd Function on the
+    """The gradients of sum(out * G) through the custom op on the
     CPU (the plain backward)."""
     ts = [torch.tensor(a, requires_grad=True) for a in args]
     out = fsw_rank_aggregate_cart(*ts, uniform_w=uniform_w, with_dw=with_dw)
@@ -101,7 +101,7 @@ def _check_grads(got, want, with_dw):
 @pytest.mark.parametrize('with_dw', [False, True])
 @pytest.mark.parametrize('ties', [False, True])
 def test_cart_f64_grads_match_jax(B, with_dw, ties):
-    """dP, dwn, dpad and the (S, F) df through `_RankCart` against
+    """dP, dwn, dpad and the (S, F) df through the K4 op against
     jax.vjp of the JAX kernel."""
     rng = np.random.default_rng(100 + B)
     R, S, F = 7, 10, 4
@@ -180,7 +180,7 @@ def test_cart_zero_weight_padding_contributes_zero():
 
 
 def test_cart_autograd_is_the_plain_backward():
-    """On the CPU the autograd Function's forward and backward are the
+    """On the CPU the custom op's forward and backward are the
     plain versions (no launch is counted), and only the inputs that need a
     gradient get one: without a weight gradient the with_dw loop is
     skipped."""

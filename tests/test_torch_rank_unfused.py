@@ -1,5 +1,5 @@
 """The port's unfused rank aggregation K2 (`fsw_rank_aggregate`: forward
-and backward plain versions, and the autograd Function on the CPU) against
+and backward plain versions, and the custom ops on the CPU) against
 the JAX package's `fsw_rank_aggregate` (its Pallas kernels in interpret
 mode) and `jax.vjp` of it; and the table path's unfused 'rank' route
 (d_in + d_edge >= slices) through FSWConv.
@@ -105,7 +105,7 @@ def test_rank2_f64_backward_matches_jax_vjp(B, uniform_w, with_dw):
 
 @pytest.mark.parametrize('with_dw', [False, True])
 def test_rank2_f32_matches_jax(with_dw):
-    """float32 forward and, through the autograd Function, backward."""
+    """float32 forward and, through the custom op, backward."""
     rng = np.random.default_rng(7)
     args = tuple(a.astype(np.float32) for a in _args(rng, 16, 13, 40, False))
     G = rng.standard_normal((16, 40)).astype(np.float32)
@@ -125,7 +125,7 @@ def test_rank2_f32_matches_jax(with_dw):
 
 
 def test_rank2_autograd_is_the_plain_backward():
-    """On the CPU the autograd Function's forward and backward are the
+    """On the CPU the custom op's forward and backward are the
     plain versions (no launch is counted), and only the inputs that need a
     gradient get one: without a weight gradient the with_dw loop is
     skipped."""

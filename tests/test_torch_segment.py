@@ -230,7 +230,7 @@ def test_gather_and_sort_gradients_match_jax():
 
 
 def test_segcumsum_gradient_matches_jax():
-    """The autograd Function's backward (the reversed segmented cumsum,
+    """The custom op's backward (the reversed segmented cumsum,
     ids and mask) against jax.grad of the restart scan."""
     rng = np.random.default_rng(5)
     n = 600
