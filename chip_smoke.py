@@ -196,12 +196,42 @@ Phases (any failure exits non-zero before the last line is printed):
      the bench graph in the `multi` layout and as a CSR Graph, saved,
      loaded and called (K1f or K3 through their ops), against the eager
      module and timed beside it (`export:` line);
- 29. one JSON line listing the seven kernels with their launches, errors,
+ 29. minibatch training at ogbn-arxiv's published scale
+     (`minibatch_phase`): a graph of 169343 nodes, 1166243 directed edges,
+     128 features, 40 planted classes and OGB's split sizes, built in O(E)
+     (`arxiv_data`); the MinibatchTrainer with FSWGNN hidden (64,) at the
+     CLI's defaults, batch 1024, fanouts (10, 10) (max_nodes 113664,
+     max_edges 112640), one epoch of 89 steps: the first step's loss
+     against the same step on the CPU, the loss finite and falling, every
+     batch one shape, K3 two launches a step and no rank kernel (the
+     batches take the CSR route), K3 held against its plain version on one
+     step's captured calls; the epoch's seconds, a step's host parts
+     (sampling, the CSR build, the copy in, all of `_build_batch`) beside
+     its device ms and the idle share, a trace of a step (its
+     segment-reduce kernels, where the padding segment is summed), the
+     sorted segment-sum timed with the padding as built and spread over
+     the empty recipients (`padding_segment_ms`) and the peak memory
+     (`minibatch:` line);
+ 30. layer-wise inference (`layerwise_phase`): the trained model through
+     `layerwise_predict(node_chunk=16384)` and the full-graph predict (the
+     `multi` layout), both timed with their peak memory, within 1e-4 of
+     the logits' scale of each other; K1f and K2f held against their plain
+     versions on every call of the full forward, K3 on one chunk's calls
+     (`layer-wise:` line);
+ 31. the normal entry point (`cli_minibatch_phase`): `python -m
+     fsw_gnn_tpu_torch.cli train --dataset ogbn-arxiv --minibatch
+     --batch-size 1024 --fanouts 10,10 --epochs 2 --eval-node-chunk 4096`
+     on the loader's stand-in exits 0 and reports device cuda (`cli:`
+     line);
+ 32. dsmetric (`dsmetric_phase`): the demo's pair (n = 12, d = 4), a batch
+     of 64 pairs at n = 64 in float64 and float32 against the CPU in
+     float64, the ms a solve and a trace of one (`dsmetric:` line);
+ 33. one JSON line listing the seven kernels with their launches, errors,
      times and bounds (the launches are those of the main-path runs 4, 6,
-     7, 8, 9, 10, 12-16, 18, 19, 20, 24, 26, 27 and 28 together; K2's
-     times and bounds at phase 8's shape, K3's at phase 12's, K4's at
-     phase 17's with B = 32, K4b's with with_dw);
- 30. the last line: {"ok": true, "device": {...}}.
+     7, 8, 9, 10, 12-16, 18, 19, 20, 24, 26-30 together; K2's times and
+     bounds at phase 8's shape, K3's at phase 12's, K4's at phase 17's
+     with B = 32, K4b's with with_dw);
+ 34. the last line: {"ok": true, "device": {...}}.
 
 Tolerances:
   * K1f against its plain version, both on the card in float32:
@@ -258,6 +288,15 @@ Tolerances:
     round the products in another order (about 1e-14 after the schedule
     on the CPU against JAX), and every step decision falls alike.
   * phase 24's outputs against the CPU: as the served output above.
+  * phase 29's first loss against the CPU: relative 1e-4, as the
+    Trainer's (unit weights: every cumulative weight is exact in either
+    order).  Phase 30: layer-wise against the full predict within 1e-4 of
+    the logits' scale (the chunks' scans and the `multi` layout's rank
+    kernels sum in other orders: the JAX package's own test holds them at
+    rtol 5e-5, atol 2e-5).  Phase 32: float64 on the card against the CPU
+    within 1e-9 of each value (the same steps; cuBLAS and the CPU round
+    the products in another order), float32 within 1e-2 of float64 on the
+    unrelated pairs and 1e-2 of the largest value on all.
   * phases 25-28: K3's replays and the uint16 server against their eager
     or int32 twins bit for bit; the graph server and the artifact against
     the eager server and module within 1e-4 of the output's scale (the
@@ -372,6 +411,17 @@ SCATTER_KERNELS = ('indexing_backward', 'indexFunc', 'index_add',
                    'scatter_add', 'ReduceAdd')
 SCATTER_OPS = ('aten::index_add', 'aten::index_add_', 'aten::scatter_add',
                'aten::scatter_add_', 'aten::_index_put_impl_')
+ARXIV_NODES, ARXIV_EDGES = 169343, 1166243      # ogbn-arxiv's published
+ARXIV_FEATURES, ARXIV_CLASSES = 128, 40          # counts, and OGB's split
+ARXIV_SPLIT = (90941, 29799, 48603)
+ARXIV_SAME_CLASS, ARXIV_MEAN_SCALE = 0.8, 0.5
+MB_BATCH, MB_FANOUTS, MB_HIDDEN = 1024, (10, 10), (64,)
+MB_CAPS = (MB_BATCH * 111, MB_BATCH * 110)       # b (1 + 10 + 100), b 110
+LW_NODE_CHUNK, LW_ATOL_REL = 16384, 1e-4
+CLI_EPOCHS, CLI_NODE_CHUNK, CLI_TIMEOUT = 2, 4096, 600
+DS_DEMO_N, DS_DEMO_D, DS_TRACE_OUTER = 12, 4, 50
+DS_PAIRS, DS_N, DS_D, DS_CPU_PAIRS = 64, 64, 4, 8
+DS_F64_RTOL, DS_F32_RTOL, DS_ISO_SHARE = 1e-9, 1e-2, 1e-2
 
 
 def fail(msg):
@@ -3326,6 +3376,523 @@ def export_phase(torch, T, dev, model, counts):
     return res
 
 
+def arxiv_data(seed=0):
+    """A node-classification graph of ogbn-arxiv's published counts (169343
+    nodes, 1166243 directed edges, 128 features, 40 classes, OGB's split
+    sizes), built in O(E) from `seed`: planted labels, ARXIV_SAME_CLASS of
+    the edges within the recipient's class (senders drawn from it, the rest
+    uniform), no self-loops, features N(mean of the class, 1)."""
+    from fsw_gnn_tpu_torch.data import NodeClassificationData
+    rng = np.random.default_rng(seed)
+    N, E, F, C = ARXIV_NODES, ARXIV_EDGES, ARXIV_FEATURES, ARXIV_CLASSES
+    labels = rng.integers(0, C, N)
+    by_class = np.argsort(labels, kind='stable')
+    starts = np.searchsorted(labels[by_class], np.arange(C + 1))
+    dst = rng.integers(0, N, E)
+    src = rng.integers(0, N, E)
+    same = rng.random(E) < ARXIV_SAME_CLASS
+    cls = labels[dst[same]]
+    size = starts[cls + 1] - starts[cls]
+    src[same] = by_class[starts[cls] + (rng.random(cls.shape[0])
+                                        * size).astype(np.int64)]
+    src = np.where(src == dst, (src + 1) % N, src)
+    means = rng.standard_normal((C, F)) * ARXIV_MEAN_SCALE
+    features = (means[labels]
+                + rng.standard_normal((N, F))).astype(np.float32)
+    perm = rng.permutation(N)
+    n_tr, n_va, _ = ARXIV_SPLIT
+    masks = []
+    for lo, hi in ((0, n_tr), (n_tr, n_tr + n_va), (n_tr + n_va, N)):
+        m = np.zeros(N, bool)
+        m[perm[lo:hi]] = True
+        masks.append(m)
+    return NodeClassificationData(
+        name='ogbn-arxiv-shaped', edge_index=np.stack([src, dst]),
+        features=features, labels=labels, train_mask=masks[0],
+        val_mask=masks[1], test_mask=masks[2])
+
+
+def minibatch_phase(torch, T, dev, smi_line, counts, errs):
+    """Phase 29: the MinibatchTrainer at arxiv's published scale
+    (`arxiv_data`): FSWGNN hidden (64,) and 40 outputs at the CLI's
+    defaults, batch 1024, fanouts (10, 10), one epoch (89 steps).  The
+    first step's loss against the same step on the CPU (the plain path),
+    the loss finite and falling, every batch one shape, K3 two launches a
+    step and no rank kernel (the batches take the CSR route); K3 held
+    against its plain version on one step's calls and timed on each beside
+    its bound, its plain version and torch.cumsum; the epoch's seconds,
+    a step's host parts beside its device time, the idle share, a trace of
+    a step and the peak memory.  Returns the trainer for phase 30."""
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    from fsw_gnn_tpu_torch.ops import segcumsum
+    from fsw_gnn_tpu_torch.train import (MinibatchTrainer,
+                                         masked_softmax_cross_entropy)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    data = arxiv_data(0)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr = MinibatchTrainer(data, T.TrainConfig(hidden_dims=MB_HIDDEN,
+                                              epochs=1, eval_every=1),
+                          batch_size=MB_BATCH, fanouts=MB_FANOUTS,
+                          device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if (tr.max_nodes, tr.max_edges) != MB_CAPS:
+        fail(f'minibatch: caps {(tr.max_nodes, tr.max_edges)}, expected '
+             f'{MB_CAPS}')
+    cpu_model = copy.deepcopy(tr.model).to('cpu')
+
+    fields = ('src', 'dst', 'weight', 'row_ptr', 'in_degrees', 'src_order',
+              'src_sorted')
+    shapes, losses, first = set(), [], []
+    real_build, real_step = tr._build_batch, tr._mb_step
+
+    def build(seeds):
+        out = real_build(seeds)
+        g = out[0]
+        shapes.add(tuple(tuple(getattr(g, f).shape) for f in fields)
+                   + tuple(tuple(t.shape) for t in out[1:])
+                   + ((g.num_nodes, g.num_recipients, g.num_edges),))
+        if not first:
+            first.append(out)
+        return out
+
+    def step(*args):
+        loss = real_step(*args)
+        losses.append(loss)
+        return loss
+    tr._build_batch, tr._mb_step = build, step
+    rank_names = ('fsw_rank_aggregate_proj', 'fsw_rank_aggregate_proj_bwd',
+                  'fsw_rank_aggregate', 'fsw_rank_aggregate_bwd')
+    for name in rank_names:
+        getattr(R, name).launches = 0
+    segcumsum.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mean_loss = tr.train_epoch()          # ends in a wait for the device
+    epoch_s = time.perf_counter() - t0
+    peak_train = torch.cuda.max_memory_allocated()
+    tr._build_batch, tr._mb_step = real_build, real_step
+    n_k3 = segcumsum.launches
+    n_rank = {n: getattr(R, n).launches for n in rank_names}
+    n_steps = len(losses)
+    want_steps = -(-int(data.train_mask.sum()) // MB_BATCH)
+    n_layers = len(tr.model.convs)
+    if n_steps != want_steps or n_k3 != n_steps * n_layers or any(
+            n_rank.values()):
+        fail(f'minibatch: {n_steps} steps (expected {want_steps}), K3 '
+             f'launched {n_k3} times (expected {n_steps * n_layers}), rank '
+             f'kernels {n_rank} (expected none)')
+    counts['segcumsum'] += n_k3
+    L = torch.stack(losses).cpu().numpy()
+    if not (np.isfinite(L).all() and L[-10:].mean() < L[:10].mean()
+            and L[-1] < L[0]):
+        fail(f'minibatch: loss not finite and falling: {L.tolist()}')
+    if len(shapes) != 1:
+        fail(f'minibatch: the batches took {len(shapes)} shapes: {shapes}')
+
+    # the first step's loss on the CPU, the plain path, the same model
+    g0, X0, y0, m0 = first[0]
+    cpu_model.train()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        s, c = masked_softmax_cross_entropy(
+            cpu_model(X0.cpu(), g0.to('cpu')), y0.cpu(), m0.cpu())
+        loss0_cpu = (s / torch.clamp(c, min=1.0)).item()
+    cpu_s = time.perf_counter() - t0
+    if not abs(L[0] - loss0_cpu) <= LOSS0_RTOL * abs(loss0_cpu):
+        fail(f'minibatch: first loss {L[0]} differs from the CPU\'s '
+             f'{loss0_cpu}')
+    del first, cpu_model, g0, X0, y0, m0
+
+    # K3 on one step's calls; a step's parts, timed on one batch
+    seeds = tr.train_seeds[:MB_BATCH]
+    batch = real_build(seeds)
+    calls = capture_k3_calls(lambda: tr._mb_step(*batch))
+    if len(calls) != n_layers:
+        fail(f'minibatch: {len(calls)} K3 calls in a step, expected '
+             f'{n_layers}')
+    from fsw_gnn_tpu_torch.ops.segcumsum import (segcumsum_rows,
+                                                 segcumsum_rows_plain)
+    e, k3_calls = 0.0, []
+    for k, call in enumerate(calls):
+        vals, mask = call['values'], call['mask']
+        e = max(e, check_k3(torch, f'minibatch step, layer {k}', vals,
+                            dict(boundaries=mask)))
+        # this call's K3 beside its bound, its plain version and
+        # torch.cumsum along the rows (unsegmented, a floor)
+        with torch.no_grad():
+            k3_calls.append({
+                'shape': list(vals.shape),
+                'ms': device_ms(torch, lambda: segcumsum_rows(vals, mask),
+                                20)[0],
+                'plain_ms': device_ms(torch, lambda: segcumsum_rows_plain(
+                    vals, mask), 2, 2)[0],
+                'torch_cumsum_ms': device_ms(
+                    torch, lambda: torch.cumsum(vals, 1), 20)[0],
+                'bound_ms': 1e3 * k3_bytes(vals.numel(), 4, 'mask',
+                                           m=vals.shape[1]) / PEAK_BYTES})
+    errs['segcumsum'] = max(errs['segcumsum'], e)
+    del calls
+
+    def host_ms(fn, n=5):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return 1e3 * float(np.median(times))
+    sampled = tr.sampler.sample(seeds, labels=data.labels,
+                                max_nodes=tr.max_nodes)
+    g_host = T.from_edge_index(sampled.edge_index_local, tr.max_nodes,
+                               pad_to=tr.max_edges, dtype=np.float32)
+    real_edges = g_host.num_edges
+
+    def copy_in():
+        g_host.to(dev)
+        tr.X[torch.from_numpy(sampled.node_ids).to(dev)]
+        torch.from_numpy(np.zeros(tr.max_nodes, np.int64)).to(dev)
+        torch.from_numpy(np.zeros(tr.max_nodes, np.float32)).to(dev)
+    parts = {
+        'sample_ms': host_ms(lambda: tr.sampler.sample(
+            seeds, labels=data.labels, max_nodes=tr.max_nodes)),
+        'csr_build_ms': host_ms(lambda: T.from_edge_index(
+            sampled.edge_index_local, tr.max_nodes, pad_to=tr.max_edges,
+            dtype=np.float32)),
+        'copy_in_ms': host_ms(copy_in),
+        'build_batch_ms': host_ms(lambda: real_build(seeds))}
+    parts['step_device_ms'], parts['step_host_enqueue_ms'] = device_ms(
+        torch, lambda: tr._mb_step(*batch), 3)
+    parts['step_busy_ms'], kern = traced_top_kernels(
+        torch, lambda: tr._mb_step(*batch), 3, top=10 ** 6)
+    seg_reduce_ms = sum(k[1] for k in kern
+                        if 'segment_reduce' in k[0].lower()
+                        or 'segmentreduce' in k[0].lower())
+    pad = padding_segment_ms(torch, batch[0], k3_calls[0]['shape'][0])
+    res = {
+        'card': smi_line, 'nodes': data.num_nodes,
+        'edges': int(tr.graph.num_edges),
+        'features': ARXIV_FEATURES, 'classes': data.num_classes,
+        'train_seeds': int(data.train_mask.sum()), 'batch': MB_BATCH,
+        'fanouts': list(MB_FANOUTS), 'max_nodes': tr.max_nodes,
+        'max_edges': tr.max_edges, 'real_edges_one_batch': real_edges,
+        'padding_edges_one_batch': tr.max_edges - real_edges,
+        'real_nodes_one_batch': sampled.num_real_nodes,
+        'steps': n_steps, 'k3_launches': n_k3, 'k3_calls': k3_calls,
+        'k3_max_abs_err': e, 'rank_kernel_launches': n_rank,
+        'data_s': data_s, 'init_s': init_s, 'epoch_s': epoch_s,
+        'loss_first': float(L[0]), 'loss_first_cpu': loss0_cpu,
+        'cpu_step_forward_s': cpu_s, 'loss_last': float(L[-1]),
+        'loss_epoch_mean': mean_loss, **parts,
+        'device_idle_share': 1.0 - n_steps * parts['step_device_ms']
+        / (1e3 * epoch_s),
+        'segment_reduce_ms_per_step': seg_reduce_ms,
+        'padding_segment': pad,
+        'step_top_kernels': kern[:10],
+        'max_memory_allocated_mb': peak_train / 2 ** 20,
+        'phase_s': time.perf_counter() - t_phase}
+    print('minibatch: ' + json.dumps(res), flush=True)
+    del batch
+    return tr
+
+
+def padding_segment_ms(torch, g, S):
+    """What the batch graph's padding segment costs the CSR path's sorted
+    segment-sum (`ops.segment.segment_sum`, `torch.segment_reduce`): its
+    device ms on (S, E) terms with the graph's segments, where every
+    padding edge lies in the last recipient's segment, against the same
+    terms with the padding edges given one each to the empty padded
+    recipients before the last (a layout the port does not build; timed
+    only to price the padding)."""
+    from fsw_gnn_tpu_torch.ops.segment import segment_sum
+    R, E = g.num_recipients, g.src.shape[0]
+    real = int((g.weight > 0).sum())
+    lengths = torch.diff(g.row_ptr.long())
+    spread = lengths.clone()
+    n_pad = E - real
+    spread[R - 1] -= n_pad
+    empty = torch.nonzero(spread[:R - 1] == 0).flatten()
+    if empty.numel() < n_pad:
+        return None
+    spread[empty[-n_pad:]] += 1
+    dst_spread = torch.repeat_interleave(
+        torch.arange(R, device=g.dst.device), spread)
+    terms = torch.randn((S, E), device=g.dst.device)
+    out = {}
+    with torch.no_grad():
+        for name, ids, ln in (('as_built', g.dst, lengths),
+                              ('padding_spread', dst_spread, spread)):
+            out[f'{name}_ms'] = device_ms(torch, lambda: segment_sum(
+                terms, ids, R, 1, ln), 10)[0]
+    out.update(rows=S, edges=E, padding_edges=n_pad)
+    return out
+
+
+def layerwise_phase(torch, T, dev, tr, smi_line, counts, errs):
+    """Phase 30: the trained model of phase 29 through `layerwise_predict`
+    (node_chunk 16384) and through the full-graph predict (the `multi`
+    layout: K1f and K2f), both timed with their peak memory; the largest
+    difference within 1e-4 of the logits' scale; K1f and K2f held against
+    their plain versions on every call of the full forward, and timed on
+    each beside its bound and plain version; K3 on one chunk's calls; the
+    launches counted."""
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    from fsw_gnn_tpu_torch.ops import segcumsum
+    from fsw_gnn_tpu_torch.train.infer import layerwise_predict
+    t_phase = time.perf_counter()
+    data = tr.data
+    n_layers = len(tr.model.convs)
+    n_classes = len(tables_of(tr.compute_graph))
+    tr.model.eval()
+    run = lambda: tr.model(tr.X, tr.compute_graph)  # noqa: E731
+    with torch.no_grad():
+        calls = capture_rank_calls(run)
+        calls2 = capture_rank_calls(run, 'fsw_rank_aggregate')
+    if len(calls) + len(calls2) != n_layers * n_classes:
+        fail(f'layer-wise: the full forward made {len(calls)} K1 and '
+             f'{len(calls2)} K2 calls for {n_layers} layers x {n_classes} '
+             f'classes')
+    fwd = {'K1': 0.0, 'K2': 0.0}
+    timed_calls = []
+    with torch.no_grad():
+        for kind, cs in (('K1', calls), ('K2', calls2)):
+            _, _, kernel, plain, _, _, _ = rank_fns(kind)
+            for args, unif, _ in cs:
+                label = f'arxiv evaluation, {kind}, {tuple(args[0].shape)}'
+                fwd[kind] = max(fwd[kind], check_fwd(torch, label, args,
+                                                     unif, kind)[0])
+                if kind == 'K2':
+                    check_fwd_padding(torch, label, args, unif, kind)
+                    bound, by = rank2_bound_ms(args[1], args[0].shape[2])
+                else:
+                    bound, by, _ = rank_bound_ms(args[1], args[0].shape[2],
+                                                 args[4].shape[1])
+                # each call's kernel beside its bound and plain version
+                timed_calls.append({
+                    'kernel': f'{kind}f', 'shape': list(args[0].shape),
+                    'ms': device_ms(torch, lambda: kernel(
+                        *args, uniform_w=unif, with_dw=False), 5)[0],
+                    'plain_ms': device_ms(torch, lambda: plain(
+                        *args, uniform_w=unif), 2, 2)[0],
+                    'bound_ms': bound, 'bound_by': by})
+    errs['fsw_rank_fwdp'] = max(errs['fsw_rank_fwdp'], fwd['K1'])
+    errs['fsw_rank_fwd'] = max(errs['fsw_rank_fwd'], fwd['K2'])
+    del calls, calls2
+
+    names = ('fsw_rank_aggregate_proj', 'fsw_rank_aggregate')
+    for name in names:
+        getattr(R, name).launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full = tr.predict()
+    full_s = time.perf_counter() - t0
+    full_peak = torch.cuda.max_memory_allocated()
+    n_f, n_f2 = (getattr(R, name).launches for name in names)
+    if n_f + n_f2 != n_layers * n_classes:
+        fail(f'layer-wise: the full predict launched K1f {n_f} and K2f '
+             f'{n_f2} times, expected {n_layers * n_classes} in all')
+    counts['fsw_rank_fwdp'] += n_f
+    counts['fsw_rank_fwd'] += n_f2
+
+    n_chunks = -(-data.num_nodes // LW_NODE_CHUNK)
+    segcumsum.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lw = layerwise_predict(tr.model, data.features, tr.graph, LW_NODE_CHUNK,
+                           device=dev)
+    lw_s = time.perf_counter() - t0
+    lw_peak = torch.cuda.max_memory_allocated()
+    n_k3 = segcumsum.launches
+    if n_k3 != n_layers * n_chunks:
+        fail(f'layer-wise: K3 launched {n_k3} times, expected '
+             f'{n_layers * n_chunks}')
+    counts['segcumsum'] += n_k3
+    scale = float(np.abs(full).max())
+    diff = float(np.abs(lw - full).max())
+    if not (np.isfinite(lw).all() and diff <= LW_ATOL_REL * scale):
+        fail(f'layer-wise: differs from the full predict by {diff:.3e} '
+             f'(scale {scale:.3e})')
+
+    # K3 on one chunk's calls: the first chunk of each layer
+    calls = capture_k3_calls(lambda: layerwise_predict(
+        tr.model, data.features, tr.graph, LW_NODE_CHUNK, device=dev))
+    e = 0.0
+    for k in range(n_layers):
+        call = calls[k * n_chunks]
+        e = max(e, check_k3(torch, f'layer-wise, layer {k}, chunk 0',
+                            call['values'], dict(boundaries=call['mask'])))
+    errs['segcumsum'] = max(errs['segcumsum'], e)
+    k3_shapes = [list(calls[k * n_chunks]['values'].shape)
+                 for k in range(n_layers)]
+    del calls
+    pred = full.argmax(-1)
+    acc = {f'{split}_acc': float((pred[m] == data.labels[m]).mean())
+           for split, m in (('train', data.train_mask),
+                            ('val', data.val_mask),
+                            ('test', data.test_mask))}
+    res = {'card': smi_line, 'node_chunk': LW_NODE_CHUNK,
+           'chunks': n_chunks, 'degree_classes': n_classes,
+           'k1f_launches': n_f, 'k2f_launches': n_f2,
+           'rank_calls': timed_calls,
+           'k1f_max_abs_err': fwd['K1'], 'k2f_max_abs_err': fwd['K2'],
+           'k3_launches': n_k3, 'k3_chunk_shapes': k3_shapes,
+           'k3_max_abs_err': e,
+           'full_predict_s': full_s, 'layerwise_s': lw_s,
+           'allocated_before_mb': base / 2 ** 20,
+           'full_peak_mb': full_peak / 2 ** 20,
+           'layerwise_peak_mb': lw_peak / 2 ** 20,
+           'max_abs_diff': diff, 'logit_scale': scale, **acc,
+           'phase_s': time.perf_counter() - t_phase}
+    print('layer-wise: ' + json.dumps(res), flush=True)
+
+
+def cli_minibatch_phase(smi_line):
+    """Phase 31: `python -m fsw_gnn_tpu_torch.cli train --dataset
+    ogbn-arxiv --minibatch ...` on the loader's stand-in (or
+    data/ogbn-arxiv.npz where it is present), in a process of its own:
+    exit 0 and a JSON line that says device cuda."""
+    cmd = [sys.executable, '-m', 'fsw_gnn_tpu_torch.cli', 'train',
+           '--dataset', 'ogbn-arxiv', '--minibatch', '--batch-size',
+           str(MB_BATCH), '--fanouts', ','.join(map(str, MB_FANOUTS)),
+           '--epochs', str(CLI_EPOCHS), '--eval-node-chunk',
+           str(CLI_NODE_CHUNK)]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f'cli: {" ".join(cmd[1:])} ran past {CLI_TIMEOUT} s')
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f'cli: exit {proc.returncode}:\n{proc.stderr[-3000:]}')
+    try:
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        fail(f'cli: no JSON line in its output:\n{proc.stdout[-2000:]}')
+    if out.get('device') != 'cuda' or out.get('epochs_run') != CLI_EPOCHS:
+        fail(f'cli: {out}')
+    print('cli: ' + json.dumps({'card': smi_line,
+                                'command': ' '.join(cmd[1:]), **out,
+                                'wall_s': wall}), flush=True)
+
+
+def dsmetric_pairs(seed, n_pairs, n, d, p=0.3):
+    """(A1, V1, A2, V2) of n_pairs graph pairs as the demo draws them: the
+    even pairs two unrelated graphs, the odd ones a graph and a permuted
+    copy of it."""
+    rng = np.random.default_rng(seed)
+
+    def graph():
+        A = (rng.random((n, n)) < p).astype(float)
+        np.fill_diagonal(A, 0)
+        return np.maximum(A, A.T), rng.standard_normal((n, d))
+    out = [[], [], [], []]
+    for k in range(n_pairs):
+        A, V = graph()
+        if k % 2:
+            P = np.eye(n)[rng.permutation(n)]
+            B, W = P @ A @ P.T, P @ V
+        else:
+            B, W = graph()
+        for lst, x in zip(out, (A, V, B, W)):
+            lst.append(x)
+    return [np.stack(x) for x in out]
+
+
+def dsmetric_phase(torch, T, dev, smi_line):
+    """Phase 32: dsmetric on the card.  The demo's pair (n = 12, d = 4,
+    examples/demo_dsmetric.py) in float32; a batch of 64 pairs at n = 64
+    (`dsmetric_pairs`) in float64 and float32: float64 on the card within
+    1e-9 of float64 on the CPU (the first DS_CPU_PAIRS pairs), float32
+    within 1e-2 of float64 on the unrelated pairs, the isomorphic pairs
+    below 1e-2 of the unrelated ones in both; the ms a solve (500 steps),
+    and the launches and busy ms of a DS_TRACE_OUTER-step solve from a
+    trace.  No CUDA graph: the solver is an eager loop of small ops.""" 
+    from fsw_gnn_tpu_torch.ops.sinkhorn import dsmetric_batched
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    n, d = DS_DEMO_N, DS_DEMO_D
+    A1 = (rng.random((n, n)) < 0.3).astype(float)
+    np.fill_diagonal(A1, 0)
+    A1 = np.maximum(A1, A1.T)
+    V1 = rng.standard_normal((n, d))
+    P = np.eye(n)[rng.permutation(n)]
+    A2, V2 = P @ A1 @ P.T, P @ V1
+    A3 = (rng.random((n, n)) < 0.3).astype(float)
+    np.fill_diagonal(A3, 0)
+    A3 = np.maximum(A3, A3.T)
+    V3 = rng.standard_normal((n, d))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+    d_iso, iso_ms = timed(lambda: T.dsmetric(A1, V1, A2, V2, device=dev))
+    d_rand, rand_ms = timed(lambda: T.dsmetric(A1, V1, A3, V3, device=dev))
+    if not (np.isfinite(d_rand) and 0 <= d_iso < DS_ISO_SHARE * d_rand):
+        fail(f'dsmetric: demo pair gave {d_iso} (isomorphic) and {d_rand} '
+             f'(unrelated)')
+    # a trace of a DS_TRACE_OUTER-step solve: its launches a step (every
+    # step runs the same ops) and the share of its wall the card is busy
+    _, trace_ms = timed(lambda: T.dsmetric(A1, V1, A3, V3, device=dev,
+                                           n_outer=DS_TRACE_OUTER))
+    busy, kern = traced_top_kernels(
+        torch, lambda: T.dsmetric(A1, V1, A3, V3, device=dev,
+                                  n_outer=DS_TRACE_OUTER), 1, top=10 ** 6)
+    launches = int(sum(k[2] for k in kern))
+
+    pairs = dsmetric_pairs(1, DS_PAIRS, DS_N, DS_D)
+    v64, b64_ms = timed(lambda: dsmetric_batched(
+        *pairs, device=dev, dtype=torch.float64).cpu().numpy())
+    v32, b32_ms = timed(lambda: dsmetric_batched(
+        *pairs, device=dev, dtype=torch.float32).cpu().numpy())
+    t0 = time.perf_counter()
+    v_cpu = dsmetric_batched(*(x[:DS_CPU_PAIRS] for x in pairs),
+                             device='cpu', dtype=torch.float64).numpy()
+    cpu_s = time.perf_counter() - t0
+    err64 = np.abs(v64[:DS_CPU_PAIRS] - v_cpu)
+    rand, iso = v64[0::2], v64[1::2]
+    rel32 = np.abs(v32[0::2] - rand) / rand
+    ok = (np.isfinite(v64).all() and np.isfinite(v32).all()
+          and bool(np.all(err64 <= DS_F64_RTOL * np.abs(v_cpu)))
+          and bool(np.all(rel32 <= DS_F32_RTOL))
+          and np.abs(v32 - v64).max() <= DS_F32_RTOL * v64.max()
+          and iso.max() < DS_ISO_SHARE * rand.min()
+          and v32[1::2].max() < DS_ISO_SHARE * v32[0::2].min())
+    if not ok:
+        fail(f'dsmetric batch: float64 card against CPU {err64.tolist()}, '
+             f'float32 relative {rel32.max():.3e}, isomorphic '
+             f'{iso.max():.3e} / {v32[1::2].max():.3e}, unrelated '
+             f'{rand.min():.3e}')
+    res = {'card': smi_line, 'demo_isomorphic': d_iso,
+           'demo_unrelated': d_rand, 'demo_solve_ms': [iso_ms, rand_ms],
+           'traced_steps': DS_TRACE_OUTER, 'traced_solve_ms': trace_ms,
+           'traced_solve_launches': launches, 'traced_solve_busy_ms': busy,
+           'traced_solve_idle_share': 1.0 - busy / trace_ms,
+           'launches_per_step': launches / DS_TRACE_OUTER,
+           'batch': [DS_PAIRS, DS_N, DS_D],
+           'batch_solve_ms_float64': b64_ms, 'batch_solve_ms_float32': b32_ms,
+           'cpu_float64_s': cpu_s, 'cpu_pairs': DS_CPU_PAIRS,
+           'float64_max_rel_err_vs_cpu': float(
+               (err64 / np.abs(v_cpu)).max()),
+           'float32_max_rel_err': float(rel32.max()),
+           'isomorphic_max': float(iso.max()),
+           'unrelated_min': float(rand.min()),
+           'top_kernels': kern[:6],
+           'phase_s': time.perf_counter() - t_phase}
+    print('dsmetric: ' + json.dumps(res), flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3489,7 +4056,17 @@ def main():
     dtype_server_phase(torch, T, dev, model, counts)
     export_phase(torch, T, dev, model, counts)
 
-    # ---- 29. kernels line, 30. last line ------------------------------------
+    # ---- 29. minibatch training at arxiv's scale, 30. layer-wise inference,
+    # 31. the CLI's minibatch run, 32. dsmetric ------------------------------
+    del model, served_calls, bench_calls, cora_calls
+    tr = minibatch_phase(torch, T, dev, smi_line, counts, errs)
+    layerwise_phase(torch, T, dev, tr, smi_line, counts, errs)
+    del tr
+    torch.cuda.empty_cache()
+    cli_minibatch_phase(smi_line)
+    dsmetric_phase(torch, T, dev, smi_line)
+
+    # ---- 33. kernels line, 34. last line ------------------------------------
     src = 'fsw_gnn_tpu_torch/csrc/'
     pallas = 'fsw_gnn_tpu/ops/fsw_rank_pallas.py:'
     line = {'kernels': [

@@ -30,5 +30,6 @@ from .serving import (GraphServer, export_forward, export_from_checkpoint,
                       load_artifact, load_forward, multi_envelope,
                       save_artifact)
 from .train import TrainConfig, Trainer
+from .utils import dsmetric
 
 __version__ = '0.4.0'

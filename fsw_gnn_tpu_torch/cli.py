@@ -1,20 +1,21 @@
-"""Command-line interface of the port: full-graph training of an FSW-GNN
-and the export of a trained checkpoint.
+"""Command-line interface of the port: training of an FSW-GNN (full-graph,
+or on neighbor-sampled minibatches) and the export of a trained checkpoint.
 
   python -m fsw_gnn_tpu_torch.cli train --dataset cora --hidden 64 64 \
       --checkpoint-dir ckpt
   python -m fsw_gnn_tpu_torch.cli export --dataset cora --hidden 64 64 \
       --checkpoint-dir ckpt --out cora.pt2
+  python -m fsw_gnn_tpu_torch.cli train --dataset ogbn-arxiv --minibatch \
+      --batch-size 1024 --fanouts 10,10 --eval-node-chunk 16384
   python -m fsw_gnn_tpu_torch.cli train --dataset cora --device cpu
 
 Counterpart of the `train` and `export` subcommands of
 `fsw_gnn_tpu/cli.py`, on one device (the card unless --device says
 otherwise; for `export`, --device is where the artifact runs, as the JAX
 command's --platform).  A dataset whose npz file is absent (FSW_DATA_DIR,
-else `data/`) runs on its size-matched synthetic stand-in.
-Neighbor-sampled minibatch training ("Training, the rest" in ROADMAP.md)
-and more than one device ("Parallel and the distributed trainer") are not
-ported and raise; `bench` and `autotune` are not ported yet.
+else `data/`) runs on its size-matched synthetic stand-in.  More than one
+device ("Parallel and the distributed trainer" in ROADMAP.md) is not
+ported and raises; `bench` and `autotune` are not ported yet.
 """
 from __future__ import annotations
 
@@ -42,10 +43,11 @@ def _add_train_args(p):
     p.add_argument('--slice-chunk', type=int, default=None,
                    help='serialize the slice axis in chunks (memory cap)')
     p.add_argument('--eval-node-chunk', type=int, default=None,
-                   help='layer-wise evaluation; not ported yet (raises)')
+                   help='exact layer-wise evaluation in recipient chunks '
+                        'of this size (memory cap for huge graphs)')
     p.add_argument('--minimize-slice-coherence', action='store_true',
                    help='coherence-minimize projection frames at init '
-                        '(not ported yet: raises)')
+                        '(slower init)')
     p.add_argument('--checkpoint-dir', default=None)
     p.add_argument('--no-auto-resume', action='store_true',
                    help='do not restore the latest checkpoint in '
@@ -55,8 +57,9 @@ def _add_train_args(p):
     p.add_argument('--trace-dir', default=None,
                    help='write a torch.profiler trace here')
     p.add_argument('--minibatch', action='store_true',
-                   help='neighbor-sampled minibatch training; not ported '
-                        'yet (raises)')
+                   help='neighbor-sampled minibatch training')
+    p.add_argument('--batch-size', type=int, default=512)
+    p.add_argument('--fanouts', default='10,10')
     p.add_argument('--device', default=None,
                    help="'cuda' (the default) or 'cpu'")
     p.add_argument('--verbose', action='store_true')
@@ -64,12 +67,8 @@ def _add_train_args(p):
 
 def cmd_train(args) -> int:
     from .data.datasets import load
-    from .train import TrainConfig, Trainer
+    from .train import MinibatchTrainer, TrainConfig, Trainer
 
-    if args.minibatch:
-        raise NotImplementedError(
-            'minibatch training (train/minibatch.py, data/sampler.py; '
-            '"Training, the rest" in ROADMAP.md) is not ported yet')
     data = load(args.dataset)
     cfg = TrainConfig(
         hidden_dims=tuple(args.hidden), embed_dim=args.embed_dim,
@@ -83,7 +82,12 @@ def cmd_train(args) -> int:
         checkpoint_dir=args.checkpoint_dir,
         auto_resume=not args.no_auto_resume,
         metrics_path=args.metrics_path, trace_dir=args.trace_dir)
-    tr = Trainer(data, cfg, device=args.device)
+    if args.minibatch:
+        fanouts = tuple(int(x) for x in args.fanouts.split(','))
+        tr = MinibatchTrainer(data, cfg, batch_size=args.batch_size,
+                              fanouts=fanouts, device=args.device)
+    else:
+        tr = Trainer(data, cfg, device=args.device)
     out = tr.fit(verbose=args.verbose)
     print(json.dumps({'dataset': data.name, 'device': str(tr.device),
                       **out['final'], 'seconds': round(out['seconds'], 2),
@@ -130,7 +134,8 @@ def _add_export_args(p):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog='fsw_gnn_tpu_torch')
     sub = parser.add_subparsers(dest='cmd', required=True)
-    p_train = sub.add_parser('train', help='full-graph node classification')
+    p_train = sub.add_parser('train', help='node classification (full-graph '
+                                             'or --minibatch)')
     _add_train_args(p_train)
     p_train.set_defaults(fn=cmd_train)
     p_export = sub.add_parser('export', help='checkpoint -> torch.export '

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 into its own shared library, loaded with ctypes (no PyTorch headers, so a
@@ -8,7 +8,11 @@ code shared between sources lives in `csrc/*.cuh` headers.  A library's
 file name carries a hash of its source, the headers and the flags, so an
 edited source or header is rebuilt and never confused with an old build.
 
-Nothing here runs at import: the CPU tests import every module, and this
+`csrc/fswgraph.cpp`, the host-side sampler and CSR builder, is plain C++:
+`load_host` builds it with the host compiler (`c++`, CXX_FLAGS) in the same
+way, and `sources()` leaves it out.
+
+Nothing here runs at import: the CPU tests import every module, and a
 machine may have no `nvcc`.
 """
 from __future__ import annotations
@@ -25,6 +29,7 @@ CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+CXX_FLAGS = ('-O3', '-fPIC', '-std=c++17', '-shared')
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -109,4 +114,41 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = ctypes.CDLL(str(_target(name)))
                 _libs[name] = lib
+    return lib
+
+
+def _host_target(name: str) -> Path:
+    """The host library's path, named by a hash of its source and the
+    flags."""
+    src = (CSRC / f'{name}.cpp').read_bytes()
+    digest = hashlib.sha256(src + ' '.join(CXX_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f'lib{name}-host-{digest[:16]}.so'
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library for `csrc/<name>.cpp`, compiled by `c++`
+    first if needed (a per-process temporary file, then a rename, so
+    several processes may build it at once).  A failed build raises with
+    the compiler's log."""
+    key = f'{name}.cpp'
+    with _lock:
+        lib = _libs.get(key)
+        if lib is not None:
+            return lib
+        target = _host_target(name)
+        if not target.exists():
+            cxx = shutil.which('c++')
+            if cxx is None:
+                raise RuntimeError(f'no host C++ compiler (c++) on PATH: '
+                                   f'{name}.cpp cannot be built')
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix(f'.{os.getpid()}.tmp')
+            proc = subprocess.run(
+                [cxx, *CXX_FLAGS, '-o', str(tmp), str(CSRC / key)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f'c++ failed for {key} '
+                                   f'(exit {proc.returncode}):\n{proc.stdout}')
+            os.replace(tmp, target)
+        lib = _libs[key] = ctypes.CDLL(str(target))
     return lib

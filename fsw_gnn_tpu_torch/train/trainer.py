@@ -13,9 +13,11 @@ Counterpart of the single-device path of `fsw_gnn_tpu/train/trainer.py`
     metrics, and a `torch.profiler` trace for performance work.
 
 The graph is built once on the host and moved to the device; one optimizer
-step per epoch.  `num_devices > 1` (the edge-partitioned trainer,
-"Parallel and the distributed trainer" in ROADMAP.md) and
-`eval_node_chunk` (layer-wise inference, "Training, the rest") raise.
+step per epoch.  With `eval_node_chunk` set, `predict` runs exact
+layer-wise inference (train/infer.py) on the host CSR graph in recipient
+chunks of that size, which caps the device memory of an evaluation.
+`num_devices > 1` (the edge-partitioned trainer, "Parallel and the
+distributed trainer" in ROADMAP.md) raises.
 """
 from __future__ import annotations
 
@@ -62,7 +64,8 @@ class TrainConfig:
     auto_resume: bool = True                # fit() restores the latest
                                             # checkpoint in checkpoint_dir
     metrics_path: Optional[str] = None      # per-epoch metrics as JSON lines
-    eval_node_chunk: Optional[int] = None   # not ported
+    eval_node_chunk: Optional[int] = None   # layer-wise evaluation in
+                                            # recipient chunks of this size
     trace_dir: Optional[str] = None         # torch.profiler trace output
 
 
@@ -122,11 +125,6 @@ class Trainer:
                 'num_devices > 1 needs the edge-partitioned trainer '
                 '("Parallel and the distributed trainer" in ROADMAP.md), '
                 'which is not ported yet')
-        if config.eval_node_chunk:
-            raise NotImplementedError(
-                'eval_node_chunk needs layer-wise inference (train/infer.py; '
-                '"Training, the rest" in ROADMAP.md), which is not ported '
-                'yet')
         self.data = data
         self.cfg = config
         self.device = resolve_device(device)
@@ -188,7 +186,14 @@ class Trainer:
         return loss.item()
 
     def predict(self) -> np.ndarray:
-        """Logits of every node, in eval mode."""
+        """Logits of every node, in eval mode: one forward on the compute
+        layout, or layer-wise on the CSR graph with `eval_node_chunk`."""
+        if self.cfg.eval_node_chunk:
+            from .infer import layerwise_predict
+            return layerwise_predict(self.model, self.data.features,
+                                     self.graph, self.cfg.eval_node_chunk,
+                                     slice_chunk=self.cfg.slice_chunk,
+                                     device=self.device)
         self.model.eval()
         with torch.no_grad():
             logits = self.model(self.X, self.compute_graph)

@@ -1,4 +1,5 @@
 """Utilities of the port."""
 from .cache import CountingGraph
+from .dsmetric import dsmetric
 
-__all__ = ['CountingGraph']
+__all__ = ['CountingGraph', 'dsmetric']

@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,7 +22,11 @@ def test_import_pulls_in_no_jax():
             'fsw_gnn_tpu_torch.bridge, fsw_gnn_tpu_torch.kernels, '
             'fsw_gnn_tpu_torch.models.gnn, fsw_gnn_tpu_torch.data.datasets, '
             'fsw_gnn_tpu_torch.train.trainer, fsw_gnn_tpu_torch.cli, '
-            'fsw_gnn_tpu_torch.ops.segment, fsw_gnn_tpu_torch.ops.segcumsum; '
+            'fsw_gnn_tpu_torch.ops.segment, fsw_gnn_tpu_torch.ops.segcumsum, '
+            'fsw_gnn_tpu_torch.data.sampler, '
+            'fsw_gnn_tpu_torch.train.minibatch, '
+            'fsw_gnn_tpu_torch.train.infer, fsw_gnn_tpu_torch.ops.sinkhorn, '
+            'fsw_gnn_tpu_torch.utils.dsmetric; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "flax", "optax", "orbax", "fsw_gnn_tpu")]; '
             'assert not bad, bad')
@@ -34,6 +39,21 @@ def test_no_jax_imports_in_source(path):
     assert path.exists(), path
     hits = FORBIDDEN.findall(path.read_text())
     assert not hits, f'{path}: {hits}'
+
+
+def test_no_port_source_loads_the_jax_packages_native_library():
+    """The port builds its own host library from csrc/fswgraph.cpp; no
+    source of it names the JAX package's native directory or library."""
+    port = ROOT / 'fsw_gnn_tpu_torch'
+    files = [p for p in port.rglob('*')
+             if p.suffix in ('.py', '.cpp', '.cu', '.cuh')
+             and '_build' not in p.parts] + [ROOT / 'chip_smoke.py']
+    assert port / 'csrc' / 'fswgraph.cpp' in files
+    bad = re.compile(r'fsw_gnn_tpu[/.\\]native|libfswgraph\.so|'
+                     r"['\"]native['\"]")
+    hits = [f'{p.relative_to(ROOT)}: {m.group(0)}' for p in files
+            for m in bad.finditer(p.read_text())]
+    assert not hits, hits
 
 
 def test_entry_points_default_to_the_card():
@@ -55,3 +75,17 @@ def test_entry_points_default_to_the_card():
     for env in ({}, dict(classes=[8], class_rows=[16])):
         with pytest.raises(RuntimeError, match='no CUDA device'):
             T.GraphServer(conv, 16, 64, **env)
+    from fsw_gnn_tpu_torch.data import synthetic_planted_partition
+    from fsw_gnn_tpu_torch.train import MinibatchTrainer, TrainConfig
+    from fsw_gnn_tpu_torch.train.infer import layerwise_predict
+    data = synthetic_planted_partition(num_nodes=40, num_classes=2,
+                                       feat_dim=4)
+    gnn = T.FSWGNN(4, (2,), minimize_slice_coherence=False, device='cpu')
+    graph = T.from_edge_index(data.edge_index, data.num_nodes)
+    eye = np.eye(6)
+    for run in (lambda: MinibatchTrainer(data, TrainConfig(hidden_dims=(4,)),
+                                         batch_size=8, fanouts=(2,)),
+                lambda: layerwise_predict(gnn, data.features, graph, 16),
+                lambda: T.dsmetric(eye, eye[:, :2], eye, eye[:, :2])):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            run()

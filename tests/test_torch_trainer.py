@@ -247,13 +247,17 @@ def test_trace_dir_writes_a_profiler_trace(data, tmp_path):
 
 
 def test_unported_options_raise(data):
-    for cfg in (TrainConfig(num_devices=2), TrainConfig(eval_node_chunk=64)):
-        with pytest.raises(NotImplementedError, match='distributed trainer|Training, the rest'):
-            Trainer(data, cfg, device='cpu')
-    with pytest.raises(NotImplementedError, match='Training, the rest'):
-        cli.main(['train', '--minibatch', '--device', 'cpu'])
-    with pytest.raises(NotImplementedError, match='distributed trainer'):
+    from fsw_gnn_tpu_torch.train import MinibatchTrainer
+    item8 = 'Parallel and the distributed trainer'
+    with pytest.raises(NotImplementedError, match=item8):
+        Trainer(data, TrainConfig(num_devices=2), device='cpu')
+    with pytest.raises(NotImplementedError, match=item8):
+        MinibatchTrainer(data, TrainConfig(num_devices=2), device='cpu')
+    with pytest.raises(NotImplementedError, match=item8):
         cli.main(['train', '--num-devices', '4', '--device', 'cpu'])
+    with pytest.raises(NotImplementedError, match=item8):
+        cli.main(['train', '--minibatch', '--num-devices', '2', '--device',
+                  'cpu'])
     with pytest.raises(RuntimeError, match='no CUDA device'):
         if torch.cuda.is_available():
             raise RuntimeError('no CUDA device: (a card is present)')
