@@ -226,12 +226,35 @@ Phases (any failure exits non-zero before the last line is printed):
  32. dsmetric (`dsmetric_phase`): the demo's pair (n = 12, d = 4), a batch
      of 64 pairs at n = 64 in float64 and float32 against the CPU in
      float64, the ms a solve and a trace of one (`dsmetric:` line);
- 33. one JSON line listing the seven kernels with their launches, errors,
+ 33. the edge-partitioned trainer at world size 1 (`dist_phase`) on a
+     one-rank NCCL group the smoke starts on a file store
+     (`ensure_distributed`): the Trainer's FSWGNN on the Cora stand-in,
+     hidden (64, 64), defaults, partitioned with P = 1; for each exchange
+     (all_gather, all_to_all, overlap with 4 chunks) the logits against
+     the single-device forward on the card with the same parameters, one
+     train step's loss and every gradient against the single-device
+     step, K1 and K2 held against their plain versions on the forward's
+     calls, the launches of one forward and one step (the overlap: K2f
+     and K2b and no K1; the others K1f and K1b), the step's ms and its
+     exchange's (every exchange call of a step, forward and backward),
+     K1 and K2 timed on the captured calls, a trace's top kernels; then
+     arxiv's full graph (`arxiv_data`), FSWGNN hidden (64,), all_to_all:
+     a step's ms and its peak memory (`distributed:` line);
+ 34. one data-parallel step at world size 1 (`dp_phase`,
+     `make_dp_train_step`) on one batch of phase 29's sampler against
+     the single-device minibatch step on the same batch and parameters:
+     the loss and every gradient, K3 one launch a layer; both timed in
+     turns (`dp:` line);
+ 35. `python -m fsw_gnn_tpu_torch.parallel.launch --nproc 1 -- train
+     --dataset cora --hidden 64 64 --epochs 2 --num-devices 1 --exchange
+     all_to_all` (`cli_dist_phase`): exit 0, one JSON line, device cuda,
+     one process (`cli dist:` line);
+ 36. one JSON line listing the seven kernels with their launches, errors,
      times and bounds (the launches are those of the main-path runs 4, 6,
-     7, 8, 9, 10, 12-16, 18, 19, 20, 24, 26-30 together; K2's times and
-     bounds at phase 8's shape, K3's at phase 12's, K4's at phase 17's
-     with B = 32, K4b's with with_dw);
- 34. the last line: {"ok": true, "device": {...}}.
+     7, 8, 9, 10, 12-16, 18, 19, 20, 24, 26-30, 33 and 34 together; K2's
+     times and bounds at phase 8's shape, K3's at phase 12's, K4's at
+     phase 17's with B = 32, K4b's with with_dw);
+ 37. the last line: {"ok": true, "device": {...}}.
 
 Tolerances:
   * K1f against its plain version, both on the card in float32:
@@ -297,6 +320,13 @@ Tolerances:
     within 1e-9 of each value (the same steps; cuBLAS and the CPU round
     the products in another order), float32 within 1e-2 of float64 on the
     unrelated pairs and 1e-2 of the largest value on all.
+  * phases 33 and 34 against the single-device path on the card: the
+    logits within 1e-4 of their scale, the loss relative 1e-4, every
+    gradient within 1e-4 of its largest entry (as the bench step's).  At
+    world size 1 the all-gather and the all-to-all run the single
+    device's routes (the same bits); the overlap aggregates every class
+    through K2 on cuBLAS projections where the single device takes K1's
+    3xTF32 ones, which rounds apart by about 1e-6 of each scale.
   * phases 25-28: K3's replays and the uint16 server against their eager
     or int32 twins bit for bit; the graph server and the artifact against
     the eager server and module within 1e-4 of the output's scale (the
@@ -422,6 +452,7 @@ CLI_EPOCHS, CLI_NODE_CHUNK, CLI_TIMEOUT = 2, 4096, 600
 DS_DEMO_N, DS_DEMO_D, DS_TRACE_OUTER = 12, 4, 50
 DS_PAIRS, DS_N, DS_D, DS_CPU_PAIRS = 64, 64, 4, 8
 DS_F64_RTOL, DS_F32_RTOL, DS_ISO_SHARE = 1e-9, 1e-2, 1e-2
+DIST_HIDDEN, DIST_CHUNKS = (64, 64), 4
 
 
 def fail(msg):
@@ -3784,6 +3815,300 @@ def cli_minibatch_phase(smi_line):
                                 'wall_s': wall}), flush=True)
 
 
+def start_one_rank_group(torch, tmp):
+    """A one-process group on NCCL over a file store in `tmp` (no TCP
+    port), through the port's own start-up."""
+    from fsw_gnn_tpu_torch.parallel import ensure_distributed
+    ensure_distributed(init_method='file://' + os.path.join(tmp, 'store'),
+                       world_size=1, rank=0, device='cuda')
+    import torch.distributed as dist
+    if not (dist.is_initialized() and dist.get_backend() == 'nccl'
+            and dist.get_world_size() == 1):
+        fail('distributed: no one-rank NCCL group')
+
+
+def exchange_calls(torch, tr, exchange):
+    """The exchange of one forward of the distributed trainer `tr`: each
+    call's input (detached), and the callable that exchanges it (the
+    all-gather, the all-to-all with its index, or one chunk's all-gather,
+    started and waited for)."""
+    from fsw_gnn_tpu_torch.parallel.dist import _model_exchange_kwargs
+    kw = _model_exchange_kwargs(exchange, tr.mesh, tr.shards,
+                                tr.cfg.overlap_chunks)
+    key = 'proj_gather_fn' if exchange == 'overlap' else 'gather_fn'
+    real, seen = kw[key], []
+
+    def spy(x):
+        seen.append(x.detach().clone())
+        return real(x)
+    kw[key] = spy
+    tr.model.eval()
+    with torch.no_grad():
+        out = tr.model(tr.X, tr.compute_graph, **kw)
+    del out
+    if exchange == 'overlap':
+        return seen, lambda x: real(x).wait()
+    return seen, real
+
+
+def exchange_ms(torch, seen, fn):
+    """Device ms of the exchange of one training step: every call of one
+    forward, run forward and backward (the reduce-scatter, or the reverse
+    all-to-all) on its recorded input."""
+    total = 0.0
+    for x in seen:
+        xr = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            g = torch.ones_like(fn(xr))
+
+            def both():
+                torch.autograd.backward(fn(xr), g)
+            total += device_ms(torch, both, 5)[0]
+        xr.grad = None
+    return total
+
+
+def dist_phase(torch, T, dev, smi_line, counts, errs):
+    """Phase 33: the edge-partitioned trainer at world size 1 on NCCL.  The
+    Trainer's FSWGNN on the Cora stand-in, hidden (64, 64), defaults:
+    partitioned with P = 1, then for each exchange the logits against the
+    single-device forward on the card with the same parameters, one train
+    step's loss and every gradient against the single-device step, the
+    rank kernels held against their plain versions on the forward's calls,
+    every kernel's launches on one forward and one step (the overlap must
+    launch K2f and K2b and no K1, the exchanges K1f and K1b), the step's
+    and its exchange's ms, K1 and K2 on the captured calls, a trace's top
+    kernels; then arxiv's full graph (phase 29's `arxiv_data`), FSWGNN
+    hidden (64,), all_to_all: a step's ms and its peak memory."""
+    from fsw_gnn_tpu_torch.data import load
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    from fsw_gnn_tpu_torch.train import masked_softmax_cross_entropy
+    t_phase = time.perf_counter()
+    names = ('fsw_rank_aggregate_proj', 'fsw_rank_aggregate_proj_bwd',
+             'fsw_rank_aggregate', 'fsw_rank_aggregate_bwd')
+    keys = ('fsw_rank_fwdp', 'fsw_rank_bwdp', 'fsw_rank_fwd', 'fsw_rank_bwd')
+    data = load('cora')
+    ref = T.Trainer(data, T.TrainConfig(hidden_dims=DIST_HIDDEN), device=dev)
+    ref.model.eval()
+    with torch.no_grad():
+        want = ref.model(ref.X, ref.compute_graph)
+    state = copy.deepcopy(ref.model.state_dict())
+
+    def single_step():
+        # the single-device Trainer's step, without its wait for the loss
+        ref.model.train()
+        ref.opt.zero_grad(set_to_none=True)
+        s, c = masked_softmax_cross_entropy(
+            ref.model(ref.X, ref.compute_graph), ref.labels, ref.train_mask)
+        loss = s / torch.clamp(c, min=1.0)
+        loss.backward()
+        return loss
+    loss_ref = single_step().item()
+    grads_ref = {k: p.grad.clone() for k, p in ref.model.named_parameters()}
+    scale = want.abs().max().item()
+    res = {'card': smi_line, 'dataset': data.name,
+           'hidden': list(DIST_HIDDEN), 'exchanges': {}}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for exchange in ('all_gather', 'all_to_all', 'overlap'):
+        tr = T.Trainer(data, T.TrainConfig(
+            hidden_dims=DIST_HIDDEN, num_devices=1, exchange=exchange,
+            overlap_chunks=DIST_CHUNKS), device=dev)
+        tr.model.load_state_dict(state)
+        where = f'distributed {exchange}'
+        tr.model.eval()
+        run = lambda: tr._fwd(tr.X)  # noqa: E731
+        with torch.no_grad():
+            calls1 = capture_rank_calls(run)
+            calls2 = capture_rank_calls(run, 'fsw_rank_aggregate')
+        cfg0 = tr.model.convs[0].embed_cfg
+        if calls1:
+            check_rank_calls(torch, dev, calls1, cfg0, where, errs,
+                             all_variants=False)
+        if calls2:
+            check_rank2_calls(torch, dev, calls2, cfg0, where, errs,
+                              extra=False)
+        for name in names:
+            getattr(R, name).launches = 0
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            got = tr._fwd(tr.X)
+        loss = tr._step(tr.X, tr.labels, tr.train_mask,
+                        generator=tr.generator).item()
+        torch.cuda.synchronize()
+        n = {k: getattr(R, name).launches for k, name in zip(keys, names)}
+        for k in keys:
+            counts[k] += n[k]
+        if exchange == 'overlap':
+            ok = n['fsw_rank_fwd'] and n['fsw_rank_bwd'] and not (
+                n['fsw_rank_fwdp'] or n['fsw_rank_bwdp'])
+        else:
+            ok = n['fsw_rank_fwdp'] and n['fsw_rank_bwdp']
+        if not ok:
+            fail(f'{where}: launches {n}')
+        err = (got[:data.num_nodes] - want).abs().max().item()
+        if not err <= SERVE_ATOL_REL * scale:
+            fail(f'{where}: logits differ from the single-device forward by '
+                 f'{err:.3e} (scale {scale:.3e})')
+        if not abs(loss - loss_ref) <= LOSS0_RTOL * abs(loss_ref):
+            fail(f'{where}: loss {loss} against the single-device {loss_ref}')
+        grad_err = 0.0
+        for k, p in tr.model.named_parameters():
+            w = grads_ref[k]
+            e = (p.grad - w).abs().max().item()
+            if not e <= GRAD_ATOL_REL * w.abs().max().item():
+                fail(f'{where}: gradient {k} differs from the single-device '
+                     f'step by {e:.3e} (scale {w.abs().max().item():.3e})')
+            grad_err = max(grad_err, e / max(w.abs().max().item(), 1e-30))
+
+        def step():
+            tr._step(tr.X, tr.labels, tr.train_mask, generator=tr.generator)
+        step_ms = device_ms(torch, step, 3)[0]
+        seen, fn = exchange_calls(torch, tr, exchange)
+        x_ms = exchange_ms(torch, seen, fn)
+        busy, kern = traced_top_kernels(torch, step, 3, top=8)
+        k1, _ = time_rank_kernels(torch, calls1, gen, n=3)
+        k2, _ = time_k2_calls(torch, calls2, gen)
+        res['exchanges'][exchange] = {
+            'launches': n, 'logits_max_abs_err': err, 'logits_scale': scale,
+            'loss': loss, 'loss_single': loss_ref,
+            'grad_max_err_rel': grad_err, 'step_ms': step_ms,
+            'exchange_ms': x_ms, 'exchange_calls': [list(x.shape)
+                                                    for x in seen],
+            'exchange_share': x_ms / step_ms, 'step_busy_ms': busy,
+            'k1f_ms': k1['fwd'], 'k1b_ms': k1['bwd'],
+            'k2f_ms': k2['fwd'], 'k2b_ms': k2['bwd'],
+            'k1_calls': len(calls1), 'k2_calls': len(calls2),
+            'step_top_kernels': kern}
+        del tr, calls1, calls2, seen
+    def single_update():
+        single_step()
+        ref.opt.step()
+    res['single_device_step_ms'] = device_ms(torch, single_update, 3)[0]
+    res['single_device_busy_ms'], res['single_device_top_kernels'] = (
+        traced_top_kernels(torch, single_update, 3, top=8))
+    del ref
+    torch.cuda.empty_cache()
+
+    # arxiv's full graph on one rank, the all-to-all exchange
+    t0 = time.perf_counter()
+    data = arxiv_data(0)
+    tr = T.Trainer(data, T.TrainConfig(hidden_dims=MB_HIDDEN, num_devices=1,
+                                       exchange='all_to_all'), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    for name in names:
+        getattr(R, name).launches = 0
+    loss = tr.train_epoch()
+    torch.cuda.synchronize()
+    n = {k: getattr(R, name).launches for k, name in zip(keys, names)}
+    for k in keys:
+        counts[k] += n[k]
+    if not np.isfinite(loss):
+        fail(f'distributed arxiv: loss {loss}')
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        tr._step(tr.X, tr.labels, tr.train_mask, generator=tr.generator)
+    step_ms = device_ms(torch, step, 1, reps=3)[0]   # 0.4 s a step
+    peak = torch.cuda.max_memory_allocated()
+    busy, kern = traced_top_kernels(torch, step, 1, top=6)
+    res['arxiv_full_graph'] = {
+        'nodes': data.num_nodes, 'edges': int(tr.graph.num_edges),
+        'hidden': list(MB_HIDDEN), 'exchange': 'all_to_all',
+        'a2a_rows': tr.shards.a2a_rows, 'init_s': init_s,
+        'loss_first': loss, 'launches': n, 'step_ms': step_ms,
+        'step_busy_ms': busy, 'step_top_kernels': kern,
+        'max_memory_allocated_mb': peak / 2 ** 20}
+    del tr
+    torch.cuda.empty_cache()
+    res['phase_s'] = time.perf_counter() - t_phase
+    print('distributed: ' + json.dumps(res), flush=True)
+
+
+def dp_phase(torch, T, dev, tr, smi_line, counts):
+    """Phase 34: one data-parallel step at world size 1 (`make_dp_train_step`
+    on the one-rank group) on one arxiv-scale batch of phase 29's sampler,
+    against the single-device minibatch step on the same batch and
+    parameters: the loss and every gradient; both steps timed in turns
+    (single, DP, DP, single)."""
+    from fsw_gnn_tpu_torch.ops import segcumsum
+    from fsw_gnn_tpu_torch.parallel import make_data_mesh, make_dp_train_step
+    from fsw_gnn_tpu_torch.train import masked_softmax_cross_entropy
+    batch = tr._build_batch(tr.train_seeds[:MB_BATCH])
+    single, dp = copy.deepcopy(tr.model), copy.deepcopy(tr.model)
+    opt_s = torch.optim.SGD(single.parameters(), lr=0.0)
+    opt_d = torch.optim.SGD(dp.parameters(), lr=0.0)
+    g, Xb, labels, mask = batch
+
+    def single_step():
+        single.train()
+        opt_s.zero_grad(set_to_none=True)
+        s, c = masked_softmax_cross_entropy(single(Xb, g), labels, mask)
+        loss = s / torch.clamp(c, min=1.0)
+        loss.backward()
+        opt_s.step()
+        return loss
+    step = make_dp_train_step(dp, opt_d, make_data_mesh(1, dev))
+    want = single_step().item()
+    segcumsum.launches = 0
+    got = step(*batch).item()
+    torch.cuda.synchronize()
+    n_k3 = segcumsum.launches
+    if n_k3 != len(dp.convs):
+        fail(f'dp: K3 launched {n_k3} times, expected {len(dp.convs)}')
+    counts['segcumsum'] += n_k3
+    if not abs(got - want) <= LOSS0_RTOL * abs(want):
+        fail(f'dp: loss {got} against the single-device {want}')
+    grad_err = 0.0
+    gs = dict(single.named_parameters())
+    for k, p in dp.named_parameters():
+        w = gs[k].grad
+        e = (p.grad - w).abs().max().item()
+        if not e <= GRAD_ATOL_REL * w.abs().max().item():
+            fail(f'dp: gradient {k} differs by {e:.3e}')
+        grad_err = max(grad_err, e / max(w.abs().max().item(), 1e-30))
+    t = {}
+    for label, fn in (('single_a', single_step), ('dp_a', lambda: step(
+            *batch)), ('dp_b', lambda: step(*batch)), ('single_b',
+                                                       single_step)):
+        t[label] = device_ms(torch, fn, 3)[0]
+    print('dp: ' + json.dumps({
+        'card': smi_line, 'batch': MB_BATCH, 'fanouts': list(MB_FANOUTS),
+        'loss': got, 'loss_single': want, 'grad_max_err_rel': grad_err,
+        'k3_launches': n_k3, 'dp_step_ms': [t['dp_a'], t['dp_b']],
+        'single_step_ms': [t['single_a'], t['single_b']]}), flush=True)
+
+
+def cli_dist_phase(smi_line):
+    """Phase 35: `python -m fsw_gnn_tpu_torch.parallel.launch --nproc 1 --
+    train --dataset cora --hidden 64 64 --epochs 2 --num-devices 1
+    --exchange all_to_all`: one process on the card through the launcher,
+    exit 0 and one JSON line (device cuda, one process)."""
+    cmd = [sys.executable, '-m', 'fsw_gnn_tpu_torch.parallel.launch',
+           '--nproc', '1', '--timeout', str(CLI_TIMEOUT), '--', 'train',
+           '--dataset', 'cora', '--hidden', '64', '64', '--epochs',
+           str(CLI_EPOCHS), '--num-devices', '1', '--exchange', 'all_to_all']
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=CLI_TIMEOUT + 60)
+    except subprocess.TimeoutExpired:
+        fail(f'cli dist: {" ".join(cmd[1:])} ran past {CLI_TIMEOUT} s')
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f'cli dist: exit {proc.returncode}:\n{proc.stderr[-3000:]}')
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{')]
+    if len(lines) != 1:
+        fail(f'cli dist: {len(lines)} JSON lines:\n{proc.stdout[-2000:]}')
+    out = json.loads(lines[0])
+    if (out.get('device') != 'cuda' or out.get('processes') != 1
+            or out.get('epochs_run') != CLI_EPOCHS):
+        fail(f'cli dist: {out}')
+    print('cli dist: ' + json.dumps({'card': smi_line,
+                                     'command': ' '.join(cmd[1:]), **out,
+                                     'wall_s': wall}), flush=True)
+
+
 def dsmetric_pairs(seed, n_pairs, n, d, p=0.3):
     """(A1, V1, A2, V2) of n_pairs graph pairs as the demo draws them: the
     even pairs two unrelated graphs, the odd ones a graph and a permuted
@@ -4061,12 +4386,25 @@ def main():
     del model, served_calls, bench_calls, cora_calls
     tr = minibatch_phase(torch, T, dev, smi_line, counts, errs)
     layerwise_phase(torch, T, dev, tr, smi_line, counts, errs)
-    del tr
     torch.cuda.empty_cache()
     cli_minibatch_phase(smi_line)
     dsmetric_phase(torch, T, dev, smi_line)
 
-    # ---- 33. kernels line, 34. last line ------------------------------------
+    # ---- 33. the edge-partitioned trainer and 34. a data-parallel step on a
+    # one-rank NCCL group, 35. the launcher's command line -------------------
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        start_one_rank_group(torch, tmp)
+        try:
+            dist_phase(torch, T, dev, smi_line, counts, errs)
+            dp_phase(torch, T, dev, tr, smi_line, counts)
+        finally:
+            dist.destroy_process_group()
+    del tr
+    torch.cuda.empty_cache()
+    cli_dist_phase(smi_line)
+
+    # ---- 36. kernels line, 37. last line ------------------------------------
     src = 'fsw_gnn_tpu_torch/csrc/'
     pallas = 'fsw_gnn_tpu/ops/fsw_rank_pallas.py:'
     line = {'kernels': [

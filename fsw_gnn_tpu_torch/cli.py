@@ -8,14 +8,18 @@ or on neighbor-sampled minibatches) and the export of a trained checkpoint.
   python -m fsw_gnn_tpu_torch.cli train --dataset ogbn-arxiv --minibatch \
       --batch-size 1024 --fanouts 10,10 --eval-node-chunk 16384
   python -m fsw_gnn_tpu_torch.cli train --dataset cora --device cpu
+  torchrun --nproc-per-node 4 -m fsw_gnn_tpu_torch.cli train \
+      --dataset cora --num-devices 4 --exchange all_to_all
 
 Counterpart of the `train` and `export` subcommands of
-`fsw_gnn_tpu/cli.py`, on one device (the card unless --device says
-otherwise; for `export`, --device is where the artifact runs, as the JAX
-command's --platform).  A dataset whose npz file is absent (FSW_DATA_DIR,
-else `data/`) runs on its size-matched synthetic stand-in.  More than one
-device ("Parallel and the distributed trainer" in ROADMAP.md) is not
-ported and raises; `bench` and `autotune` are not ported yet.
+`fsw_gnn_tpu/cli.py`, on the card unless --device says otherwise (for
+`export`, --device is where the artifact runs, as the JAX command's
+--platform).  A dataset whose npz file is absent (FSW_DATA_DIR, else
+`data/`) runs on its size-matched synthetic stand-in.  `--num-devices P`
+trains over P processes, one per device, started by torchrun or by
+`python -m fsw_gnn_tpu_torch.parallel.launch --nproc P -- train ...`
+(edge-partitioned, or data-parallel with --minibatch); only rank 0 prints
+the JSON line.  `bench` and `autotune` are not ported yet.
 """
 from __future__ import annotations
 
@@ -39,12 +43,16 @@ def _add_train_args(p):
     p.add_argument('--patience', type=int, default=None)
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--num-devices', type=int, default=None,
-                   help='more than 1 is not ported yet (raises)')
+                   help='train over this many processes, one per device '
+                        '(launch them with torchrun or parallel.launch)')
     p.add_argument('--slice-chunk', type=int, default=None,
                    help='serialize the slice axis in chunks (memory cap)')
     p.add_argument('--eval-node-chunk', type=int, default=None,
                    help='exact layer-wise evaluation in recipient chunks '
                         'of this size (memory cap for huge graphs)')
+    p.add_argument('--exchange', default='all_gather',
+                   choices=['all_gather', 'all_to_all', 'overlap'],
+                   help='boundary feature exchange for distributed runs')
     p.add_argument('--minimize-slice-coherence', action='store_true',
                    help='coherence-minimize projection frames at init '
                         '(slower init)')
@@ -67,8 +75,13 @@ def _add_train_args(p):
 
 def cmd_train(args) -> int:
     from .data.datasets import load
+    from .parallel import ensure_distributed
     from .train import MinibatchTrainer, TrainConfig, Trainer
 
+    if args.num_devices is not None:
+        # one process per device: start the group torchrun (or the
+        # launcher) describes in the environment
+        ensure_distributed(device=args.device)
     data = load(args.dataset)
     cfg = TrainConfig(
         hidden_dims=tuple(args.hidden), embed_dim=args.embed_dim,
@@ -77,7 +90,8 @@ def cmd_train(args) -> int:
         patience=args.patience,
         minimize_slice_coherence=args.minimize_slice_coherence,
         mlp_layers=args.mlp_layers, dropout=args.dropout, seed=args.seed,
-        num_devices=args.num_devices, slice_chunk=args.slice_chunk,
+        num_devices=args.num_devices, exchange=args.exchange,
+        slice_chunk=args.slice_chunk,
         eval_node_chunk=args.eval_node_chunk,
         checkpoint_dir=args.checkpoint_dir,
         auto_resume=not args.no_auto_resume,
@@ -89,9 +103,12 @@ def cmd_train(args) -> int:
     else:
         tr = Trainer(data, cfg, device=args.device)
     out = tr.fit(verbose=args.verbose)
-    print(json.dumps({'dataset': data.name, 'device': str(tr.device),
-                      **out['final'], 'seconds': round(out['seconds'], 2),
-                      'epochs_run': out['epochs_run']}))
+    if tr.is_main:
+        world = tr.mesh.size if tr.mesh is not None else 1
+        print(json.dumps({'dataset': data.name, 'device': tr.device.type,
+                          'processes': world, **out['final'],
+                          'seconds': round(out['seconds'], 2),
+                          'epochs_run': out['epochs_run']}), flush=True)
     return 0
 
 

@@ -10,7 +10,8 @@ the same defaults:
   * the embedding uses freqs_init='spread';
   * MLP layer order Linear -> BatchNorm -> activation -> Dropout, with
     LeakyReLU(0.2) activations by default;
-  * BatchNorm in train mode is flax's (`FlaxBatchNorm`);
+  * BatchNorm in train mode is flax's (`FlaxBatchNorm`), its statistics
+    taken over every rank's rows with `bn_axis_name`;
   * mlp_layers == 0 with concat_self reduces the dimension by a random
     (out_channels, in) frame, coherence-minimized, in place of an MLP;
   * Dropout draws its mask from the `generator` the caller passes to
@@ -67,21 +68,36 @@ class FlaxBatchNorm(nn.BatchNorm1d):
     running_var too (torch's BatchNorm1d uses momentum 0.1 and the unbiased
     variance there).  Eval mode normalises with the running statistics.
     The state keeps torch's names (weight, bias, running_mean,
-    running_var)."""
+    running_var).
+
+    With `axis_name` (the name of the mesh axis; the port's one axis is
+    the default torch.distributed process group) train mode takes flax's
+    `BatchNorm(axis_name=...)` statistics: every rank's mean and mean of
+    squares over its rows, averaged over the ranks (a differentiable mean
+    all-reduce, each rank weighted alike), var = max(0, E[x^2] - E[x]^2)."""
 
     DECAY = 0.99
 
-    def __init__(self, num_features: int, dtype=torch.float32):
+    def __init__(self, num_features: int, dtype=torch.float32,
+                 axis_name=None):
         super().__init__(num_features, eps=1e-5, momentum=1.0 - self.DECAY,
                          dtype=dtype)
+        self.axis_name = axis_name
+
+    def _batch_stats(self, x):
+        if self.axis_name is None:
+            return x.mean(dim=0), x.var(dim=0, unbiased=False)
+        from .parallel.collectives import all_reduce_mean
+        mu = all_reduce_mean(torch.stack([x.mean(dim=0),
+                                          (x * x).mean(dim=0)]))
+        return mu[0], torch.clamp(mu[1] - mu[0] * mu[0], min=0.0)
 
     def forward(self, x):
         # computes in its own type, as flax's BatchNorm(dtype=...) does
         x = x.to(self.running_mean.dtype)
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=0)
-        var = x.var(dim=0, unbiased=False)
+        mean, var = self._batch_stats(x)
         with torch.no_grad():
             self.running_mean.mul_(self.DECAY).add_(mean, alpha=1 - self.DECAY)
             self.running_var.mul_(self.DECAY).add_(var, alpha=1 - self.DECAY)
@@ -123,6 +139,7 @@ class _MLPHead(nn.Module):
                  dropout_final: float, dropout_hidden: float,
                  concat_self: bool, gen: torch.Generator,
                  learnable_dim_reduct: bool = True,
+                 bn_axis_name=None,
                  dtype=torch.float32, device=None):
         super().__init__()
         device = resolve_device(device)
@@ -145,7 +162,8 @@ class _MLPHead(nn.Module):
                     self.register_buffer('dim_reduct', w)
                 width = out_channels
             if batchnorm_final:
-                self.bn['final'] = FlaxBatchNorm(width, dtype=dtype)
+                self.bn['final'] = FlaxBatchNorm(width, dtype=dtype,
+                                                 axis_name=bn_axis_name)
             return
         in_d = in_dim
         for i in range(mlp_layers):
@@ -161,7 +179,8 @@ class _MLPHead(nn.Module):
                         layer.bias.zero_()
             self.dense.append(layer)
             if batchnorm_final if is_final else batchnorm_hidden:
-                self.bn[str(i)] = FlaxBatchNorm(out_d, dtype=dtype)
+                self.bn[str(i)] = FlaxBatchNorm(out_d, dtype=dtype,
+                                                axis_name=bn_axis_name)
             self.acts.append(activation_final if is_final
                              else activation_hidden)
             self.rates.append(dropout_final if is_final else dropout_hidden)
@@ -225,6 +244,7 @@ class FSWConv(nn.Module):
                  dropout_final: float = 0.0,
                  dropout_hidden: float = 0.0,
                  minimize_slice_coherence: bool = True,
+                 bn_axis_name=None,
                  dtype=torch.float32,
                  device=None,
                  generator: Optional[torch.Generator] = None):
@@ -276,8 +296,8 @@ class FSWConv(nn.Module):
             batchnorm_hidden=batchnorm_hidden,
             dropout_final=dropout_final, dropout_hidden=dropout_hidden,
             concat_self=concat_self, gen=gen,
-            learnable_dim_reduct=learnable_embedding, dtype=dtype,
-            device=device)
+            learnable_dim_reduct=learnable_embedding,
+            bn_axis_name=bn_axis_name, dtype=dtype, device=device)
         self.to(device)
 
     @classmethod
@@ -294,16 +314,24 @@ class FSWConv(nn.Module):
 
     def forward(self, vertex_features, graph, *, slice_chunk=None,
                 recipient_features=None, aggregate: str = 'auto',
+                proj_gather_fn=None, exchange_chunks: int = 4,
                 generator: Optional[torch.Generator] = None):
         """vertex_features (N, d_in) sender features; recipient_features
         (R, d_in) the recipients' own features for concat_self (default:
-        vertex_features).  `generator` draws the dropout masks in train
-        mode.  Returns (R, out_channels)."""
+        vertex_features).  Under edge partitioning the senders are the
+        exchanged padded-global matrix and the recipients the local shard;
+        with `proj_gather_fn` (the overlapped exchange) vertex_features are
+        the local shard's rows and the embedding exchanges their
+        projections in `exchange_chunks` slice chunks
+        (parallel/overlap.py).  `generator` draws the dropout masks in
+        train mode.  Returns (R, out_channels)."""
         # weights_grad=False: the adjacency weights are data, never
         # parameters, which lets the rank kernel use uniform_w
         emb = self.fsw_embed(vertex_features, graph=graph,
                              slice_chunk=slice_chunk, aggregate=aggregate,
-                             weights_grad=False)
+                             weights_grad=False,
+                             proj_gather_fn=proj_gather_fn,
+                             exchange_chunks=exchange_chunks)
         if self.concat_self:
             self_feats = (vertex_features if recipient_features is None
                           else recipient_features)

@@ -1,11 +1,11 @@
 """Stacked FSW-GNN models.
 
-Counterpart of `fsw_gnn_tpu/models/gnn.py` for one device: `FSWGNN`, an
-N-layer node classifier of `FSWConv`s, and `FSWGraphClassifier`, a conv
-stack with FSW readout pooling and a linear head.  The edge-partitioned
-exchanges (`gather_fn`, `proj_gather_fn`) and cross-shard BatchNorm belong
-to the distributed trainer ("Parallel and the distributed trainer" in
-ROADMAP.md), not ported yet.
+Counterpart of `fsw_gnn_tpu/models/gnn.py`: `FSWGNN`, an N-layer node
+classifier of `FSWConv`s, and `FSWGraphClassifier`, a conv stack with FSW
+readout pooling and a linear head.  The same FSWGNN runs on one device and
+on one rank of the edge-partitioned trainer (parallel/dist.py), which
+passes the boundary exchange (`gather_fn` or `proj_gather_fn`) and builds
+the model with cross-rank BatchNorm (`bn_axis_name`).
 """
 from __future__ import annotations
 
@@ -19,19 +19,16 @@ from torch import nn
 from ..conv import FSWConv, FSWReadout, leaky_relu_02
 from ..device import resolve_device
 
-_DIST_TODO = ('the edge-partitioned exchanges (gather_fn, proj_gather_fn, '
-              'bn_axis_name) belong to the distributed trainer ("Parallel '
-              'and the distributed trainer" in ROADMAP.md), which is not '
-              'ported yet')
-
-
 class FSWGNN(nn.Module):
     """N-layer FSW-GNN for node-level prediction.
 
     hidden_dims: feature dims after each conv layer; the last entry is the
     output dim (e.g. num_classes).  Layer i is `convs[i]` (the JAX
-    package's 'conv_{i}').  Parameters are drawn from `generator` (a fresh
-    one seeded 0 when None) and placed on `device` (None: the card)."""
+    package's 'conv_{i}').  `bn_axis_name` (a mesh axis name, as the JAX
+    package's 'graph') takes BatchNorm's train-mode statistics over every
+    rank's rows (`conv.FlaxBatchNorm`).  Parameters
+    are drawn from `generator` (a fresh one seeded 0 when None) and placed
+    on `device` (None: the card)."""
 
     def __init__(self, in_channels: int, hidden_dims: Sequence[int],
                  edgefeat_dim: int = 0,
@@ -50,8 +47,6 @@ class FSWGNN(nn.Module):
                  device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if bn_axis_name is not None:
-            raise NotImplementedError(_DIST_TODO)
         device = resolve_device(device)
         gen = generator if generator is not None else (
             torch.Generator().manual_seed(0))
@@ -66,6 +61,7 @@ class FSWGNN(nn.Module):
         self.bias = bias
         self.dropout = dropout
         self.batchnorm = batchnorm
+        self.bn_axis_name = bn_axis_name
         self.slice_chunk = slice_chunk
         self.aggregate = aggregate
         self.dtype = dtype
@@ -75,18 +71,28 @@ class FSWGNN(nn.Module):
         self.to(device)
 
     def forward(self, vertex_features, graph, *, gather_fn=None,
-                proj_gather_fn=None,
+                proj_gather_fn=None, exchange_chunks: int = 4,
                 generator: Optional[torch.Generator] = None):
         """vertex_features (N, in_channels); `graph` a CSR Graph,
         NeighborTable or MultiTable over the N nodes.  `generator` draws
-        the dropout masks in train mode.  Returns (N, hidden_dims[-1])."""
-        if gather_fn is not None or proj_gather_fn is not None:
-            raise NotImplementedError(_DIST_TODO)
+        the dropout masks in train mode.  Returns (N, hidden_dims[-1]).
+
+        Under edge partitioning vertex_features are this rank's rows and
+        `graph` its shard (`parallel.partition.local_graph`):
+        `gather_fn` assembles every layer's sender matrix from the local
+        rows (an all-gather or an all-to-all; the identity on one device),
+        or `proj_gather_fn` keeps the features local and exchanges each
+        layer's sender projections in `exchange_chunks` slice chunks
+        inside the embedding (parallel/overlap.py; tables only)."""
+        if gather_fn is not None and proj_gather_fn is not None:
+            raise ValueError('pass gather_fn or proj_gather_fn, not both')
         x = vertex_features
         for conv in self.convs:
-            x = conv(x, graph, slice_chunk=self.slice_chunk,
+            senders = x if gather_fn is None else gather_fn(x)
+            x = conv(senders, graph, slice_chunk=self.slice_chunk,
                      recipient_features=x, aggregate=self.aggregate,
-                     generator=generator)
+                     proj_gather_fn=proj_gather_fn,
+                     exchange_chunks=exchange_chunks, generator=generator)
         return x
 
 
@@ -111,6 +117,7 @@ def gnn_layer_conv(model: FSWGNN, i: int, *,
         mlp_activation_final=None if is_last else leaky_relu_02,
         batchnorm_final=model.batchnorm and not is_last,
         dropout_final=0.0 if is_last else model.dropout,
+        bn_axis_name=model.bn_axis_name,
         dtype=model.dtype,
         device=device,
         generator=generator)

@@ -2,7 +2,8 @@
 parameters.
 
 Counterpart of `fsw_gnn_tpu/modules.py`: the CSR `Graph`, neighbor-table
-layouts, dense multisets and dense adjacencies.
+layouts, dense multisets and dense adjacencies, and the distributed
+trainer's overlapped exchange.
 Parameters `proj_vecs`, `freqs`, optional `bias` and `total_mass_scale`
 are `nn.Parameter`s when learnable and buffers otherwise (the JAX package
 keeps the latter in its 'fsw_fixed' collection).
@@ -18,7 +19,7 @@ from .device import resolve_device
 from .embedding import (FSWConfig, fsw_embed_graph, fsw_embed_graph_dense,
                         fsw_embed_multi_table, fsw_embed_multiset,
                         fsw_embed_table)
-from .graph import Graph, MultiTable
+from .graph import Graph, MultiTable, NeighborTable
 from .params import bias_shape, generate_freqs, generate_proj_vecs
 
 
@@ -81,17 +82,24 @@ class FSWEmbedding(nn.Module):
     def forward(self, X, W=None, *, graph=None, X_edge=None,
                 graph_mode: bool = False, w_mode: str = 'unit',
                 slice_chunk=None, aggregate: str = 'auto',
-                weights_grad: bool = True, proj_gather_fn=None):
+                weights_grad: bool = True, proj_gather_fn=None,
+                exchange_chunks: int = 4):
         """Dispatches as the JAX module does: a `graph` (CSR Graph,
         NeighborTable or MultiTable, moved to X's device when needed; X
         (num_nodes, d_in))
-        first, giving (num_recipients, d_out), W ignored; then
+        first, giving (num_recipients, d_out), W ignored (with
+        `proj_gather_fn`, the overlapped exchange of the distributed
+        trainer: X is this shard's rows, the graph a NeighborTable or
+        MultiTable over the padded-global senders, and the sender
+        projections are exchanged in `exchange_chunks` slice chunks, more
+        where `slice_chunk` asks for narrower ones; parallel/overlap.py);
+        then
         `graph_mode=True` with a dense adjacency W (..., R, n), X
         (..., n, d_in) and optional X_edge, giving (..., R, d_out); else
         a batch of multisets X (..., n, d_in) with weights W (..., n) or
         None (`w_mode` 'unit' or 'uniform'), giving (..., d_out).  With
-        out_dim == 0 every call gives zeros of those shapes.  With a graph,
-        `proj_gather_fn` is not ported and raises.  A CSR Graph takes no
+        out_dim == 0 every call gives zeros of those shapes.  A CSR Graph
+        takes no
         `aggregate` or `weights_grad`, as in the JAX package: it always
         sorts, and its weights take a gradient when they require one."""
         cfg = self.cfg
@@ -107,10 +115,20 @@ class FSWEmbedding(nn.Module):
                   slice_chunk=slice_chunk)
         if graph is not None:
             if proj_gather_fn is not None:
-                raise NotImplementedError(
-                    'proj_gather_fn (the distributed overlap exchange) '
-                    'belongs to "Parallel and the distributed trainer" in '
-                    'ROADMAP.md, not ported yet')
+                if not isinstance(graph, (MultiTable, NeighborTable)):
+                    raise ValueError('the overlapped exchange needs a '
+                                     'NeighborTable or MultiTable layout')
+                from .parallel.overlap import fsw_embed_local_overlap
+                # the overlap's slice chunks are a slice serialization:
+                # a tighter slice_chunk raises their number
+                n_chunks = exchange_chunks
+                if slice_chunk is not None:
+                    n_chunks = max(n_chunks, -(-cfg.nSlices // slice_chunk))
+                return fsw_embed_local_overlap(
+                    X, graph.to(X.device), self.proj_vecs, self.freqs, cfg,
+                    proj_gather_fn=proj_gather_fn, n_chunks=n_chunks,
+                    bias=kw['bias'], total_mass_scale=kw['total_mass_scale'],
+                    aggregate=aggregate, weights_grad=weights_grad)
             if isinstance(graph, Graph):
                 return fsw_embed_graph(X, graph, self.proj_vecs, self.freqs,
                                        cfg, **kw)

@@ -176,12 +176,23 @@ def test_fswgnn_layers_and_unported_options():
     assert list(tm.convs[0].head.bn) == ['0'] and not tm.convs[1].head.bn
     assert tm.convs[0].head.rates == [0.5] and tm.convs[1].head.rates == [0.0]
     assert tm.convs[1].head.acts == [None]
-    with pytest.raises(NotImplementedError, match='distributed trainer'):
-        T.FSWGNN(4, (4,), minimize_slice_coherence=False, bn_axis_name='g',
-                 device='cpu')
+    # the distributed trainer's arguments: cross-rank BatchNorm is built
+    # in every layer but the last; identity exchanges give the plain
+    # forward
+    bn = T.FSWGNN(4, (4, 2), minimize_slice_coherence=False, batchnorm=True,
+                  bn_axis_name='g', device='cpu')
+    assert bn.convs[0].head.bn['0'].axis_name == 'g'
+    assert not bn.convs[1].head.bn
     g = T.to_multi_table(T.from_edge_index(np.array([[0, 1], [1, 0]]), 2))
-    with pytest.raises(NotImplementedError, match='distributed trainer'):
-        tm(torch.zeros(2, 10), g, gather_fn=lambda x: x)
+    X = torch.randn(2, 10, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = tm.eval()(X, g)
+        assert torch.equal(tm(X, g, gather_fn=lambda x: x), want)
+        torch.testing.assert_close(
+            tm(X, g, proj_gather_fn=lambda x: x, exchange_chunks=3), want,
+            rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match='not both'):
+        tm(X, g, gather_fn=lambda x: x, proj_gather_fn=lambda x: x)
 
 
 def test_dropout_draws_from_the_callers_generator():

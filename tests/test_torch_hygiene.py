@@ -26,7 +26,14 @@ def test_import_pulls_in_no_jax():
             'fsw_gnn_tpu_torch.data.sampler, '
             'fsw_gnn_tpu_torch.train.minibatch, '
             'fsw_gnn_tpu_torch.train.infer, fsw_gnn_tpu_torch.ops.sinkhorn, '
-            'fsw_gnn_tpu_torch.utils.dsmetric; '
+            'fsw_gnn_tpu_torch.utils.dsmetric, fsw_gnn_tpu_torch.parallel, '
+            'fsw_gnn_tpu_torch.parallel.runtime, '
+            'fsw_gnn_tpu_torch.parallel.partition, '
+            'fsw_gnn_tpu_torch.parallel.collectives, '
+            'fsw_gnn_tpu_torch.parallel.dist, fsw_gnn_tpu_torch.parallel.dp, '
+            'fsw_gnn_tpu_torch.parallel.overlap, '
+            'fsw_gnn_tpu_torch.parallel.launch, '
+            'fsw_gnn_tpu_torch.parallel.workers; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "flax", "optax", "orbax", "fsw_gnn_tpu")]; '
             'assert not bad, bad')
@@ -89,3 +96,42 @@ def test_entry_points_default_to_the_card():
                 lambda: T.dsmetric(eye, eye[:, :2], eye, eye[:, :2])):
         with pytest.raises(RuntimeError, match='no CUDA device'):
             run()
+
+
+
+def test_distributed_entry_points_default_to_the_card(tmp_path):
+    """The launcher, the group's start-up, the mesh and the trainers of
+    the distributed paths ask for the card (NCCL) unless told 'cpu'; where
+    there is none they raise instead of starting gloo on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present; the refusal cannot be shown')
+    import torch.distributed as dist
+    from fsw_gnn_tpu_torch.data import synthetic_planted_partition
+    from fsw_gnn_tpu_torch.parallel import ensure_distributed, make_graph_mesh
+    from fsw_gnn_tpu_torch.parallel.launch import launch
+    from fsw_gnn_tpu_torch.train import MinibatchTrainer, TrainConfig, Trainer
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        launch(1, 'fsw_gnn_tpu_torch.parallel.workers:mesh_refusal',
+               dict(num_devices=1))
+    store = 'file://' + str(tmp_path / 'store')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        ensure_distributed(init_method=store, world_size=1, rank=0)
+    assert not dist.is_initialized()
+    # inside a one-rank group the mesh and the trainers still default to
+    # the card
+    dist.init_process_group('gloo', init_method=store + '_cpu',
+                            world_size=1, rank=0)
+    try:
+        data = synthetic_planted_partition(num_nodes=40, num_classes=2,
+                                           feat_dim=4)
+        cfg = TrainConfig(hidden_dims=(4,), num_devices=1)
+        for run in (lambda: make_graph_mesh(1),
+                    lambda: Trainer(data, cfg),
+                    lambda: MinibatchTrainer(data, cfg, batch_size=8,
+                                             fanouts=(2,))):
+            with pytest.raises(RuntimeError, match='no CUDA device'):
+                run()
+        assert make_graph_mesh(1, device='cpu').device.type == 'cpu'
+    finally:
+        dist.destroy_process_group()

@@ -264,17 +264,20 @@ def test_fswembedding_module_matches_jax():
     table = T.to_neighbor_table(T.from_edge_index(ei, 4, dtype=np.float64))
     jt = J.to_neighbor_table(J.from_edge_index(ei, 4, dtype=jnp.float64))
     Xn = rng.standard_normal((4, 3))
-    want = jm.apply(variables, jnp.asarray(Xn), graph=jt, aggregate='sort')
-    _close(tm(torch.from_numpy(Xn), graph=table, aggregate='sort'), want,
-           1e-10, 1e-12)
+    want_table = jm.apply(variables, jnp.asarray(Xn), graph=jt,
+                          aggregate='sort')
+    _close(tm(torch.from_numpy(Xn), graph=table, aggregate='sort'),
+           want_table, 1e-10, 1e-12)
     # a CSR Graph takes the CSR path, as in the JAX module
     want = jax.jit(lambda x, g: jm.apply(variables, x, graph=g))(
         jnp.asarray(Xn), J.from_edge_index(ei, 4, dtype=jnp.float64))
     _close(tm(torch.from_numpy(Xn),
               graph=T.from_edge_index(ei, 4, dtype=np.float64)), want,
            1e-10, 1e-12)
-    with pytest.raises(NotImplementedError, match='distributed trainer'):
-        tm(torch.from_numpy(Xn), graph=table, proj_gather_fn=lambda x: x)
+    # the overlapped exchange with the identity exchange: the table path
+    _close(tm(torch.from_numpy(Xn), graph=table, aggregate='sort',
+              proj_gather_fn=lambda x: x, exchange_chunks=2), want_table,
+           1e-10, 1e-12)
     with pytest.raises(ValueError, match='missing'):
         T.fswembedding_from_jax({'params': {}}, tcfg, device='cpu')
 

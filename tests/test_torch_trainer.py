@@ -247,17 +247,25 @@ def test_trace_dir_writes_a_profiler_trace(data, tmp_path):
 
 
 def test_unported_options_raise(data):
+    """More than one device needs a process group of that many ranks:
+    without one, the trainers and the command line raise a RuntimeError
+    that names the sizes and how to launch, and never train on one
+    device (the distributed runs are in tests/test_torch_dist_trainer.py
+    and tests/test_torch_dp.py)."""
     from fsw_gnn_tpu_torch.train import MinibatchTrainer
-    item8 = 'Parallel and the distributed trainer'
-    with pytest.raises(NotImplementedError, match=item8):
-        Trainer(data, TrainConfig(num_devices=2), device='cpu')
-    with pytest.raises(NotImplementedError, match=item8):
-        MinibatchTrainer(data, TrainConfig(num_devices=2), device='cpu')
-    with pytest.raises(NotImplementedError, match=item8):
-        cli.main(['train', '--num-devices', '4', '--device', 'cpu'])
-    with pytest.raises(NotImplementedError, match=item8):
-        cli.main(['train', '--minibatch', '--num-devices', '2', '--device',
-                  'cpu'])
+    launch = 'needs a torch.distributed process group of 2 processes'
+    hint = 'torchrun --nproc-per-node 2'
+    for make in (lambda: Trainer(data, TrainConfig(num_devices=2),
+                                 device='cpu'),
+                 lambda: MinibatchTrainer(data, TrainConfig(num_devices=2),
+                                          device='cpu'),
+                 lambda: cli.main(['train', '--num-devices', '2',
+                                   '--device', 'cpu']),
+                 lambda: cli.main(['train', '--minibatch', '--num-devices',
+                                   '2', '--device', 'cpu'])):
+        with pytest.raises(RuntimeError, match=launch) as e:
+            make()
+        assert 'world size 0' in str(e.value) and hint in str(e.value)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         if torch.cuda.is_available():
             raise RuntimeError('no CUDA device: (a card is present)')
