@@ -249,12 +249,33 @@ Phases (any failure exits non-zero before the last line is printed):
      --dataset cora --hidden 64 64 --epochs 2 --num-devices 1 --exchange
      all_to_all` (`cli_dist_phase`): exit 0, one JSON line, device cuda,
      one process (`cli dist:` line);
- 36. one JSON line listing the seven kernels with their launches, errors,
+ 36. the autotune (`autotune_phase`): `python -m fsw_gnn_tpu_torch.cli
+     autotune` in a process of its own, its cache in a temporary
+     directory (FSW_AUTOTUNE_CACHE): exit 0, one JSON line, the cache
+     written under the card's kind; the one-sided contract against the
+     H100 table (K2's decisive wins, B = 32 with weight gradients and 32
+     and 64 without, measured as wins; wins beyond the table's cap
+     listed), the K1 ladder's decisive points that K1_RHO0 / K1_D0 decide
+     otherwise listed (forward + backward and forward only),
+     `_rank_rules` of the card still the table with that cache in place;
+     then the autotune's cells in this process at AT_REDUCED, which
+     launch K1f, K1b, K2f, K2b, K4f and K4b, each held against its plain
+     version on the calls they made (`autotune:` line: every margin and
+     cell, the fits beside the constants, the seconds);
+ 37. the utilities (`utils_phase`): `validate_edge_index` and
+     `validate_graph` on the bench graph on the card (corrupted copies
+     raise); `checkify_embed` around the headline FSWConv forward on the
+     `multi` layout (K1f) and the CSR Graph (K3): the unwrapped bits, one
+     inf feature raising and naming an op, its time beside the unwrapped
+     forward's; `trace()` around a served request and a CSR forward,
+     whose Chrome trace holds K1f's and K3's kernels and the fsw_project
+     and fsw_segcumsum ranges; a SectionTimer summary (`utils:` line);
+ 38. one JSON line listing the seven kernels with their launches, errors,
      times and bounds (the launches are those of the main-path runs 4, 6,
-     7, 8, 9, 10, 12-16, 18, 19, 20, 24, 26-30, 33 and 34 together; K2's
-     times and bounds at phase 8's shape, K3's at phase 12's, K4's at
-     phase 17's with B = 32, K4b's with with_dw);
- 37. the last line: {"ok": true, "device": {...}}.
+     7, 8, 9, 10, 12-16, 18, 19, 20, 24, 26-30, 33, 34, 36 and 37
+     together; K2's times and bounds at phase 8's shape, K3's at phase
+     12's, K4's at phase 17's with B = 32, K4b's with with_dw);
+ 39. the last line: {"ok": true, "device": {...}}.
 
 Tolerances:
   * K1f against its plain version, both on the card in float32:
@@ -453,6 +474,12 @@ DS_DEMO_N, DS_DEMO_D, DS_TRACE_OUTER = 12, 4, 50
 DS_PAIRS, DS_N, DS_D, DS_CPU_PAIRS = 64, 64, 4, 8
 DS_F64_RTOL, DS_F32_RTOL, DS_ISO_SHARE = 1e-9, 1e-2, 1e-2
 DIST_HIDDEN, DIST_CHUNKS = (64, 64), 4
+AUTOTUNE_TIMEOUT = 300
+# the in-process run of the autotune's cells that counts their launches
+AT_REDUCED = dict(buckets=(32,), cart_buckets=(32,), k1_ds=(64, CORA_D),
+                  k1_rhos=(0.2, 2.0), steps=1, calls=1)
+K1F_KERNEL, K3_KERNEL = 'fsw_rank_fwdp_kernel', 'scan_kernel'
+UTILS_REPS = 5
 
 
 def fail(msg):
@@ -2771,7 +2798,7 @@ def routing_phase(torch, T, dev):
             rho = tbl.idx.numel() / N
 
             def run(fused, bwd, tbl=tbl, G=G):
-                E._k1_faster = lambda d, r: fused
+                E._k1_faster = lambda d, r, rules=None: fused
                 try:
                     with torch.set_grad_enabled(bwd):
                         out = E.fsw_embed_table(X, tbl, V, freqs, cfg,
@@ -4218,6 +4245,257 @@ def dsmetric_phase(torch, T, dev, smi_line):
     print('dsmetric: ' + json.dumps(res), flush=True)
 
 
+def capture_all(run, names):
+    """{name: calls} of `run()` with each of the rank route's entry points
+    `names` wrapped (`capture_rank_calls`)."""
+    calls = {}
+
+    def nest(i):
+        if i == len(names):
+            return run()
+        calls[names[i]] = capture_rank_calls(lambda: nest(i + 1), names[i])
+    nest(0)
+    return calls
+
+
+def distinct(calls):
+    """The first call of each (shapes, uniform_w, with_dw)."""
+    seen, out = set(), []
+    for args, unif, dw in calls:
+        key = (tuple(tuple(a.shape) for a in args), unif, dw)
+        if key not in seen:
+            seen.add(key)
+            out.append((args, unif, dw))
+    return out
+
+
+def autotune_phase(torch, T, dev, smi_line, counts, errs):
+    """Phase 36: `python -m fsw_gnn_tpu_torch.cli autotune` in a process of
+    its own, its cache in a temporary directory: exit 0, one JSON line,
+    the cache written under the card's kind; the measured rules held to
+    the one-sided contract against the H100 table (K2's decisive wins
+    measured as wins; K2 wins beyond the table's cap, and the K1 ladder's
+    points that the measurement decides beyond SAFETY where K1_RHO0 and
+    K1_D0 decide them otherwise, listed); `_rank_rules` of the card still the
+    table's with that cache in place; then the autotune's cells in this
+    process at AT_REDUCED (K1f, K1b, K2f, K2b, K4f and K4b launched by
+    them, each held against its plain version on the calls it made)."""
+    from fsw_gnn_tpu_torch import embedding as E
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    from fsw_gnn_tpu_torch.utils import autotune as AT
+    t0 = time.perf_counter()
+    kind = torch.cuda.get_device_name(0).lower()
+    table = E._RANK_RULES_BY_KIND['h100']
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, 'autotune.json')
+        cmd = [sys.executable, '-m', 'fsw_gnn_tpu_torch.cli', 'autotune']
+        try:
+            proc = subprocess.run(
+                cmd, cwd=ROOT, capture_output=True, text=True,
+                timeout=AUTOTUNE_TIMEOUT,
+                env=dict(os.environ, FSW_AUTOTUNE_CACHE=cache))
+        except subprocess.TimeoutExpired:
+            fail(f'autotune: the CLI ran past {AUTOTUNE_TIMEOUT} s')
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f'autotune: exit {proc.returncode}:\n{proc.stderr[-3000:]}')
+        lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+        if len(lines) != 1:
+            fail(f'autotune: {len(lines)} lines on stdout, not one JSON '
+                 f'line:\n{proc.stdout[-2000:]}')
+        out = json.loads(lines[0])
+        rules = out['rules']
+        if out['cache'] != cache or not os.path.exists(cache):
+            fail(f'autotune: no cache written ({out["cache"]})')
+        with open(cache) as f:
+            cached = json.load(f)
+        if list(cached) != [kind] or cached[kind] != rules:
+            fail(f'autotune: the cache holds {list(cached)}, not the rules '
+                 f'under {kind!r}')
+        old = os.environ.get('FSW_AUTOTUNE_CACHE')
+        os.environ['FSW_AUTOTUNE_CACHE'] = cache
+        try:
+            if E._rank_rules(dev) is not table:
+                fail('autotune: the cache took precedence over the H100 '
+                     'table')
+        finally:
+            if old is None:
+                del os.environ['FSW_AUTOTUNE_CACHE']
+            else:
+                os.environ['FSW_AUTOTUNE_CACHE'] = old
+    # the one-sided contract of scripts/validate_autotune.py against the
+    # H100 table: K2's decisive wins (B = 32 with weight gradients, 32 and
+    # 64 without) must be measured as wins; a win beyond the table's cap
+    # is listed (the table keeps routing the H100: the cap is the JAX
+    # package's, which no H100 measurement set)
+    lost = [f'{mode} B={b}: {rules["margins"][mode].get(str(b))}'
+            for mode, bs in (('dw', (32,)), ('nodw', (32, 64)))
+            for b in bs if not rules['margins'][mode].get(str(b), 0.0)
+            >= AT.SAFETY]
+    if lost:
+        fail(f'autotune: decisive K2 wins not measured as wins: {lost}')
+    over_cap = [dict(mode=mode, B=int(b), margin=m)
+                for mode, key in (('dw', 'cap_dw'), ('nodw', 'cap_nodw'))
+                for b, m in rules['margins'][mode].items()
+                if m >= AT.SAFETY and int(b) > table[key]]
+    cells = rules['cells']
+    differ = {}
+    for mode in ('k1', 'k1_fwd'):
+        differ[mode] = [
+            dict(D=c['D'], rho=c['rho'], margin=round(c['margin'], 3))
+            for c in cells if c['mode'] == mode and AT._verdict(c)
+            and E._k1_faster(c['D'], c['rho']) != (AT._verdict(c) > 0)]
+
+    # ---- the cells in this process: launches, and each kernel against
+    # its plain version on the calls they made
+    t1 = time.perf_counter()
+    names = ('fsw_rank_aggregate_proj', 'fsw_rank_aggregate_proj_bwd',
+             'fsw_rank_aggregate', 'fsw_rank_aggregate_bwd',
+             'fsw_rank_aggregate_cart', 'fsw_rank_aggregate_cart_bwd')
+    keys = ('fsw_rank_fwdp', 'fsw_rank_bwdp', 'fsw_rank_fwd', 'fsw_rank_bwd',
+            'fsw_rank_cart_fwd', 'fsw_rank_cart_bwd')
+    before = [getattr(R, n).launches for n in names]
+    calls = capture_all(lambda: AT._measure_margins(**AT_REDUCED,
+                                                    device=dev),
+                        ('fsw_rank_aggregate_proj', 'fsw_rank_aggregate',
+                         'fsw_rank_aggregate_cart'))
+    torch.cuda.synchronize()
+    launched = [getattr(R, n).launches - b for n, b in zip(names, before)]
+    if not all(k > 0 for k in launched):
+        fail(f'autotune: K1f, K1b, K2f, K2b, K4f, K4b launched {launched}')
+    for key, k in zip(keys, launched):
+        counts[key] += k
+    reduced_s = time.perf_counter() - t1
+    cfg_k2 = T.FSWConfig(d_in=4, d_out=129, enable_bias=False)
+    cfg_k4 = T.FSWConfig(d_in=4, n_slices=128, n_freqs=8, enable_bias=False)
+    check_rank_calls(torch, dev, distinct(calls['fsw_rank_aggregate_proj']),
+                     T.FSWConfig(d_in=64, d_out=127), 'autotune K1', errs,
+                     False)
+    check_rank2_calls(torch, dev, distinct(calls['fsw_rank_aggregate']),
+                      cfg_k2, 'autotune K2', errs, extra=False)
+    check_rank2_calls(torch, dev, distinct(calls['fsw_rank_aggregate_cart']),
+                      cfg_k4, 'autotune K4', errs, extra=False, kind='K4')
+    del calls
+    torch.cuda.empty_cache()
+    fits = {k: rules.get(k) for k in (
+        'k1_rho0', 'k1_d0', 'k1_fit', 'k1_misjudged', 'k1_fwd_rho0',
+        'k1_fwd_d0', 'k1_fwd_fit', 'k1_fwd_misjudged')}
+    print('autotune: ' + json.dumps({
+        'card': smi_line, 'kind': kind, 'margins': rules['margins'],
+        'caps': {k: rules[k] for k in ('cap_dw', 'cap_nodw')},
+        'table': table, **fits,
+        'constants': {'K1_RHO0': E.K1_RHO0, 'K1_D0': E.K1_D0},
+        'k2_wins_beyond_the_table_cap': over_cap,
+        'k1_points_the_constants_decide_otherwise': differ['k1'],
+        'k1_fwd_points_the_constants_decide_otherwise': differ['k1_fwd'],
+        'cells': [{k: (round(v, 4) if isinstance(v, float) else v)
+                   for k, v in c.items()} for c in cells],
+        'launches_k1f_k1b_k2f_k2b_k4f_k4b': launched,
+        'cli_s': cli_s, 'reduced_s': reduced_s,
+        'phase_s': time.perf_counter() - t0}), flush=True)
+
+
+def utils_phase(torch, T, dev, smi_line, counts, errs):
+    """Phase 37: the utilities on the card.  `validate_edge_index` and
+    `validate_graph` on the bench graph with tensors on the card (and a
+    corrupted copy of each, which must raise); `checkify_embed` around the
+    headline FSWConv(64, 64, mlp_layers=3) forward on the bench graph's
+    `multi` layout (K1f) and on its CSR Graph (K3): the bits of the
+    unwrapped call, a copy of X with one inf feature raising and naming an
+    op, its time beside the unwrapped forward's (host clock until the
+    output is ready, the least of UTILS_REPS calls in turns); `trace()`
+    around one served request (an eager GraphServer) and one CSR forward:
+    the Chrome trace holds K1f's and K3's kernels and the fsw_project and
+    fsw_segcumsum ranges; a SectionTimer summary of the phase."""
+    import dataclasses
+    from fsw_gnn_tpu_torch import utils as U
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum
+    timer = U.SectionTimer()
+    t0 = time.perf_counter()
+    before = (R.fsw_rank_aggregate_proj.launches, segcumsum.launches)
+    ei, _ = simple_graph(0, N_NODES)
+    with timer.section('validate'):
+        g = T.from_edge_index(ei, N_NODES).to(dev)
+        U.validate_edge_index(torch.from_numpy(ei).to(dev), N_NODES)
+        U.validate_graph(g)
+        bad_ei = torch.from_numpy(ei).to(dev)
+        bad_ei[0, 7] = N_NODES
+        bad_w = g.weight.clone()
+        bad_w[3] = -1.0
+        for label, fn in (
+                ('edge index', lambda: U.validate_edge_index(bad_ei, N_NODES)),
+                ('graph', lambda: U.validate_graph(
+                    dataclasses.replace(g, weight=bad_w)))):
+            try:
+                fn()
+            except AssertionError:
+                continue
+            fail(f'utils: a corrupted {label} passed validation')
+    model = T.FSWConv(D_IN, D_OUT, mlp_layers=3,
+                      minimize_slice_coherence=False, dtype=torch.float32,
+                      device=dev, generator=torch.Generator().manual_seed(0))
+    mt = T.to_multi_table(T.from_edge_index(ei, N_NODES)).to(dev)
+    X = torch.randn((N_NODES, D_IN),
+                    generator=torch.Generator(device=dev).manual_seed(37),
+                    device=dev)
+    checked = U.checkify_embed(model)
+    res = {}
+    with torch.no_grad():
+        for name, layout in (('multi', mt), ('csr', g)):
+            model(X, layout)                                   # warm-up
+            for _ in range(UTILS_REPS):       # in turns; the minimum counts
+                plain = timer.time_fn(f'{name} forward', model, X, layout)
+                got = timer.time_fn(f'{name} checkify', checked, X, layout)
+            if not torch.equal(got, plain):
+                fail(f'utils: checkify_embed changed the {name} output')
+            Xi = X.clone()
+            Xi[5, 3] = float('inf')
+            try:
+                checked(Xi, layout)
+            except U.FloatCheckError as e:
+                res[f'{name}_inf_raised'] = str(e)
+            else:
+                fail(f'utils: checkify_embed passed an inf feature ({name})')
+        classes, class_rows = T.multi_envelope(
+            T.from_edge_index(ei, N_NODES), N_NODES)
+        server = T.GraphServer(model, N_NODES, MAX_EDGES, classes=classes,
+                               class_rows=class_rows, assume_uniform_w=True,
+                               cuda_graphs=False, device=dev)
+        server.warmup(D_IN)
+        req_ei, rng = simple_graph(3, N_NODES)
+        req_X = rng.standard_normal((N_NODES, D_IN)).astype(np.float32)
+        with tempfile.TemporaryDirectory() as tmp:
+            with timer.section('trace'):
+                with U.trace(tmp):
+                    server.predict(req_ei, req_X)
+                    model(X, g)
+                    torch.cuda.synchronize()
+            with open(os.path.join(tmp, 'trace.json')) as f:
+                names = [str(e.get('name', ''))
+                         for e in json.load(f)['traceEvents']]
+    found = {k: sum(k in n for n in names) for k in (
+        K1F_KERNEL, K3_KERNEL, 'fsw_project', 'fsw_segcumsum')}
+    if not all(found.values()):
+        fail(f'utils: the trace lacks '
+             f'{[k for k, v in found.items() if not v]}')
+    launched = (R.fsw_rank_aggregate_proj.launches - before[0],
+                segcumsum.launches - before[1])
+    if not all(launched):
+        fail(f'utils: K1f, K3 launched {launched}')
+    counts['fsw_rank_fwdp'] += launched[0]
+    counts['segcumsum'] += launched[1]
+    summary = timer.summary()
+    print('utils: ' + json.dumps({
+        'card': smi_line, **res, 'trace_events_found': found,
+        'launches_k1f_k3': launched,
+        'checkify_over_forward': {
+            k: summary[f'{k} checkify']['min_ms']
+            / summary[f'{k} forward']['min_ms'] for k in ('multi', 'csr')},
+        'sections': summary, 'phase_s': time.perf_counter() - t0}),
+        flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4404,7 +4682,11 @@ def main():
     torch.cuda.empty_cache()
     cli_dist_phase(smi_line)
 
-    # ---- 36. kernels line, 37. last line ------------------------------------
+    # ---- 36. the autotune, 37. the utilities --------------------------------
+    autotune_phase(torch, T, dev, smi_line, counts, errs)
+    utils_phase(torch, T, dev, smi_line, counts, errs)
+
+    # ---- 38. kernels line, 39. last line ------------------------------------
     src = 'fsw_gnn_tpu_torch/csrc/'
     pallas = 'fsw_gnn_tpu/ops/fsw_rank_pallas.py:'
     line = {'kernels': [

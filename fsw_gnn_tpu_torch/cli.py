@@ -1,5 +1,6 @@
 """Command-line interface of the port: training of an FSW-GNN (full-graph,
-or on neighbor-sampled minibatches) and the export of a trained checkpoint.
+or on neighbor-sampled minibatches), the export of a trained checkpoint,
+and the autotune of the routing rules on the card.
 
   python -m fsw_gnn_tpu_torch.cli train --dataset cora --hidden 64 64 \
       --checkpoint-dir ckpt
@@ -10,8 +11,9 @@ or on neighbor-sampled minibatches) and the export of a trained checkpoint.
   python -m fsw_gnn_tpu_torch.cli train --dataset cora --device cpu
   torchrun --nproc-per-node 4 -m fsw_gnn_tpu_torch.cli train \
       --dataset cora --num-devices 4 --exchange all_to_all
+  python -m fsw_gnn_tpu_torch.cli autotune [--dry-run]
 
-Counterpart of the `train` and `export` subcommands of
+Counterpart of the `train`, `export` and `autotune` subcommands of
 `fsw_gnn_tpu/cli.py`, on the card unless --device says otherwise (for
 `export`, --device is where the artifact runs, as the JAX command's
 --platform).  A dataset whose npz file is absent (FSW_DATA_DIR, else
@@ -19,7 +21,11 @@ Counterpart of the `train` and `export` subcommands of
 trains over P processes, one per device, started by torchrun or by
 `python -m fsw_gnn_tpu_torch.parallel.launch --nproc P -- train ...`
 (edge-partitioned, or data-parallel with --minibatch); only rank 0 prints
-the JSON line.  `bench` and `autotune` are not ported yet.
+the JSON line.  `autotune` measures the rank-vs-sort and K1 crossovers on
+the card (`utils/autotune.py`) and caches them under its kind (not with
+--dry-run); it prints {"rules": ..., "cache": path or null}.  Only `bench`
+is not ported yet: it waits for the port's main-path benchmark
+(ROADMAP.md section 1, item 3).
 """
 from __future__ import annotations
 
@@ -64,6 +70,9 @@ def _add_train_args(p):
                    help='append per-epoch metrics to this JSONL file')
     p.add_argument('--trace-dir', default=None,
                    help='write a torch.profiler trace here')
+    p.add_argument('--compilation-cache', default=None, metavar='DIR',
+                   help='build and keep the kernels\' libraries in DIR '
+                        '(default: the package\'s _build/)')
     p.add_argument('--minibatch', action='store_true',
                    help='neighbor-sampled minibatch training')
     p.add_argument('--batch-size', type=int, default=512)
@@ -95,7 +104,8 @@ def cmd_train(args) -> int:
         eval_node_chunk=args.eval_node_chunk,
         checkpoint_dir=args.checkpoint_dir,
         auto_resume=not args.no_auto_resume,
-        metrics_path=args.metrics_path, trace_dir=args.trace_dir)
+        metrics_path=args.metrics_path, trace_dir=args.trace_dir,
+        compilation_cache=args.compilation_cache)
     if args.minibatch:
         fanouts = tuple(int(x) for x in args.fanouts.split(','))
         tr = MinibatchTrainer(data, cfg, batch_size=args.batch_size,
@@ -109,6 +119,20 @@ def cmd_train(args) -> int:
                           'processes': world, **out['final'],
                           'seconds': round(out['seconds'], 2),
                           'epochs_run': out['epochs_run']}), flush=True)
+    return 0
+
+
+def cmd_autotune(args) -> int:
+    """One-shot measurement of the routing rules on this card, cached by
+    its kind so that aggregate='auto' can use the rank kernels on a card
+    without a measured rules table.  Unlike the JAX command it moves no
+    build cache: the kernels' builds persist already."""
+    from .utils.autotune import autotune_rank_rules, cache_path
+    rules = autotune_rank_rules(write_cache=not args.dry_run,
+                                device=args.device)
+    print(json.dumps({'rules': rules,
+                      'cache': None if args.dry_run else cache_path()}),
+          flush=True)
     return 0
 
 
@@ -159,6 +183,13 @@ def main(argv=None) -> int:
                                              'artifact')
     _add_export_args(p_export)
     p_export.set_defaults(fn=cmd_export)
+    p_auto = sub.add_parser('autotune', help='measure + cache the routing '
+                                             'rules for this card')
+    p_auto.add_argument('--dry-run', action='store_true',
+                        help='measure and print, do not write the cache')
+    p_auto.add_argument('--device', default=None,
+                        help="'cuda' (the default) or 'cpu'")
+    p_auto.set_defaults(fn=cmd_autotune)
     args = parser.parse_args(argv)
     return args.fn(args)
 

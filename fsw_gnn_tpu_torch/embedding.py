@@ -25,14 +25,15 @@ Aggregations:
           entries (tables and multisets), which ranks once for all the
           frequencies of a slice.
 'auto' takes 'rank' for an aggregation whose width (a table's bucket
-size, a multiset's n) is at most RANK_AGGREGATE_MAX_BUCKET_NO_DW and
-whose kernels hold that width in shared memory (`ops.fsw_rank.misfit`),
-and 'sort' otherwise, on the CPU and on the card alike (`_resolve_aggregate`,
-the port's H100 counterpart of the JAX package's per-device rules).  On a
-table K1 is taken only where it is faster than the unfused route
-(`_k1_faster`, measured on an H100).  The crossover rules the JAX package
-measured on its own hardware are not carried over; the width cap is the
-widest it ever routes to its rank kernels.  On an H100 the rank kernels'
+size, a multiset's n) is at most the device's cap and whose kernels hold
+that width in shared memory (`ops.fsw_rank.misfit`), and 'sort' otherwise
+(`_resolve_aggregate`).  On a table K1 is taken only where it is faster
+than the unfused route (`_k1_faster`).  The caps and K1's crossover are
+the device's rules (`_rank_rules`, the counterpart of the JAX package's
+per-device rules): the table measured on an H100 (which the CPU follows
+too), else the card kind's autotune cache (`utils/autotune.py`), else
+none, and 'auto' sorts.  The crossover rules the JAX package measured on
+its own hardware are not carried over.  On an H100 the rank kernels'
 forward and backward with weight gradients beat the sort route at the
 widths `chip_smoke.py` measures (PERF.md).
 
@@ -45,6 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Optional, Tuple, Union
 
 import torch
@@ -55,6 +57,7 @@ from .ops.fsw_rank import (fsw_rank_aggregate, fsw_rank_aggregate_cart,
 from .ops.segcumsum import segcumsum_rows, segment_boundaries
 from .ops.segment import (rows_gather, segment_expand, segment_lengths,
                           segment_sort_fused, segment_sum)
+from .utils.profiling import named_scope
 
 # the widest bucket the JAX package routes to its rank kernels (its
 # `RANK_AGGREGATE_MAX_BUCKET_NO_DW`): the kernels hold a whole row in a
@@ -81,9 +84,22 @@ RANK_AGGREGATE_MAX_BUCKET_NO_DW = 128
 # against 12.32).  The unfused route's backward is mostly PyTorch's scatter
 # of dP into the projections; the forward alone favours it from D = 64 at
 # 9 entries a node, and the rule follows training, the path that runs wide
-# layers.
+# layers.  `cli autotune` (utils/autotune.py) measures the crossover again
+# on a ladder of synthetic degree classes and fits this rule to it.
 K1_RHO0 = 0.2
 K1_D0 = 420.0
+
+# The measured rules by card kind (a substring of the lower-cased name):
+# the widest bucket 'auto' sends to a rank kernel with and without the
+# weights' gradient, and K1's crossover (K1_RHO0, K1_D0 above).  The CPU
+# follows the H100's, so the plain versions take the card's routes.
+# `utils/autotune.py` measures these on any card (`cli autotune`) and
+# caches them by kind; its `waste_*` keys are kept for parity with the
+# JAX package's and read by no route.
+_RANK_RULES_BY_KIND = {
+    'h100': dict(cap_dw=128, cap_nodw=128, k1_rho0=0.2, k1_d0=420.0),
+}
+_KINDS: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,17 +272,58 @@ def _finalize(emb, w_sum, cfg: FSWConfig, bias, total_mass_scale):
     return emb
 
 
-def _k1_faster(D: int, entries_per_node: float) -> bool:
+def _device_kind(device) -> str:
+    """The lower-cased name of a CUDA device, looked up once per device
+    index."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    kind = _KINDS.get(index)
+    if kind is None:
+        kind = _KINDS[index] = torch.cuda.get_device_name(index).lower()
+    return kind
+
+
+def _rank_rules(device=None) -> Optional[dict]:
+    """The routing rules of `device`: the measured table first (no device,
+    the CPU, or a card whose kind it names), then the autotune cache for
+    the card's kind (`utils/autotune.py`), then the H100's rules where
+    FSW_ASSUME_H100_RULES=1; None when no rules are known, and 'auto'
+    sorts.  As in the JAX package the table beats the cache on a kind it
+    names, and a card it does not name never gets the H100's rules
+    unasked.  The kind is looked up once per device index, so a card the
+    table names costs no file read and no sync a call."""
+    if device is None or torch.device(device).type != 'cuda':
+        return _RANK_RULES_BY_KIND['h100']
+    kind = _device_kind(torch.device(device))
+    for known, rules in _RANK_RULES_BY_KIND.items():
+        if known in kind:
+            return rules
+    from .utils.autotune import cached_rules
+    cached = cached_rules(kind)
+    if cached is not None:
+        return cached
+    if os.environ.get('FSW_ASSUME_H100_RULES') == '1':
+        return _RANK_RULES_BY_KIND['h100']
+    return None
+
+
+def _k1_faster(D: int, entries_per_node: float,
+               rules: Optional[dict] = None) -> bool:
     """Whether K1 beats the unfused route at feature width D on a table of
-    `entries_per_node` entries a node (see K1_RHO0)."""
+    `entries_per_node` entries a node (see K1_RHO0), by the crossover of
+    `rules` (the H100 table's when None, or when they carry none)."""
+    table = _RANK_RULES_BY_KIND['h100']
+    rho0 = (rules or table).get('k1_rho0', table['k1_rho0'])
+    d0 = (rules or table).get('k1_d0', table['k1_d0'])
     rho = float(entries_per_node)
-    return rho <= K1_RHO0 or D * (rho - K1_RHO0) < rho * K1_D0
+    return rho <= rho0 or D * (rho - rho0) < rho * d0
 
 
 def _resolve_aggregate(aggregate: str, cfg: FSWConfig, bucket_size: int,
                        s_eff: Optional[int] = None,
                        weights_grad: bool = True,
-                       entries_per_node: Optional[float] = None) -> str:
+                       entries_per_node: Optional[float] = None,
+                       device=None) -> str:
     """The route of one aggregation of width `bucket_size` (a table's
     bucket, a multiset's n): 'sort', 'rank' (the unfused kernels K2, or K4
     in cartesian mode) or 'rank_proj' (the fused-projection kernels K1).
@@ -282,18 +339,26 @@ def _resolve_aggregate(aggregate: str, cfg: FSWConfig, bucket_size: int,
         backward hold the width;
       * otherwise 'sort' under 'auto'; an explicit 'rank' raises a
         ValueError naming the width and the shared memory it needs.
-    'auto' also sorts above RANK_AGGREGATE_MAX_BUCKET_NO_DW.  The needs
-    are `ops.fsw_rank.smem_bytes`, the kernels' own; K1 and K2 compute the
-    same function, so where K1 cannot launch K2 gives the same values.
-    K4b's need is taken with the uniform-weight trig, the larger."""
+    The rules are `device`'s (`_rank_rules`; None: the H100 table's, as
+    on the CPU): 'auto' sorts above their cap (`cap_dw` with
+    `weights_grad`, else `cap_nodw`; RANK_AGGREGATE_MAX_BUCKET_NO_DW on
+    the H100), and everywhere on a card with no rules; K1 is chosen by
+    their crossover, and an explicit 'rank' on such a card keeps the H100
+    table's.  The needs are `ops.fsw_rank.smem_bytes`, the kernels' own;
+    K1 and K2 compute the same function, so where K1 cannot launch K2
+    gives the same values.  K4b's need is taken with the uniform-weight
+    trig, the larger."""
     if aggregate not in ('auto', 'sort', 'rank'):
         raise ValueError(f"aggregate must be 'auto'|'sort'|'rank', "
                          f"got {aggregate!r}")
-    B = bucket_size
-    if aggregate == 'sort' or (aggregate == 'auto'
-                               and B > RANK_AGGREGATE_MAX_BUCKET_NO_DW):
+    if aggregate == 'sort':
         return 'sort'
+    B = bucket_size
     dw = bool(weights_grad)
+    rules = _rank_rules(device)
+    if aggregate == 'auto' and (
+            rules is None or B > rules['cap_dw' if dw else 'cap_nodw']):
+        return 'sort'
     if cfg.cartesian_mode:
         F = cfg.nFreqs
         short = misfit(('fsw_rank_cart_fwd', 'fsw_rank_cart_bwd'), B, F, dw,
@@ -302,7 +367,8 @@ def _resolve_aggregate(aggregate: str, cfg: FSWConfig, bucket_size: int,
     else:
         at = ''
         if (s_eff is not None and entries_per_node is not None
-                and cfg.proj_dim < s_eff and _k1_faster(cfg.proj_dim, entries_per_node)
+                and cfg.proj_dim < s_eff
+                and _k1_faster(cfg.proj_dim, entries_per_node, rules)
                 and misfit(('fsw_rank_fwdp', 'fsw_rank_bwdp'), B,
                            with_dw=dw) is None):
             return 'rank_proj'
@@ -404,6 +470,40 @@ def _chunked(slices_block, V, freqs, cfg: FSWConfig,
                      dim=-1)[..., :S]
 
 
+def _fused_inputs(X, table, wn, pad_norm, cfg: FSWConfig):
+    """K1's row inputs of a table, in float32: the gathered sender rows Z
+    (R, B, d_in + d_edge), wn and pad_norm."""
+    f32 = torch.float32
+    return (gather_rows(X, table, cfg).to(f32).contiguous(),
+            wn.to(f32).contiguous(), pad_norm.to(f32).contiguous())
+
+
+def _fused_block(fused, proj_block, f_block, unif: bool, weights_grad):
+    """The fused route (K1) on one slice block: `fused` from
+    `_fused_inputs`, proj_block (S_blk, d_in + d_edge).  Returns
+    (R, S_blk) in float32."""
+    Z32, wn32, pad32 = fused
+    return fsw_rank_aggregate_proj(
+        Z32, wn32, pad32, f_block.to(torch.float32).contiguous(),
+        proj_block.t().to(torch.float32).contiguous(),
+        uniform_w=unif, with_dw=weights_grad)
+
+
+def _unfused_block(X, table, wn, pad_norm, proj_block, f_block,
+                   cfg: FSWConfig, agg: str, weights_grad, unif: bool):
+    """The unfused route on one slice block: X projected once, P gathered
+    by the table, then `bucket_quadrature` by `agg` (K2 / K4, or sort).
+    Returns (R, S_blk) (or (R, S_blk, F))."""
+    Xp = _mm(X, proj_block[:, :cfg.d_in].t())                  # (N, S_blk)
+    P = Xp[table.idx]                                          # (R, B, S_blk)
+    if cfg.d_edge > 0:
+        if table.edge_feat is None:
+            raise ValueError('the table has no edge features')
+        P = P + _mm(table.edge_feat, proj_block[:, cfg.d_in:].t())
+    return bucket_quadrature(P, wn, pad_norm, f_block, cfg, agg,
+                             weights_grad, uniform_w=unif)
+
+
 def fsw_embed_table(X, table, projVecs, freqs, cfg: FSWConfig,
                     bias=None, total_mass_scale=None,
                     slice_chunk: Optional[int] = None,
@@ -426,7 +526,8 @@ def fsw_embed_table(X, table, projVecs, freqs, cfg: FSWConfig,
     s_eff = S if slice_chunk is None else min(slice_chunk, S)
     agg = _resolve_aggregate(aggregate, cfg, table.bucket_size, s_eff,
                              weights_grad,
-                             table.idx.numel() / max(X.shape[0], 1))
+                             table.idx.numel() / max(X.shape[0], 1),
+                             table.idx.device)
     w_sum, wn, pad_norm = table_weights(table.weight, cfg)
 
     # the fused-projection route gathers the raw sender rows (R, B, D) and
@@ -434,27 +535,15 @@ def fsw_embed_table(X, table, projVecs, freqs, cfg: FSWConfig,
     use_proj = agg == 'rank_proj'
     unif = bool(table.uniform_w)
     if use_proj:
-        f32 = torch.float32
-        Z32 = gather_rows(X, table, cfg).to(f32).contiguous()
-        wn32 = wn.to(f32).contiguous()
-        pad32 = pad_norm.to(f32).contiguous()
+        fused = _fused_inputs(X, table, wn, pad_norm, cfg)
 
     def slices_block(proj_block, f_block):
         """proj_block: (S_blk, d_in + d_edge) slice vectors; f_block."""
         if use_proj:
-            out = fsw_rank_aggregate_proj(
-                Z32, wn32, pad32, f_block.to(torch.float32).contiguous(),
-                proj_block.t().to(torch.float32).contiguous(),
-                uniform_w=unif, with_dw=weights_grad)
-            return out.to(dt)                                  # (R, S_blk)
-        Xp = _mm(X, proj_block[:, :cfg.d_in].t())              # (N, S_blk)
-        P = Xp[table.idx]                                      # (R, B, S_blk)
-        if cfg.d_edge > 0:
-            if table.edge_feat is None:
-                raise ValueError('the table has no edge features')
-            P = P + _mm(table.edge_feat, proj_block[:, cfg.d_in:].t())
-        return bucket_quadrature(P, wn, pad_norm, f_block, cfg, agg,
-                                 weights_grad, uniform_w=unif)
+            return _fused_block(fused, proj_block, f_block, unif,
+                                weights_grad).to(dt)           # (R, S_blk)
+        return _unfused_block(X, table, wn, pad_norm, proj_block, f_block,
+                              cfg, agg, weights_grad, unif)
 
     emb = _chunked(slices_block, projVecs, freqs, cfg, slice_chunk)
 
@@ -526,7 +615,8 @@ def fsw_embed_multiset(X, W, projVecs, freqs, cfg: FSWConfig,
         wsp_c = max(ws_total, T)
         wc = (1.0 / wsp_c) if w_mode == 'unit' else 1.0 / (n * wsp_c)
         padc = max(T - ws_total, 0.0) / wsp_c
-    agg = _resolve_aggregate(aggregate, cfg, n, weights_grad=weights_grad)
+    agg = _resolve_aggregate(aggregate, cfg, n, weights_grad=weights_grad,
+                             device=dev)
     w_sum, wn, pad_norm = table_weights(W, cfg)
 
     def slices_block(V_block, f_block):
@@ -644,22 +734,23 @@ def fsw_embed_graph(X, graph, projVecs, freqs, cfg: FSWConfig,
 
     def slices_block(V_block, f_block):
         """V_block (S_b, d_in + d_edge); f_block (S_b,) or (F,)."""
-        S_b = V_block.shape[0]
+        with named_scope('fsw_project'):
+            Xp = _mm(V_block[:, :cfg.d_in], X.t())              # (S_b, N)
         # projections laid out (S_b, E), each slice's row contiguous
-        keys = rows_gather(graph.num_nodes, _mm(V_block[:, :cfg.d_in], X.t()),
-                           graph.src, src_order, src_sorted, dim=1,
-                           lengths=src_len)
+        keys = rows_gather(graph.num_nodes, Xp, graph.src, src_order,
+                           src_sorted, dim=1, lengths=src_len)
         if cfg.d_edge > 0:
             keys = keys + _mm(V_block[:, cfg.d_in:],
                               graph.edge_feat.to(dt).t())
         ps, ws = segment_sort_fused(keys, wn, dst)
-        if ws.dtype.itemsize == 2:
-            # K3 has float32 and float64 kernels: 2-byte weights (a
-            # bfloat16 server's) are summed in float32 and rounded once
-            c = segcumsum_rows(ws.float(), is_end).to(ws.dtype)
-        else:
-            c = segcumsum_rows(ws, is_end)
-        c = c + pad_e * (ps > 0)
+        with named_scope('fsw_segcumsum'):
+            if ws.dtype.itemsize == 2:
+                # K3 has float32 and float64 kernels: 2-byte weights (a
+                # bfloat16 server's) are summed in float32, rounded once
+                c = segcumsum_rows(ws.float(), is_end).to(ws.dtype)
+            else:
+                c = segcumsum_rows(ws, is_end)
+            c = c + pad_e * (ps > 0)
         if cfg.cartesian_mode:
             sd = _sinc_diff(ws[..., None], c[..., None], f_block)
             terms = ps[..., None] * sd                          # (S_b, E, F)

@@ -3,7 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 into its own shared library, loaded with ctypes (no PyTorch headers, so a
 build takes seconds).  The build happens at first use, from the sources in
-the package, into `_build/` beside them (listed in .gitignore).  Device
+the package, into BUILD_DIR: `_build/` beside them (listed in .gitignore),
+or the directory `utils.enable_compilation_cache` names.
+Device
 code shared between sources lives in `csrc/*.cuh` headers.  A library's
 file name carries a hash of its source, the headers and the flags, so an
 edited source or header is rebuilt and never confused with an old build.
@@ -35,6 +37,10 @@ _lock = threading.Lock()
 _libs: dict = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel library that cannot be built, or a launch that failed."""
+
+
 def _nvcc() -> str:
     found = shutil.which('nvcc')
     if found:
@@ -42,8 +48,8 @@ def _nvcc() -> str:
     home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
     path = Path(home) / 'bin' / 'nvcc'
     if not path.exists():
-        raise RuntimeError('nvcc not found on PATH, in CUDA_HOME or in '
-                           '/usr/local/cuda: the CUDA kernels cannot be built')
+        raise KernelError('nvcc not found on PATH, in CUDA_HOME or in '
+                          '/usr/local/cuda: the CUDA kernels cannot be built')
     return str(path)
 
 
@@ -75,8 +81,8 @@ def _finish(name: str, started) -> str:
     proc, target, tmp = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed for {name}.cu '
-                           f'(exit {proc.returncode}):\n{log}')
+        raise KernelError(f'nvcc failed for {name}.cu '
+                          f'(exit {proc.returncode}):\n{log}')
     os.replace(tmp, target)
     target.with_suffix('.log').write_text(log)
     return log
@@ -139,16 +145,16 @@ def load_host(name: str) -> ctypes.CDLL:
         if not target.exists():
             cxx = shutil.which('c++')
             if cxx is None:
-                raise RuntimeError(f'no host C++ compiler (c++) on PATH: '
-                                   f'{name}.cpp cannot be built')
+                raise KernelError(f'no host C++ compiler (c++) on PATH: '
+                                  f'{name}.cpp cannot be built')
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = target.with_suffix(f'.{os.getpid()}.tmp')
             proc = subprocess.run(
                 [cxx, *CXX_FLAGS, '-o', str(tmp), str(CSRC / key)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f'c++ failed for {key} '
-                                   f'(exit {proc.returncode}):\n{proc.stdout}')
+                raise KernelError(f'c++ failed for {key} '
+                                  f'(exit {proc.returncode}):\n{proc.stdout}')
             os.replace(tmp, target)
         lib = _libs[key] = ctypes.CDLL(str(target))
     return lib

@@ -70,6 +70,8 @@ import math
 import torch
 from torch import Tensor
 
+from ..kernels import KernelError
+
 _FN = {}
 
 # shared memory a block may use on Hopper (sm_90)
@@ -409,7 +411,7 @@ def _launch(name, fn, *args):
     with torch.cuda.device(dev):
         rc = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f'{name} launch failed: CUDA error {rc}')
+        raise KernelError(f'{name} launch failed: CUDA error {rc}')
 
 
 def _count(wrapper):

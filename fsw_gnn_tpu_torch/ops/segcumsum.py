@@ -49,6 +49,8 @@ from typing import Optional
 import torch
 from torch import Tensor
 
+from ..kernels import KernelError
+
 _FN = {}
 # (device index, stream) -> (workspace, capacity in tiles); the workspaces
 # a stream outgrew stay alive, since a captured graph may still use them
@@ -239,7 +241,7 @@ def _run(values, segment_ids, boundaries, reverse):
             None if end is None else end.data_ptr(), out.data_ptr(),
             ws.data_ptr(), cap, rows, m, int(reverse), stream)
         if rc != 0:
-            raise RuntimeError(f'segcumsum launch failed: CUDA error {rc}')
+            raise KernelError(f'segcumsum launch failed: CUDA error {rc}')
         if not torch.cuda.is_current_stream_capturing():
             segcumsum.launches += 1
     return out

@@ -97,7 +97,8 @@ def fsw_embed_local_overlap(X_local, graph, proj, freqs, cfg: FSWConfig,
     for t in (graph.tables if is_multi else (graph,)):
         w_sum, wn, pad_norm = table_weights(t.weight, cfg)
         agg = _resolve_aggregate(aggregate, cfg, t.bucket_size, s_eff=chunk,
-                                 weights_grad=weights_grad)
+                                 weights_grad=weights_grad,
+                                 device=Xp_local.device)
         cols = []
         for k in range(n_chunks):
             Pk = chunk_rows(k)[t.idx]                        # (R, B, chunk)

@@ -30,6 +30,7 @@ rank 0 finds.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -53,6 +54,7 @@ from ..parallel import (make_distributed_forward,
 from ..parallel.collectives import all_reduce_sum
 from ..parallel.dist import gather_recipient_values
 from ..parallel.runtime import broadcast_module, broadcast_object
+from ..utils.profiling import trace
 
 _KEEP = 3
 _CKPT = re.compile(r'^step_(\d+)\.pt$')
@@ -86,6 +88,8 @@ class TrainConfig:
     eval_node_chunk: Optional[int] = None   # layer-wise evaluation in
                                             # recipient chunks of this size
     trace_dir: Optional[str] = None         # torch.profiler trace output
+    compilation_cache: Optional[str] = None  # where the kernels' builds
+                                             # persist (default _build/)
 
 
 def _cosine(init_value: float, decay_steps: int, alpha: float = 0.0):
@@ -144,6 +148,9 @@ class Trainer:
                  *, device=None, model: Optional[FSWGNN] = None):
         self.data = data
         self.cfg = config
+        if config.compilation_cache:
+            from ..utils import enable_compilation_cache
+            enable_compilation_cache(config.compilation_cache)
         self.distributed = is_distributed(config.num_devices)
         self.mesh = None
         if self.distributed:
@@ -392,41 +399,35 @@ class Trainer:
             start_epoch = self.restore_checkpoint(latest) + 1
             if verbose:
                 print(f'resumed from checkpoint at epoch {start_epoch - 1}')
-        prof = None
-        if cfg.trace_dir and self.is_main:
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if self.device.type == 'cuda':
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=acts)
-            prof.start()
+        # the epochs in a torch.profiler trace, written to
+        # trace_dir/trace.json (the CPU, and the card when it trains there)
+        tracing = (trace(cfg.trace_dir, device=self.device)
+                   if cfg.trace_dir and self.is_main
+                   else contextlib.nullcontext())
         t0 = time.perf_counter()
-        for epoch in range(start_epoch, cfg.epochs + 1):
-            loss = self.train_epoch()
-            rec = {'epoch': epoch, 'loss': loss}
-            if epoch % cfg.eval_every == 0 or epoch == cfg.epochs:
-                rec.update(self.evaluate())
-                if rec['val_acc'] == rec['val_acc']:  # not NaN
-                    if rec['val_acc'] > best_val:
-                        best_val, best_metrics, strikes = (rec['val_acc'],
-                                                           rec, 0)
-                    else:
-                        strikes += 1
-                if verbose:
-                    print(f"epoch {epoch}: loss={loss:.4f} "
-                          f"train={rec.get('train_acc', float('nan')):.3f} "
-                          f"val={rec.get('val_acc', float('nan')):.3f}")
-                if cfg.patience and strikes >= cfg.patience:
-                    break
-            self.history.append(rec)
-            self._export_metrics(rec)
-            if cfg.checkpoint_dir and epoch % cfg.checkpoint_every == 0:
-                self.save_checkpoint()
-        elapsed = time.perf_counter() - t0
-        if prof is not None:
-            prof.stop()
-            os.makedirs(cfg.trace_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(cfg.trace_dir,
-                                                  'trace.json'))
+        with tracing:
+            for epoch in range(start_epoch, cfg.epochs + 1):
+                loss = self.train_epoch()
+                rec = {'epoch': epoch, 'loss': loss}
+                if epoch % cfg.eval_every == 0 or epoch == cfg.epochs:
+                    rec.update(self.evaluate())
+                    if rec['val_acc'] == rec['val_acc']:  # not NaN
+                        if rec['val_acc'] > best_val:
+                            best_val, best_metrics, strikes = (
+                                rec['val_acc'], rec, 0)
+                        else:
+                            strikes += 1
+                    if verbose:
+                        print(f"epoch {epoch}: loss={loss:.4f} "
+                              f"train={rec.get('train_acc', float('nan')):.3f}"
+                              f" val={rec.get('val_acc', float('nan')):.3f}")
+                    if cfg.patience and strikes >= cfg.patience:
+                        break
+                self.history.append(rec)
+                self._export_metrics(rec)
+                if cfg.checkpoint_dir and epoch % cfg.checkpoint_every == 0:
+                    self.save_checkpoint()
+            elapsed = time.perf_counter() - t0
         if cfg.checkpoint_dir:
             self.save_checkpoint()
         final = self.evaluate()

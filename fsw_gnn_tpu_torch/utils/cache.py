@@ -1,13 +1,21 @@
-"""One CUDA graph per route and input shape, with a monotone count.
+"""One CUDA graph per route and input shape, with a monotone count; and
+where the kernels' builds persist.
 
 Counterpart of `CountingJit` (fsw_gnn_tpu/utils/cache.py), which compiles
 one XLA executable per (structure, shapes, dtypes) key and counts its own
 compiles.  Here the unit of reuse is a captured `torch.cuda.CUDAGraph`:
 the whole forward of one route is enqueued once, at capture, and every
 later call replays it with one launch from the host.
+
+`enable_compilation_cache` is the counterpart of the JAX package's
+persistent XLA cache: it moves the kernels' hash-named builds (nvcc's and
+the host compiler's) from the package's `_build/` to a directory of the
+caller's, for a read-only install.  It is also exposed as `cli train
+--compilation-cache DIR` and `TrainConfig(compilation_cache=...)`.
 """
 from __future__ import annotations
 
+import os
 import threading
 
 import torch
@@ -95,3 +103,21 @@ class CountingGraph:
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         return _Captured(fn, args, self.device, self._stream)
+
+
+def enable_compilation_cache(path: str = '~/.cache/fsw_gnn_tpu_torch/build'
+                             ) -> str:
+    """Build and load the kernels' libraries (`kernels.build`, `load`,
+    `load_host`) in `path` (created if missing) from now on, instead of
+    the package's `_build/`: each library's file name carries a hash of
+    its sources and flags, so a build made there once serves every later
+    process.  Libraries already loaded stay loaded.  Returns the resolved
+    path."""
+    from pathlib import Path
+
+    from .. import kernels
+
+    path = os.path.abspath(os.path.expanduser(path))
+    os.makedirs(path, exist_ok=True)
+    kernels.BUILD_DIR = Path(path)      # read by every build and load
+    return path

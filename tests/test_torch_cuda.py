@@ -920,3 +920,67 @@ def test_export_on_the_card(cuda_device):
             want = eager.model(Xd, graph.to(cuda_device))
         torch.testing.assert_close(got.detach(), want, rtol=1e-5,
                                    atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_rank_rules_on_the_card_are_the_tables(cuda_device):
+    """The H100's routing rules are the measured table (the card's kind
+    matches it), whatever an autotune cache holds; the CPU's are the
+    same."""
+    from fsw_gnn_tpu_torch import embedding as E
+    kind = torch.cuda.get_device_name(0).lower()
+    if 'h100' not in kind:
+        pytest.skip(f'not an H100: {kind}')
+    assert E._rank_rules(cuda_device) is E._RANK_RULES_BY_KIND['h100']
+    assert E._rank_rules('cpu') is E._RANK_RULES_BY_KIND['h100']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('layout', ['multi', 'csr'])
+def test_checkify_embed_on_the_card(cuda_device, layout):
+    """`checkify_embed` around FSWConv on the card (K1f on the `multi`
+    layout, K3 on CSR): the unwrapped call's bits, and a node with two
+    infinite features raises naming an op."""
+    import fsw_gnn_tpu_torch as T
+    from chip_smoke import simple_graph
+    from fsw_gnn_tpu_torch.ops.fsw_rank import fsw_rank_aggregate_proj
+    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum
+    from fsw_gnn_tpu_torch.utils import FloatCheckError, checkify_embed
+    n = 512
+    ei, rng = simple_graph(3, n, 8)
+    g = T.from_edge_index(ei, n)
+    graph = (T.to_multi_table(g) if layout == 'multi' else g).to(cuda_device)
+    conv = T.FSWConv(16, 16, mlp_layers=2, minimize_slice_coherence=False,
+                     device=cuda_device,
+                     generator=torch.Generator().manual_seed(0))
+    X = torch.from_numpy(rng.standard_normal((n, 16)).astype(np.float32)
+                         ).to(cuda_device)
+    counter = fsw_rank_aggregate_proj if layout == 'multi' else segcumsum
+    before = counter.launches
+    with torch.no_grad():
+        got = checkify_embed(conv)(X, graph)
+        assert counter.launches > before
+        assert torch.equal(got, conv(X, graph))
+        X[7, :2] = float('inf')
+        with pytest.raises(FloatCheckError, match='NaN generated by'):
+            checkify_embed(conv)(X, graph)
+
+
+@pytest.mark.cuda
+def test_measure_margins_on_the_card(cuda_device):
+    """The autotune's cells at small shapes on the card: every rank route
+    agrees with the other one and launches its kernels; every margin is
+    finite and positive."""
+    from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    from fsw_gnn_tpu_torch.utils import autotune as AT
+    names = ('fsw_rank_aggregate_proj', 'fsw_rank_aggregate_proj_bwd',
+             'fsw_rank_aggregate', 'fsw_rank_aggregate_bwd',
+             'fsw_rank_aggregate_cart', 'fsw_rank_aggregate_cart_bwd')
+    before = [getattr(R, k).launches for k in names]
+    margins, transient, cells = AT._measure_margins(
+        buckets=(16,), entries=2048, s=32, cart_buckets=(16,), k1_ds=(64,),
+        k1_rhos=(0.5,), k1_nodes=512, steps=1, calls=1, device=cuda_device)
+    assert transient == []
+    assert all(getattr(R, k).launches > b for k, b in zip(names, before))
+    for mode, by in margins.items():
+        assert by and all(np.isfinite(m) and m > 0 for m in by.values())
