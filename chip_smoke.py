@@ -270,12 +270,26 @@ Phases (any failure exits non-zero before the last line is printed):
      forward's; `trace()` around a served request and a CSR forward,
      whose Chrome trace holds K1f's and K3's kernels and the fsw_project
      and fsw_segcumsum ranges; a SectionTimer summary (`utils:` line);
- 38. one JSON line listing the seven kernels with their launches, errors,
-     times and bounds (the launches are those of the main-path runs 4, 6,
-     7, 8, 9, 10, 12-16, 18, 19, 20, 24, 26-30, 33, 34, 36 and 37
-     together; K2's times and bounds at phase 8's shape, K3's at phase
-     12's, K4's at phase 17's with B = 32, K4b's with with_dw);
- 39. the last line: {"ok": true, "device": {...}}.
+ 38. the benchmark folder's kernels (`bench_folder_phase`): A1
+     (`fsw_table_sort`, the sorting-network table forward), P1
+     (`probe_matmul`, K1's contractions on its tile routine), P4
+     (`probe_stage`, K2f with staged loads) and P6 (`probe_select`, the
+     rank loop's and the trig tails' op mixes) against their plain
+     versions at their scripts' shapes, timed beside their bounds; A1
+     against the port's sort route on bench_fused_table's graph and at
+     B = 16 .. 1024; P4 bit for bit against K2f; then, every counter at 0,
+     the four scripts' `main` on the card (`python -m
+     fsw_gnn_tpu_torch.benchmarks.<name>`, their JSON lines printed),
+     which must launch each kernel (`bench folder:` line);
+ 39. one JSON line listing the eleven kernels with their launches, errors,
+     times and bounds (the launches of the seven of the model's paths are
+     those of the main-path runs 4, 6, 7, 8, 9, 10, 12-16, 18, 19, 20, 24,
+     26-30, 33, 34, 36 and 37 together, the four of the benchmark folder
+     those of phase 38's scripts; K2's times and bounds at phase 8's
+     shape, K3's at phase 12's, K4's at phase 17's with B = 32, K4b's with
+     with_dw, A1's at bench_fused_table's graph, P1's at K1's headline
+     forward, P4's at the probe's shape, P6's of its 'rank' body);
+ 40. the last line: {"ok": true, "device": {...}}.
 
 Tolerances:
   * K1f against its plain version, both on the card in float32:
@@ -391,6 +405,14 @@ At the multiset shape K2's operations take less time than its bytes; at
 phase 17's shape K4's bytes take less time than its operations.  The
 bound of the padded shapes (every table entry counted) is printed beside
 K1f's.
+A1 (phase 38) runs its bitonic network whatever the data: B log2 B
+(log2 B + 1) / 4 compare-exchanges a row and slice, counted as 4
+operations each (a min, a max and two selects of the weights), and the
+scan and the trig of each real entry, 26 operations (`table_sort_bound_ms`);
+its bytes are P, wn, pad and freqs read once and the output written.  P1:
+its 2 M N K products at the 3xTF32 rate against its operands' and
+output's bytes.  P4: K2f's bound.  P6: each body's modeled operations
+(the TPU probe's table) at 67 TFLOP/s against P, wn and the output.
 K3 needs one add an element and moves 12 bytes an element in float32
 with ids (values and ids read, output written), 9 with the mask: its
 bound is the bytes'.  The row form's rows share one mask of m bytes, read
@@ -404,6 +426,7 @@ on the host clock, from a synchronised start.  Latency is reported as the
 median and the 90th percentile of the `predict` requests (100 samples).
 """
 import copy
+import importlib
 import json
 import os
 import subprocess
@@ -4496,6 +4519,228 @@ def utils_phase(torch, T, dev, smi_line, counts, errs):
         flush=True)
 
 
+BF_TABLE_WIDTHS = (16, 32, 64, 128, 256, 512, 1024)
+BF_CE_OPS, BF_TRIG_OPS = 4, 26     # a compare-exchange; a pair's scan + trig
+BF_SCRIPTS = ('bench_fused_table', 'probe_kernel_matmul',
+              'probe_select_ceiling', 'probe_emit_pipeline')
+
+
+def table_sort_bound_ms(wn, S):
+    """(bound ms, 'operations' or 'bytes') of one A1 call on (R, B)
+    normalized weights wn: the network's B log2 B (log2 B + 1) / 4
+    compare-exchanges a row and slice (BF_CE_OPS each), the scan and the
+    trig of the real entries (BF_TRIG_OPS each), against P, wn, pad and
+    freqs read once and the output written once."""
+    R, B = wn.shape
+    lg = int(np.log2(B))
+    deg = float((wn > 0).sum())
+    ops = S * (R * BF_CE_OPS * B * lg * (lg + 1) / 4 + BF_TRIG_OPS * deg)
+    return _bound(ops, 4 * (R * B * S + R * B + R + S + R * S))
+
+
+def bench_folder_phase(torch, T, dev, smi_line):
+    """Phase 38: the benchmark folder's kernels (A1, P1, P4, P6) on the
+    card.  Each against its plain version at its script's shapes, timed
+    beside it and its bound: A1 on bench_fused_table's default graph (and
+    against the port's sort route there, `fsw_embed_table(...,
+    aggregate='sort')`, and on P of widths 16 .. 1024 against
+    `bucket_quadrature(..., 'sort')`; `torch.sort` of P along B and the
+    sort route timed beside it); P1's five contractions at each of its
+    script's shapes (the probe's, K1's headline, Cora's layer 0) against
+    float64 and the plain einsum, the headline forward timed
+    (`torch.matmul` beside it, TF32 off); P4's staged forward bit-equal to
+    K2f at the probe's shape and on padded rows with NaN projections; P6's
+    21 bodies and its two pipe bodies on the probe's whole launch (R 8192,
+    B 32, S 128) against their plain versions, the 'rank' body timed.
+    Then every launch counter at 0 and the four scripts' `main` on the
+    card, each printing its JSON lines (the main path of this slice) and
+    raising where its kernel disagrees with its reference: every kernel
+    must be launched there.  Returns the four kernels' entries of the
+    `kernels` line."""
+    from fsw_gnn_tpu_torch import embedding as E
+    from fsw_gnn_tpu_torch.benchmarks import (bench_fused_table as BFT,
+                                              probe_emit_pipeline as P4,
+                                              probe_kernel_matmul as P1,
+                                              probe_select_ceiling as P6)
+    from fsw_gnn_tpu_torch.benchmarks.attic import fsw_table as A1
+    from fsw_gnn_tpu_torch.ops.fsw_rank import fsw_rank_aggregate
+    t0 = time.perf_counter()
+    src = 'fsw_gnn_tpu_torch/csrc/'
+    within = KERNEL_ATOL_REL, KERNEL_RTOL
+
+    def close(label, got, want):
+        err = (got - want).abs()
+        scale = want.abs().max().item()
+        if not bool(torch.all(err <= within[0] * scale
+                              + within[1] * want.abs())):
+            fail(f'bench folder: {label}: max abs err '
+                 f'{err.max().item():.3e} (scale {scale:.3e})')
+        return err.max().item()
+
+    res = {}
+    # ---- A1 at bench_fused_table's defaults, then the width ladder ------
+    g, t, X, cfg, proj, freqs, wn, pad = BFT.setup(dev)
+    with torch.no_grad():
+        Xp = (X @ proj.t()).contiguous()
+        P = Xp[t.idx.reshape(-1).long()].reshape(
+            t.num_recipients, t.bucket_size, -1).contiguous()
+        a1 = A1.fsw_table_sort(P, wn, pad, freqs)
+        a1_err = close('A1 against its plain version', a1,
+                       A1.fsw_table_sort_plain(P, wn, pad, freqs))
+        route = E.fsw_embed_table(X, t, proj, freqs, cfg, aggregate='sort')
+        close("A1 against the sort route's fsw_embed_table",
+              A1.fsw_table_forward(t.idx, wn, pad, Xp, freqs), route)
+        S = P.shape[2]
+        a1_ms = device_ms(torch, lambda: A1.fsw_table_sort(P, wn, pad, freqs),
+                          20)[0]
+        a1_plain = device_ms(torch, lambda: A1.fsw_table_sort_plain(
+            P, wn, pad, freqs), 3, 3)[0]
+        sort_cfg = E.FSWConfig(d_in=1, d_out=S, enable_bias=False)
+        route_ms = device_ms(torch, lambda: E.bucket_quadrature(
+            P, wn, pad, freqs, sort_cfg, 'sort'), 5)[0]
+        tsort_ms = device_ms(torch, lambda: torch.sort(P, dim=1), 20)[0]
+        bound, by = table_sort_bound_ms(wn, S)
+        ladder = {}
+        for B in BF_TABLE_WIDTHS:
+            Pb, wb, pb, fb = BFT.sweep_inputs(B, dev)
+            got = A1.fsw_table_sort(Pb, wb, pb, fb)
+            ladder[B] = close(f'A1 against the sort route at B={B}', got,
+                              E.bucket_quadrature(Pb, wb, pb, fb, sort_cfg,
+                                                  'sort'))
+            del Pb, wb, pb, fb, got
+    res['a1'] = {'name': 'fsw_table_sort', 'route': 'cuda',
+                 'source': src + 'fsw_table_sort.cu',
+                 'replaces': 'benchmarks/attic/fsw_table_pallas.py:107',
+                 'max_abs_err': a1_err, 'ms': a1_ms, 'plain_ms': a1_plain,
+                 'bound_ms': bound, 'bound_by': by, 'library_ms': None,
+                 'sort_route_ms': route_ms, 'torch_sort_ms': tsort_ms,
+                 'shape': list(P.shape), 'vs_sort_route_by_B': ladder}
+    del g, t, X, Xp, P, route
+    # ---- P1 at each of its script's shapes, the headline timed -------------
+    errs = {}
+    with torch.no_grad():
+        for shape in P1.SHAPES:
+            x = P1.operands(shape, dev)
+            for kind in P1.KINDS:
+                a, b = (x[n] for n in P1.SPEC[kind][0])
+                got = P1.kernel_matmul(kind, a, b)
+                e = dict(zip(('vs_f64', 'vs_f64_rel'), P1.check(kind, x)))
+                if not e['vs_f64_rel'] <= P1.TOL_REL:
+                    fail(f'bench folder: P1 {kind} at {shape[0]} is {e} '
+                         f'from float64')
+                e['vs_plain'] = close(
+                    f'P1 {kind} at {shape[0]} against its plain version',
+                    got, P1.kernel_matmul_plain(kind, a, b))
+                errs[f'{shape[0]}/{kind}'] = e
+                del got
+            del x, a, b
+        shape = dict((s[0], s) for s in P1.SHAPES)['headline']
+        x = P1.operands(shape, dev)
+        Z, V = x['Z'], x['V']
+        p1_ms = device_ms(torch, lambda: P1.kernel_matmul('fwd', Z, V), 20)[0]
+        p1_plain = device_ms(torch, lambda: P1.kernel_matmul_plain(
+            'fwd', Z, V), 20)[0]
+        Z2 = Z.reshape(-1, Z.shape[2])
+        mm_ms = device_ms(torch, lambda: torch.matmul(Z2, V), 20)[0]
+    _, TR, B1, D1, S1 = shape
+    bound, by = _bound(0.0, 4 * (TR * B1 * D1 + D1 * S1 + TR * B1 * S1),
+                       2.0 * TR * B1 * D1 * S1)
+    res['p1'] = {'name': 'probe_matmul', 'route': 'cuda',
+                 'source': src + 'probe_matmul.cu',
+                 'replaces': 'benchmarks/probe_kernel_matmul.py:45',
+                 'max_abs_err': errs['headline/fwd']['vs_plain'],
+                 'ms': p1_ms,
+                 'plain_ms': p1_plain, 'bound_ms': bound, 'bound_by': by,
+                 'library_ms': mm_ms, 'contraction': 'fwd',
+                 'shape': list(shape[1:]), 'errors': errs}
+    del x, Z, V, Z2
+    # ---- P4 at the probe's shape, and on padded rows -----------------------
+    args = P4.inputs(dev)
+    pad_args = list(BFT.sweep_inputs(32, dev))
+    pad_args[0] = torch.where(pad_args[1][:, :, None] == 0, float('nan'),
+                              pad_args[0]).contiguous()
+    with torch.no_grad():
+        for label, a in (('the probe', args), ('padded rows', pad_args)):
+            got = P4.fsw_rank_aggregate_staged(*a)
+            if not torch.equal(got, fsw_rank_aggregate(*a, with_dw=False)):
+                fail(f'bench folder: P4 is not K2f bit for bit on {label}')
+        p4_err = close('P4 against the plain version',
+                       P4.fsw_rank_aggregate_staged(*args),
+                       P4.fsw_rank_aggregate_plain(*args))
+        turns = [device_ms(torch, f, 20)[0] for f in (
+            lambda: fsw_rank_aggregate(*args, with_dw=False),
+            lambda: P4.fsw_rank_aggregate_staged(*args),
+            lambda: P4.fsw_rank_aggregate_staged(*args),
+            lambda: fsw_rank_aggregate(*args, with_dw=False))]
+        p4_plain = device_ms(torch, lambda: P4.fsw_rank_aggregate_plain(
+            *args), 2, 3)[0]
+    bound, by = rank2_bound_ms(args[1], args[0].shape[2])
+    res['p4'] = {'name': 'probe_stage', 'route': 'cuda',
+                 'source': src + 'probe_stage.cu',
+                 'replaces': 'benchmarks/probe_emit_pipeline.py:102',
+                 'max_abs_err': p4_err, 'ms': (turns[1] + turns[2]) / 2,
+                 'plain_ms': p4_plain, 'bound_ms': bound, 'bound_by': by,
+                 'library_ms': None, 'k2f_ms': (turns[0] + turns[3]) / 2,
+                 'turns_k2f_staged_staged_k2f': turns,
+                 'shape': list(args[0].shape)}
+    del args, pad_args
+    # ---- P6: every body against plain on the whole launch, 'rank' timed ---
+    rng = np.random.default_rng(0)
+    Pq = torch.from_numpy(rng.standard_normal((P6.R, P6.B, P6.S)).astype(
+        np.float32)).to(dev)
+    wq = torch.from_numpy(rng.random((P6.R, P6.B)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        body_err = {}
+        for name in P6.KERNEL_BODIES:
+            got = P6.probe_select(name, Pq, wq, P6.REP)
+            want = P6.probe_select_plain(name, Pq, wq, P6.REP)
+            err = (got - want).abs().max().item()
+            if not err <= P6.TOL_REL * want.abs().max().item():
+                fail(f'bench folder: P6 body {name}: max abs err {err:.3e}')
+            body_err[name] = err
+            del got, want
+        p6_ms = device_ms(torch, lambda: P6.probe_select(
+            'rank', Pq, wq, P6.REP), 10)[0]
+        p6_plain = device_ms(torch, lambda: P6.probe_select_plain(
+            'rank', Pq, wq, P6.REP), 1, 3)[0]
+    R6, B6, S6 = Pq.shape
+    bound, by = _bound(R6 * B6 * S6 * B6 * P6.REP * P6.BODIES['rank'][1],
+                       4 * (R6 * B6 * S6 + R6 * B6 + R6 * S6))
+    res['p6'] = {'name': 'probe_select', 'route': 'cuda',
+                 'source': src + 'probe_select.cu',
+                 'replaces': 'benchmarks/probe_select_ceiling.py:409',
+                 'max_abs_err': max(body_err.values()), 'ms': p6_ms,
+                 'plain_ms': p6_plain, 'bound_ms': bound, 'bound_by': by,
+                 'library_ms': None, 'body': 'rank',
+                 'shape': [R6, B6, S6, P6.REP], 'errors': body_err}
+    del Pq, wq
+    torch.cuda.empty_cache()
+    checks_s = time.perf_counter() - t0
+    # ---- the scripts, every counter from 0 --------------------------------
+    wrappers = {'a1': A1.fsw_table_sort, 'p1': P1.kernel_matmul,
+                'p4': P4.fsw_rank_aggregate_staged, 'p6': P6.probe_select}
+    for w in wrappers.values():
+        w.launches = 0
+    t1 = time.perf_counter()
+    for name in BF_SCRIPTS:
+        print(f'  bench folder: python -m fsw_gnn_tpu_torch.benchmarks.{name}',
+              flush=True)
+        importlib.import_module(
+            f'fsw_gnn_tpu_torch.benchmarks.{name}').main([])
+        torch.cuda.synchronize()
+    scripts_s = time.perf_counter() - t1
+    for key, w in wrappers.items():
+        res[key]['launches'] = w.launches
+        if w.launches == 0:
+            fail(f'bench folder: {res[key]["name"]} was not launched by the '
+                 f'scripts')
+    print('bench folder: ' + json.dumps({
+        'checks_s': checks_s, 'scripts_s': scripts_s,
+        'total_s': time.perf_counter() - t0, 'power': smi_line,
+        **{k: v for k, v in res.items()}}), flush=True)
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4686,7 +4931,10 @@ def main():
     autotune_phase(torch, T, dev, smi_line, counts, errs)
     utils_phase(torch, T, dev, smi_line, counts, errs)
 
-    # ---- 38. kernels line, 39. last line ------------------------------------
+    # ---- 38. the benchmark folder's kernels ---------------------------------
+    folder = bench_folder_phase(torch, T, dev, smi_line)
+
+    # ---- 39. kernels line, 40. last line ------------------------------------
     src = 'fsw_gnn_tpu_torch/csrc/'
     pallas = 'fsw_gnn_tpu/ops/fsw_rank_pallas.py:'
     line = {'kernels': [
@@ -4735,7 +4983,10 @@ def main():
          'max_abs_err': errs['fsw_rank_cart_bwd'],
          'ms': k4['k4b_ms'], 'plain_ms': k4['k4b_plain_ms'],
          'bound_ms': k4['k4b_bound_ms'], 'bound_by': k4['k4b_bound_by'],
-         'library_ms': None}]}
+         'library_ms': None}] + [
+             {k: v for k, v in folder[key].items()
+              if k not in ('errors', 'vs_sort_route_by_B')}
+             for key in ('a1', 'p1', 'p4', 'p6')]}
     if not all(k['launches'] > 0 for k in line['kernels']):
         fail(f'a kernel was not launched on its path: {counts}')
     print(json.dumps(line))

@@ -24,6 +24,8 @@ from .models import FSWGNN, FSWGraphClassifier, gnn_layer_conv
 from .modules import (FSWEmbedding, get_mutual_coherence,
                       spread_freqs_at_interval)
 from .ops.coherence import minimize_mutual_coherence, mutual_coherence
+from .ops.segment import (segment_argsort, segment_cumsum, segment_sort,
+                          segment_sum)
 from .params import (bias_shape, generate_freqs, generate_params,
                      generate_proj_vecs)
 from .serving import (GraphServer, export_forward, export_from_checkpoint,

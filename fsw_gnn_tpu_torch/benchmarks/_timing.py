@@ -1,0 +1,146 @@
+"""The timing protocol of the port's benchmark scripts: the counterpart of
+benchmarks/_timing.py.
+
+Every timed region starts from a drained stream (`torch.cuda.synchronize()`)
+and is timed with CUDA events recorded on the stream around `iters`
+back-to-back calls; a time is the median over `reps` such windows.  The
+JAX protocol ends each region with a value readback because a TPU's
+`block_until_ready` could return before the work retired; on the card an
+event's `elapsed_time` is read only after `synchronize()` on the end
+event, which returns once every kernel queued before it has finished, so
+no readback is needed.  A/B pairs are timed in one process in turns
+(A B B A a rep: `aba_ms`), the only comparison that two calls of the chip
+tool, which may land on different cards, cannot spoil.
+
+On the CPU (`--device cpu`) the same functions time with the host clock;
+the scripts then print those times as `cpu_ms`, never as a device time.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+
+def parse_device(argv=None, description: str = '') -> torch.device:
+    """The script's `--device` (default: the card).  Asking for the card
+    where there is none raises."""
+    ap = argparse.ArgumentParser(description=description)
+    ap.add_argument('--device', default='cuda', choices=('cuda', 'cpu'),
+                    help="'cuda' (default; raises without a card) or 'cpu' "
+                         '(the plain versions of the kernels)')
+    dev = torch.device(ap.parse_args(argv).device)
+    if dev.type == 'cuda':
+        if not torch.cuda.is_available():
+            raise RuntimeError('no CUDA device is available; pass --device '
+                               'cpu to run the plain versions on the CPU')
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+_CARD: dict = {}
+
+
+def card(dev: torch.device) -> dict:
+    """{'device': the card's name, 'power_limit': nvidia-smi's limit} (on
+    the CPU: 'cpu' and None), looked up once."""
+    if dev.type != 'cuda':
+        return {'device': 'cpu', 'power_limit': None}
+    if not _CARD:
+        try:
+            smi = subprocess.run(
+                ['nvidia-smi', '--query-gpu=name,power.limit',
+                 '--format=csv,noheader'], capture_output=True, text=True,
+                timeout=60).stdout.strip().splitlines()
+            limit = smi[0].split(',')[-1].strip() if smi else None
+        except (OSError, subprocess.TimeoutExpired):
+            limit = None
+        _CARD.update(device=torch.cuda.get_device_name(dev),
+                     power_limit=limit)
+    return dict(_CARD)
+
+
+def time_key(dev: torch.device) -> str:
+    """'ms' for the card's times, 'cpu_ms' for the host's."""
+    return 'ms' if dev.type == 'cuda' else 'cpu_ms'
+
+
+def emit(dev: torch.device, **fields):
+    """Print one JSON line with the card's name and power limit."""
+    print(json.dumps({**fields, **card(dev)}), flush=True)
+
+
+def announce(dev: torch.device, script: str):
+    """The first line: which device runs, and on the CPU that the plain
+    versions stand in for the kernels."""
+    if dev.type == 'cuda':
+        emit(dev, script=script, runs='the CUDA kernels on the card')
+    else:
+        emit(dev, script=script,
+             runs='the plain PyTorch versions on the CPU (no kernel); '
+                  'times are the host clock (cpu_ms)')
+
+
+def drain(dev: torch.device):
+    if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+
+
+def _window_ms(fn, iters: int, dev: torch.device) -> float:
+    if dev.type != 'cuda':
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / iters
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def _cpu_window(dev, iters, reps):
+    """On the CPU a run checks the control flow, not a speed: one window
+    of at most two calls."""
+    return (iters, reps) if dev.type == 'cuda' else (min(iters, 2), 1)
+
+
+def median_ms(fn, dev: torch.device, iters: int = 20, reps: int = 5) -> float:
+    """Median over `reps` windows of the mean ms of `iters` calls of fn,
+    each window from a drained stream, after one warm-up call."""
+    iters, reps = _cpu_window(dev, iters, reps)
+    fn()
+    ts = []
+    for _ in range(reps):
+        drain(dev)
+        ts.append(_window_ms(fn, iters, dev))
+    return median(ts)
+
+
+def aba_ms(fns: dict, dev: torch.device, iters: int = 20,
+           reps: int = 5) -> dict:
+    """{name: [ms of each turn]} of two functions timed in turns, A B B A
+    a rep, each window from a drained stream, after one warm-up call
+    each."""
+    (na, fa), (nb, fb) = fns.items()
+    iters, reps = _cpu_window(dev, iters, reps)
+    fa()
+    fb()
+    out = {na: [], nb: []}
+    for _ in range(reps):
+        for name, fn in ((na, fa), (nb, fb), (nb, fb), (na, fa)):
+            drain(dev)
+            out[name].append(_window_ms(fn, iters, dev))
+    return out
+
+
+def median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]

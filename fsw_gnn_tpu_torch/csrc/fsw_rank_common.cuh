@@ -139,6 +139,27 @@ __device__ __forceinline__ void rank_core(const float* p_sm,
 // header's contract states.  (Splitting a slice's groups over several
 // threads that share one column copy, as the backward's entry kernel does,
 // was slower here: see PERF.md.)
+// The second half of stage_kept: after a barrier that follows every
+// thread's last read of the row's B weights, warp 0 compacts w_sm in place
+// to its nonzero weights, in their order, 32 a pass (a pass writes at or
+// below the words it read and below every word a later pass reads); a
+// barrier ends it.  Every thread of the block calls it.
+__device__ __forceinline__ void compact_kept_weights(float* w_sm, int B,
+                                                     int tid) {
+  if (tid < 32) {
+    int base = 0;
+    for (int b0 = 0; b0 < B; b0 += 32) {
+      const float w = b0 + tid < B ? w_sm[b0 + tid] : 0.f;
+      const unsigned m = __ballot_sync(0xffffffffu, w != 0.f);
+      __syncwarp();
+      if (w != 0.f) w_sm[base + __popc(m & ((1u << tid) - 1u))] = w;
+      base += __popc(m);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+}
+
 __device__ __forceinline__ int stage_kept(float* p_sm, float* w_sm,
                                           const float* pr, int B, int S,
                                           int tid, bool live) {
@@ -158,18 +179,7 @@ __device__ __forceinline__ int stage_kept(float* p_sm, float* w_sm,
       if (keep[k]) p_sm[(d++) * TS + tid] = v[k];
   }
   __syncthreads();
-  if (tid < 32) {
-    int base = 0;
-    for (int b0 = 0; b0 < B; b0 += 32) {
-      const float w = b0 + tid < B ? w_sm[b0 + tid] : 0.f;
-      const unsigned m = __ballot_sync(0xffffffffu, w != 0.f);
-      __syncwarp();
-      if (w != 0.f) w_sm[base + __popc(m & ((1u << tid) - 1u))] = w;
-      base += __popc(m);
-      __syncwarp();
-    }
-  }
-  __syncthreads();
+  compact_kept_weights(w_sm, B, tid);
   return d;
 }
 

@@ -88,6 +88,14 @@ _NF_WIDE = 8
 
 RANK_KERNELS = ('fsw_rank_fwdp', 'fsw_rank_bwdp', 'fsw_rank_fwd',
                 'fsw_rank_bwd', 'fsw_rank_cart_fwd', 'fsw_rank_cart_bwd')
+# kernel A1 (csrc/fsw_table_sort.cu), which no route takes: threads a block
+_TABLE_NT = 256
+
+
+def table_sort_ts(B: int) -> int:
+    """Slices one block of kernel A1 takes at width B (`table_ts` in
+    csrc/fsw_table_sort.cu): 32 up to B = 512, else 16."""
+    return 32 if B <= 512 else 16
 
 
 def proj_rows(B: int) -> int:
@@ -135,8 +143,14 @@ def smem_bytes(name: str, B: int, F: int = 1, with_dw: bool = False,
 
     (K1b's products use a fixed 36 KB of static memory).  uniform_w does
     not enter: without dw the entry kernel keeps room for the uniform
-    trig's row values either way."""
+    trig's row values either way.
+
+    'fsw_table_sort', kernel A1 (benchmarks/attic/fsw_table.py), which no
+    route takes: 4 (2 B TS + 512), the row's (p, w) pairs of TS =
+    `table_sort_ts(B)` slices and two sums a thread."""
     dw = bool(with_dw)
+    if name == 'fsw_table_sort':
+        return 4 * (2 * B * table_sort_ts(B) + 2 * _TABLE_NT)
     if name == 'fsw_rank_fwdp':
         e = proj_rows(B) * B
         own = e * _TS + e
@@ -324,8 +338,11 @@ def fsw_rank_aggregate_proj_bwd_plain(Z, wn, pad_norm, freqs, V, g,
 
 _SIZE, _INT = ctypes.c_size_t, ctypes.c_int
 
-# name -> (entry function's argtypes, {helper: (argtypes, restype)}); the
-# entry function returns a CUDA error code
+_PTR = ctypes.c_void_p
+
+# name -> (argtypes of the entry function `{name}_f32` before the stream,
+# or None where the library has none; {helper: (argtypes, restype)} of the
+# functions `{name}_{helper}`); an entry function returns a CUDA error code
 _SIGNATURES = {
     'fsw_rank_fwdp': ([ctypes.c_void_p] * 6 + [_INT] * 5,
                       {'smem_bytes': ([_INT], _SIZE),
@@ -346,19 +363,34 @@ _SIGNATURES = {
     'fsw_rank_cart_bwd': ([ctypes.c_void_p] * 10 + [_INT] * 6,
                           {'workspace_bytes': ([_INT] * 5, _SIZE),
                            'smem_bytes': ([_INT] * 4, _SIZE)}),
+    # the benchmark folder's kernels (fsw_gnn_tpu_torch/benchmarks/)
+    'fsw_table_sort': ([_PTR] * 5 + [_INT] * 3,
+                       {'ts': ([_INT], _INT), 'smem_bytes': ([_INT], _SIZE)}),
+    'probe_stage': ([_PTR] * 5 + [_INT] * 4, {'smem_bytes': ([_INT], _SIZE)}),
+    'probe_select': ([_INT] + [_PTR] * 3 + [_INT] * 4,
+                     {'smem_bytes': ([_INT], _SIZE)}),
+    'probe_matmul': (None, {
+        'fwd_f32': ([_PTR] * 3 + [_INT] * 4 + [_PTR], _INT),
+        'flat_f32': ([_PTR] * 3 + [_INT] * 3 + [_PTR], _INT),
+        'dxr_f32': ([_PTR] * 3 + [_INT] * 3 + [_PTR], _INT),
+        'dv_f32': ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
+        'dv_loop_f32': ([_PTR] * 4 + [_INT] * 4 + [_PTR], _INT),
+        'dv_parts': ([_INT], ctypes.c_longlong)}),
 }
 
 
 def _kernel(name):
-    """(entry function, {helper name: function}) of one kernel library,
-    loaded once."""
+    """(entry function or None, {helper name: function}) of one kernel
+    library, loaded once."""
     if name not in _FN:
         from ..kernels import load
         lib = load(name)
         argtypes, helpers = _SIGNATURES[name]
-        fn = getattr(lib, f'{name}_f32')
-        fn.argtypes = argtypes + [ctypes.c_void_p]          # + the stream
-        fn.restype = ctypes.c_int
+        fn = None
+        if argtypes is not None:
+            fn = getattr(lib, f'{name}_f32')
+            fn.argtypes = argtypes + [_PTR]                 # + the stream
+            fn.restype = ctypes.c_int
         aux = {}
         for helper, (types, restype) in helpers.items():
             h = getattr(lib, f'{name}_{helper}')

@@ -79,10 +79,14 @@ def segment_lengths(segment_ids, num_segments: int):
     graph's recipients have theirs as torch.diff(row_ptr); a caller that
     sums or gathers by the same ids more than once computes them once and
     passes them in."""
-    ids = segment_ids.contiguous()
-    bounds = torch.arange(num_segments + 1, dtype=ids.dtype,
-                          device=ids.device)
-    return torch.diff(torch.searchsorted(ids, bounds))
+    return torch.diff(_bounds(segment_ids, num_segments))
+
+
+def _bounds(ids, num_segments: int):
+    """The first position of each id 0 .. num_segments in sorted `ids`."""
+    ids = ids.contiguous()
+    return torch.searchsorted(ids, torch.arange(
+        num_segments + 1, dtype=ids.dtype, device=ids.device))
 
 
 def _sum_runs(values, lengths, dim: int):
@@ -95,30 +99,50 @@ def _sum_runs(values, lengths, dim: int):
                                 unsafe=True)
 
 
+# `lead` below says that the first run of `lengths` holds the ids below 0,
+# which fall in no segment: the sum drops its entry, and the gather gives 0
+# to every id outside [0, num_segments), as JAX's segment_sum and its
+# gather-with-fill transpose do.  Ids past the last segment fall after the
+# last run, where neither reads.
+
 class _SegmentSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, values, ids, lengths, dim):
+    def forward(ctx, values, ids, lengths, dim, lead):
         ctx.save_for_backward(ids, lengths)
-        ctx.dim = dim
-        return _sum_runs(values, lengths, dim)
+        ctx.dim, ctx.lead = dim, lead
+        out = _sum_runs(values, lengths, dim)
+        if lead:
+            out = out.narrow(dim, 1, out.shape[dim] - 1).contiguous()
+        return out
 
     @staticmethod
     def backward(ctx, g):
         ids, lengths = ctx.saved_tensors
-        return _SegmentExpand.apply(g, ids, lengths, ctx.dim), None, None, None
+        return (_SegmentExpand.apply(g, ids, lengths, ctx.dim, ctx.lead),
+                None, None, None, None)
 
 
 class _SegmentExpand(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ids, lengths, dim):
+    def forward(ctx, x, ids, lengths, dim, lead):
         ctx.save_for_backward(ids, lengths)
-        ctx.dim = dim
-        return x.index_select(dim, ids)
+        ctx.dim, ctx.lead = dim, lead
+        if not lead:
+            return x.index_select(dim, ids)
+        n = x.shape[dim]
+        shape = [1] * x.dim()
+        shape[dim] = ids.shape[0]
+        valid = ((ids >= 0) & (ids < n)).view(shape)
+        if n == 0:
+            return x.new_zeros(x.shape[:dim] + ids.shape + x.shape[dim + 1:])
+        got = x.index_select(dim, ids.clamp(0, n - 1))
+        return torch.where(valid, got, torch.zeros_like(got))
 
     @staticmethod
     def backward(ctx, g):
         ids, lengths = ctx.saved_tensors
-        return _SegmentSum.apply(g, ids, lengths, ctx.dim), None, None, None
+        return (_SegmentSum.apply(g, ids, lengths, ctx.dim, ctx.lead),
+                None, None, None, None)
 
 
 def _runs(ids, num_segments: int, lengths):
@@ -127,40 +151,60 @@ def _runs(ids, num_segments: int, lengths):
     return lengths.to(device=ids.device, dtype=torch.int64)
 
 
+def _lead_runs(ids, num_segments: int, lengths):
+    """(lengths, lead) for `_SegmentSum` and `_SegmentExpand`: the caller's
+    lengths as they are, or, found here, the runs of every segment after a
+    first run of the ids below 0."""
+    if lengths is not None:
+        return _runs(ids, num_segments, lengths), False
+    bounds = _bounds(ids, num_segments)
+    return torch.diff(bounds, prepend=bounds.new_zeros(1)), True
+
+
 def segment_sum(values, segment_ids, num_segments: int, dim: int = 0,
                 lengths=None):
     """Sum of `values` per segment along `dim`, for sorted `segment_ids`
-    (values.shape[dim],): values.shape with num_segments at `dim`.
-    `lengths`: the ids' `segment_lengths`, found here when not given.  The
-    backward gathers the cotangent by the ids."""
+    (values.shape[dim],): values.shape with num_segments at `dim`.  Ids
+    outside [0, num_segments) fall in no segment, as in JAX's
+    segment_sum.  `lengths`: the ids' `segment_lengths`, found here when
+    not given; a caller that gives them declares every id in
+    [0, num_segments) (a CSR graph's recipients).  The backward gathers the
+    cotangent by the ids (0 where an id falls in no segment)."""
     ids = segment_ids.to(values.device)
-    return _SegmentSum.apply(values, ids, _runs(ids, num_segments, lengths),
-                             dim % values.dim())
+    runs, lead = _lead_runs(ids, num_segments, lengths)
+    return _SegmentSum.apply(values, ids, runs, dim % values.dim(), lead)
 
 
 def segment_expand(x, segment_ids, dim: int = 0, lengths=None):
     """x's entry of each element's segment along `dim`, for sorted
-    `segment_ids`: x.index_select(dim, segment_ids).  `lengths`: the ids'
-    `segment_lengths`, found here when not given.  The backward is a sorted
-    segment-sum of the cotangent."""
+    `segment_ids`: x.index_select(dim, segment_ids), 0 where an id lies
+    outside [0, x.shape[dim]).  `lengths`: the ids' `segment_lengths`,
+    found here when not given; a caller that gives them declares every id
+    in range.  The backward is a sorted segment-sum of the cotangent."""
     dim = dim % x.dim()
     ids = segment_ids.to(x.device)
-    return _SegmentExpand.apply(x, ids, _runs(ids, x.shape[dim], lengths),
-                                dim)
+    runs, lead = _lead_runs(ids, x.shape[dim], lengths)
+    return _SegmentExpand.apply(x, ids, runs, dim, lead)
 
 
-def segment_argsort(keys, segment_ids):
+def segment_argsort(keys, segment_ids, stable: bool = True):
     """Permutation that sorts keys ascending within each sorted segment,
     along the last axis of keys (..., n); segment_ids (n,).  The sort is
     stable (ties keep their index order, as in the JAX package's default),
-    and -0.0 ties with 0.0.
+    -0.0 ties with 0.0, and every NaN, whatever its sign, sorts last, as
+    `lax.sort` puts them.  stable=False is accepted as in the JAX package
+    and returns the stable order, which is one of the orders an unstable
+    sort may give.
 
     float32 keys take one sort of an int64 key (segment id above the
-    order-preserving bits of the float); other dtypes two stable sorts,
-    by key and then by segment id."""
+    order-preserving bits of the float, every NaN first mapped to one
+    positive quiet NaN, which orders above +inf); other dtypes two stable
+    sorts, by key and then by segment id."""
+    del stable
     ids = segment_ids.to(keys.device)
     if keys.dtype == torch.float32:
         bits = (keys + 0.0).view(torch.int32)           # -0.0 -> 0.0
+        bits = torch.where(torch.isnan(keys), _QNAN_BITS, bits)
         ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)    # signed order
         key = (ids.long() << 32) + (ordered.long() + 2 ** 31)
         return torch.sort(key, dim=-1, stable=True).indices
@@ -169,10 +213,16 @@ def segment_argsort(keys, segment_ids):
     return torch.gather(o1, -1, o2)
 
 
-def segment_sort(keys, *carried, segment_ids):
+# the positive quiet NaN's float32 bits (an integer, so that no floating
+# tensor holding a NaN is made where the keys hold none)
+_QNAN_BITS = 0x7FC00000
+
+
+def segment_sort(keys, *carried, segment_ids, stable: bool = True):
     """Sort `keys` (n,) ascending within each segment, carrying extra
-    arrays (n, ...); returns (sorted_keys, *sorted_carried)."""
-    perm = segment_argsort(keys, segment_ids)
+    arrays (n, ...); returns (sorted_keys, *sorted_carried).  The order is
+    `segment_argsort`'s (stable=False returns the stable order too)."""
+    perm = segment_argsort(keys, segment_ids, stable=stable)
     return (keys[perm],) + tuple(c[perm] for c in carried)
 
 

@@ -15,6 +15,7 @@ caller's, for a read-only install.  It is also exposed as `cli train
 """
 from __future__ import annotations
 
+import gc
 import os
 import threading
 
@@ -35,8 +36,18 @@ class _Captured:
             fn(*self.inputs)
         torch.cuda.current_stream(device).wait_stream(stream)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=stream):
-            self.output = fn(*self.inputs)
+        # a cyclic garbage collection inside the capture may destroy an
+        # older graph, whose destructor calls into CUDA and so invalidates
+        # the capture in progress: collect first, and not during it
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, stream=stream):
+                self.output = fn(*self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
         if not isinstance(self.output, torch.Tensor):
             raise TypeError('a captured function must return one tensor')
 

@@ -984,3 +984,132 @@ def test_measure_margins_on_the_card(cuda_device):
     assert all(getattr(R, k).launches > b for k, b in zip(names, before))
     for mode, by in margins.items():
         assert by and all(np.isfinite(m) and m > 0 for m in by.values())
+
+
+# ---- the benchmark folder's kernels: A1, P1, P4, P6 -------------------------
+
+def _table_inputs(rng, R, B, S):
+    """A1's inputs: ties (every fourth projection repeats the one before),
+    zero-weight padding, a phantom mass on the light rows."""
+    P = rng.standard_normal((R, B, S))
+    P[:, 1::4] = P[:, 0:B - 1:4]
+    w = np.abs(rng.standard_normal((R, B))) * (rng.random((R, B)) < 0.8)
+    w[::2] *= 0.05
+    w_sum = w.sum(1)
+    wsp = np.maximum(w_sum, 1.0)
+    freqs = np.abs(rng.standard_normal(S)) + 0.1
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)) for a in
+            (P, w / wsp[:, None], np.maximum(1.0 - w_sum, 0.0) / wsp, freqs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B', [8, 16, 32, 64, 128, 256, 512, 1024])
+def test_table_sort_kernel_matches_plain(cuda_device, B):
+    """A1 against its plain version on the card, S = 129 (a ragged slice
+    tile): |kernel - plain| <= 2e-5 * max|plain| + 1e-5 * |plain| (the same
+    network, so the same pairs; the cumsum and the trig round apart)."""
+    from fsw_gnn_tpu_torch.benchmarks.attic.fsw_table import (
+        fsw_table_sort, fsw_table_sort_plain)
+    args = [a.to(cuda_device) for a in
+            _table_inputs(np.random.default_rng(B), max(4096 // B, 3), B,
+                          129)]
+    before = fsw_table_sort.launches
+    got = fsw_table_sort(*args)
+    torch.cuda.synchronize()
+    assert fsw_table_sort.launches == before + 1
+    want = fsw_table_sort_plain(*args)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=2e-5 * want.abs().max().item())
+    assert torch.equal(fsw_table_sort(*args), got)      # fixed sum orders
+
+
+@pytest.mark.cuda
+def test_table_sort_refuses_widths_before_any_launch(cuda_device):
+    from fsw_gnn_tpu_torch.benchmarks.attic.fsw_table import fsw_table_sort
+    from fsw_gnn_tpu_torch.kernels import KernelError
+    before = fsw_table_sort.launches
+    for B in (12, 2048):
+        args = [a.to(cuda_device) for a in
+                _table_inputs(np.random.default_rng(0), 2, B, 8)]
+        with pytest.raises(KernelError):
+            fsw_table_sort(*args)
+    assert fsw_table_sort.launches == before
+
+
+@pytest.mark.cuda
+def test_bench_smem_need_matches_the_libraries(cuda_device):
+    """`smem_bytes('fsw_table_sort', B)` and the staged probe's need equal
+    their libraries' own exports."""
+    from fsw_gnn_tpu_torch.benchmarks.probe_emit_pipeline import \
+        stage_smem_bytes
+    from fsw_gnn_tpu_torch.ops.fsw_rank import (_kernel, smem_bytes,
+                                                table_sort_ts)
+    own = _kernel('fsw_table_sort')[1]['smem_bytes']
+    ts = _kernel('fsw_table_sort')[1]['ts']
+    stage = _kernel('probe_stage')[1]['smem_bytes']
+    for B in (2, 8, 16, 32, 64, 100, 128, 256, 447, 512, 1024, 2048):
+        assert own(B) == smem_bytes('fsw_table_sort', B), B
+        assert ts(B) == table_sort_ts(B), B
+        assert stage(B) == stage_smem_bytes(B), B
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', ['probe', 'headline', 'cora_layer0',
+                                   'ragged'])
+def test_kernel_matmul_contractions_against_float64(cuda_device, shape):
+    """P1's five contractions on K1's 3xTF32 tiles against float64: within
+    1e-5 of each result's scale (3xTF32 keeps float32's accuracy)."""
+    from fsw_gnn_tpu_torch.benchmarks import probe_kernel_matmul as P1
+    shapes = dict((s[0], s) for s in P1.SHAPES)
+    shapes['ragged'] = ('ragged', 37, 5, 70, 131)
+    x = P1.operands(shapes[shape], cuda_device)
+    before = P1.kernel_matmul.launches
+    for kind in P1.KINDS:
+        err, rel = P1.check(kind, x)
+        assert rel <= P1.TOL_REL, (kind, err, rel)
+    torch.cuda.synchronize()
+    assert P1.kernel_matmul.launches == before + len(P1.KINDS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,S', [(32, 128), (13, 40), (100, 196), (8, 64)])
+@pytest.mark.parametrize('uniform_w', [False, True])
+def test_staged_forward_is_k2f_bit_for_bit(cuda_device, B, S, uniform_w):
+    """P4's staged kernel against K2f on the same inputs, padded entries
+    holding NaN projections (both skip them): the same bits."""
+    from fsw_gnn_tpu_torch.benchmarks.probe_emit_pipeline import (
+        fsw_rank_aggregate_staged)
+    rng = np.random.default_rng(B + S)
+    args = [a.to(cuda_device) for a in _table_inputs(rng, 300, B, S)]
+    if uniform_w:
+        args[1] = torch.where(args[1] > 0, 1.0 / B, 0.0).contiguous()
+    args[0] = torch.where(args[1][:, :, None] == 0, float('nan'),
+                          args[0]).contiguous()
+    before = fsw_rank_aggregate_staged.launches
+    got = fsw_rank_aggregate_staged(*args, uniform_w=uniform_w)
+    want = fsw_rank_aggregate(*args, uniform_w=uniform_w, with_dw=False)
+    torch.cuda.synchronize()
+    assert fsw_rank_aggregate_staged.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_select_bodies_match_plain(cuda_device):
+    """P6's 21 bodies and its two pipe bodies against their plain versions
+    on the card: within 1e-5 of max |plain| (sinf/cosf and fused
+    multiply-adds against PyTorch's kernels)."""
+    from fsw_gnn_tpu_torch.benchmarks import probe_select_ceiling as P6
+    rng = np.random.default_rng(6)
+    P = torch.from_numpy(rng.standard_normal((64, 32, 130)).astype(
+        np.float32)).to(cuda_device)
+    wn = torch.from_numpy(rng.random((64, 32)).astype(np.float32)).to(
+        cuda_device)
+    before = P6.probe_select.launches
+    for name in P6.KERNEL_BODIES:
+        got = P6.probe_select(name, P, wn, 2)
+        want = P6.probe_select_plain(name, P, wn, 2)
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * want.abs().max().item(),
+                                   msg=name)
+    torch.cuda.synchronize()
+    assert P6.probe_select.launches == before + len(P6.KERNEL_BODIES)

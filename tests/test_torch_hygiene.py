@@ -33,7 +33,15 @@ def test_import_pulls_in_no_jax():
             'fsw_gnn_tpu_torch.parallel.dist, fsw_gnn_tpu_torch.parallel.dp, '
             'fsw_gnn_tpu_torch.parallel.overlap, '
             'fsw_gnn_tpu_torch.parallel.launch, '
-            'fsw_gnn_tpu_torch.parallel.workers; '
+            'fsw_gnn_tpu_torch.parallel.workers, '
+            'fsw_gnn_tpu_torch.benchmarks._timing, '
+            'fsw_gnn_tpu_torch.benchmarks.attic.fsw_table, '
+            'fsw_gnn_tpu_torch.benchmarks.bench_fused_table, '
+            'fsw_gnn_tpu_torch.benchmarks.probe_kernel_matmul, '
+            'fsw_gnn_tpu_torch.benchmarks.probe_select_ceiling, '
+            'fsw_gnn_tpu_torch.benchmarks.probe_emit_pipeline, '
+            'fsw_gnn_tpu_torch.benchmarks.bench_rank_proj, '
+            'fsw_gnn_tpu_torch.benchmarks.bench_rank_kernel; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "flax", "optax", "orbax", "fsw_gnn_tpu")]; '
             'assert not bad, bad')

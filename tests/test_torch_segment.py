@@ -187,6 +187,116 @@ def test_segment_sorts_and_permutations_match_jax():
         rtol=1e-12, atol=1e-12)
 
 
+# F2: ids below 0 (and at or above num_segments) fall in no segment
+OUT_OF_RANGE_IDS = {
+    'leading': [-1, 0, 0, 1, 1, 2],
+    'trailing': [0, 0, 1, 2, 3, 3],
+    'both': [-5, -1, -1, 0, 2, 2, 3, 7],
+    'none': [0, 1, 1, 2],
+    'all out': [-2, -1, 3, 4],
+}
+
+
+@pytest.mark.parametrize('case', sorted(OUT_OF_RANGE_IDS))
+def test_segment_sum_drops_out_of_range_ids_as_jax(case):
+    """segment_sum, its backward and segment_expand's forward and backward
+    against JAX's segment_sum and its transpose (a gather that gives 0
+    where an id falls in no segment), float64, along axis 0 and 1."""
+    ids = np.asarray(OUT_OF_RANGE_IDS[case], np.int32)
+    nseg = 3
+    rng = np.random.default_rng(len(ids))
+    x = rng.standard_normal((len(ids), 2))
+    g = rng.standard_normal((nseg, 2))
+    if case == 'leading':
+        got = TS.segment_sum(torch.arange(1.0, 7.0), torch.from_numpy(ids),
+                             nseg)
+        np.testing.assert_array_equal(got.numpy(), [5.0, 9.0, 6.0])
+
+    def jsum(v):
+        return JS.segment_sum(v, jnp.asarray(ids), nseg)
+
+    want, vjp = jax.vjp(jsum, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    got = TS.segment_sum(xt, torch.from_numpy(ids), nseg)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-12, atol=1e-12)
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(vjp(
+        jnp.asarray(g))[0]), rtol=1e-12, atol=1e-12)
+    # along axis 1 of a (2, n) array
+    got1 = TS.segment_sum(torch.from_numpy(x.T.copy()), torch.from_numpy(ids),
+                          nseg, dim=1)
+    np.testing.assert_allclose(got1.numpy(), np.asarray(want).T,
+                               rtol=1e-12, atol=1e-12)
+    # segment_expand is segment_sum's transpose: JAX's vjp of segment_sum
+    # is the gather with fill, and its own transpose the sum again
+    gt = torch.from_numpy(g).requires_grad_(True)
+    ex = TS.segment_expand(gt, torch.from_numpy(ids))
+    np.testing.assert_allclose(ex.detach().numpy(), np.asarray(vjp(
+        jnp.asarray(g))[0]), rtol=1e-12, atol=1e-12)
+    ex.backward(torch.from_numpy(x))
+    np.testing.assert_allclose(gt.grad.numpy(), np.asarray(want),
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize('dtype', [np.float32, np.float64])
+def test_segment_argsort_puts_every_nan_last_as_jax(dtype):
+    """F3: keys with NaNs of either sign, infinities and signed zeros in
+    sorted segments (a leading negative id too): the permutation and the
+    carried arrays of segment_sort are JAX's, with stable=True and False
+    (the stable order is an allowed unstable one)."""
+    nan = np.float32(np.nan)
+    neg_nan = -nan
+    assert np.signbit(neg_nan)
+    keys = np.asarray([neg_nan, 1.0, nan, -np.inf, 0.0, -0.0, neg_nan, 2.0,
+                       np.inf, -1.0, nan, 0.5], dtype)
+    ids = np.asarray([-1, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2], np.int32)
+    jperm = np.asarray(JS.segment_argsort(jnp.asarray(keys),
+                                          jnp.asarray(ids)))
+    for stable in (True, False):
+        tperm = TS.segment_argsort(torch.from_numpy(keys),
+                                   torch.from_numpy(ids), stable=stable)
+        np.testing.assert_array_equal(tperm.numpy(), jperm)
+    np.testing.assert_array_equal(
+        TS.segment_argsort(torch.tensor([neg_nan, 1.0]),
+                           torch.zeros(2, dtype=torch.int32)).numpy(),
+        [1, 0])
+    carry = np.arange(len(keys), dtype=np.float64)
+    jk, jc = JS.segment_sort(jnp.asarray(keys), jnp.asarray(carry),
+                             segment_ids=jnp.asarray(ids))
+    tk, tc = TS.segment_sort(torch.from_numpy(keys), torch.from_numpy(carry),
+                             segment_ids=torch.from_numpy(ids), stable=False)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+def test_segment_primitives_are_exported_at_the_top():
+    """The four primitives the JAX package exports at its top are the
+    port's too, with JAX's keywords."""
+    import fsw_gnn_tpu as J
+    import fsw_gnn_tpu_torch as T
+    rng = np.random.default_rng(5)
+    ids = _ids(rng, 40, 6)
+    v = rng.standard_normal(40)
+    ti, tv = torch.from_numpy(ids), torch.from_numpy(v)
+    np.testing.assert_allclose(
+        T.segment_cumsum(tv, ti).numpy(),
+        np.asarray(_jcs(jnp.asarray(v), jnp.asarray(ids))), rtol=1e-12,
+        atol=1e-12)
+    np.testing.assert_allclose(
+        T.segment_sum(tv, ti, 6).numpy(),
+        np.asarray(J.segment_sum(jnp.asarray(v), jnp.asarray(ids), 6)),
+        rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(
+        T.segment_argsort(tv, ti, stable=True).numpy(),
+        np.asarray(J.segment_argsort(jnp.asarray(v), jnp.asarray(ids),
+                                     stable=True)))
+    np.testing.assert_array_equal(
+        T.segment_sort(tv, segment_ids=ti, stable=True)[0].numpy(),
+        np.asarray(J.segment_sort(jnp.asarray(v), segment_ids=jnp.asarray(
+            ids), stable=True)[0]))
+
+
 def test_gather_and_sort_gradients_match_jax():
     """rows_gather (JAX: a sorted segment-sum backward) and
     segment_sort_fused (JAX: unsort by sorting) against autograd."""
