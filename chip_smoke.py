@@ -281,15 +281,27 @@ Phases (any failure exits non-zero before the last line is printed):
      the four scripts' `main` on the card (`python -m
      fsw_gnn_tpu_torch.benchmarks.<name>`, their JSON lines printed),
      which must launch each kernel (`bench folder:` line);
- 39. one JSON line listing the eleven kernels with their launches, errors,
-     times and bounds (the launches of the seven of the model's paths are
-     those of the main-path runs 4, 6, 7, 8, 9, 10, 12-16, 18, 19, 20, 24,
-     26-30, 33, 34, 36 and 37 together, the four of the benchmark folder
-     those of phase 38's scripts; K2's times and bounds at phase 8's
+ 39. K3's probes (`k3_probes_phase`): P5 (`probe_segscan`'s three
+     inner-loop variants), P2 (its six stage ablations) and K3's packed
+     form (P3) against their plain versions at their scripts' default
+     shapes, and against K3 in float64; the packed form bit for bit K3's
+     mask form; each timed beside its plain version, K3 and
+     `torch.cumsum`; then, every counter at 0, the four scripts' `main`
+     on the card (`probe_segscan_variants`, `probe_fill_floor`,
+     `probe_segcumsum_fill`, `bench_segcumsum`), which must launch each
+     kernel (`K3 probes:` line);
+ 40. one JSON line listing the fourteen kernels with their launches,
+     errors, times and bounds (the launches of the seven of the model's
+     paths are those of the main-path runs 4, 6, 7, 8, 9, 10, 12-16, 18,
+     19, 20, 24, 26-30, 33, 34, 36 and 37 together, the four of the
+     benchmark folder those of phase 38's scripts, the three of K3's
+     probes those of phase 39's; K2's times and bounds at phase 8's
      shape, K3's at phase 12's, K4's at phase 17's with B = 32, K4b's with
      with_dw, A1's at bench_fused_table's graph, P1's at K1's headline
-     forward, P4's at the probe's shape, P6's of its 'rank' body);
- 40. the last line: {"ok": true, "device": {...}}.
+     forward, P4's at the probe's shape, P6's of its 'rank' body, P5's of
+     its 'fma' loop, P2's of its 'full' stage, P3's packed form at its
+     probe's shape);
+ 41. the last line: {"ok": true, "device": {...}}.
 
 Tolerances:
   * K1f against its plain version, both on the card in float32:
@@ -415,7 +427,11 @@ output's bytes.  P4: K2f's bound.  P6: each body's modeled operations
 (the TPU probe's table) at 67 TFLOP/s against P, wn and the output.
 K3 needs one add an element and moves 12 bytes an element in float32
 with ids (values and ids read, output written), 9 with the mask: its
-bound is the bytes'.  The row form's rows share one mask of m bytes, read
+bound is the bytes'.  So are those of K3's probes (phase 39): P5 12 bytes
+an element (values and ids read, output written), P2 9 (values and the
+mask), K3's packed form 8 (one stream of values read, the output
+written); their operations (an add an element for the function, P5's
+loops seven passes of a few each) take less than a tenth of that time.  The row form's rows share one mask of m bytes, read
 once for all of them: 8 bytes an element plus m (`k3_bytes`), which is
 lower than the flat form's 9 and makes no time look better.
 
@@ -4741,6 +4757,163 @@ def bench_folder_phase(torch, T, dev, smi_line):
     return res
 
 
+K3P_SCRIPTS = ('probe_segscan_variants', 'probe_fill_floor',
+               'probe_segcumsum_fill', 'bench_segcumsum')
+
+
+def k3_probes_phase(torch, T, dev, smi_line):
+    """Phase 39: K3's probes on the card, at their scripts' default shapes.
+    P5's three loops (`probe_segscan`, 2^24 values over sorted ids of
+    segments of about 32) against their plain versions (the TPU's tiles of
+    256 rows) within 2 P5.TOL_ULPS float32 eps of each element's segment
+    prefix of |v| and against K3 in float64 within P5.TOL_ULPS; P2's six
+    stages (2^24 |normal| values, segments of about 4096) against their
+    plain versions, io and the fills bit for bit, the others against the
+    plain version in float64 within P2.TOL_EPS eps of each element's
+    scale (`P2.within`: the sum of v from the first element of the row
+    where its segment starts, plus its value; full also against K3 in
+    float64); K3's packed form (2^24 values, the probe's geometric
+    segments of mean 256 capped at 2048) against its plain version within
+    K3_ULPS eps of the prefix, and bit for bit K3's mask form on the same
+    values and ends.  Each timed beside its plain version, K3 on the same
+    data and `torch.cumsum` (unsegmented, the library floor); the bounds
+    are the bytes: 12, 9 and 8 an element.  Then every launch counter at
+    0 and the four scripts' `main` on the card (`python -m
+    fsw_gnn_tpu_torch.benchmarks.<name>`, their JSON lines printed, each
+    raising where its kernel disagrees with its reference): P5, P2 and the
+    packed form must be launched there, and K3 by bench_segcumsum.
+    Returns the three kernels' entries of the `kernels` line."""
+    from fsw_gnn_tpu_torch.benchmarks import (probe_fill_floor as P2,
+                                              probe_segcumsum_fill as P3,
+                                              probe_segscan_variants as P5)
+    from fsw_gnn_tpu_torch.ops.segcumsum import (segcumsum, segcumsum_plain,
+                                                 segment_boundaries)
+    t0 = time.perf_counter()
+    src = 'fsw_gnn_tpu_torch/csrc/'
+    eps = torch.finfo(torch.float32).eps
+    res = {}
+    with torch.no_grad():
+        # ---- P5: the three loops -------------------------------------------
+        _, _, _, v, s = P5.inputs(dev)
+        prefix = segcumsum(v.abs().double(), s)
+        errs, ms = {}, {}
+        for name in P5.VARIANT_CODES:
+            got = P5.segscan_variant(v, s, name)
+            want = P5.segscan_variant_plain(v, s, name)
+            err = (got.double() - want.double()).abs()
+            ulps = P5.ulps_of_prefix(got, v, s)
+            if not (bool(torch.all(err <= 2 * P5.TOL_ULPS * eps * prefix))
+                    and ulps <= P5.TOL_ULPS):
+                worst = err.max().item()
+                fail(f'K3 probes: P5 {name}: max abs err {worst:.3e} from '
+                     f'plain, {ulps:.2f} eps of the prefix from float64')
+            errs[name] = err.max().item()
+            ms[name] = device_ms(torch, lambda: P5.segscan_variant(
+                v, s, name), 20)[0]
+            del got, want, err
+        n = v.shape[0]
+        res['p5'] = {
+            'name': 'probe_segscan_variant', 'route': 'cuda',
+            'source': src + 'probe_segscan.cu',
+            'replaces': 'benchmarks/probe_segscan_variants.py:85',
+            'max_abs_err': max(errs.values()), 'ms': ms['fma'],
+            'plain_ms': device_ms(torch, lambda: P5.segscan_variant_plain(
+                v, s, 'fma'), 1, 2)[0],
+            'bound_ms': 1e3 * 12 * n / PEAK_BYTES, 'bound_by': 'bytes',
+            'library_ms': device_ms(torch, lambda: torch.cumsum(v, 0),
+                                    20)[0],
+            'variant': 'fma', 'variants_ms': ms,
+            'k3_ids_ms': device_ms(torch, lambda: segcumsum(v, s), 20)[0],
+            'errors': errs, 'n': n}
+        del v, s, prefix
+        # ---- P2: the six stages --------------------------------------------
+        v, m, max_seg = P2.inputs(dev)
+        fields, ms = {}, {}
+        for name, passes in P2.ABLATIONS:
+            got = P2.fill_floor(v, m, name, passes, max_seg=max_seg)
+            try:
+                fields[name] = P2.check(dev, v, m, name, passes, max_seg, got)
+            except RuntimeError as e:
+                fail(f'K3 probes: {e}')
+            ms[name] = device_ms(torch, lambda: P2.fill_floor(
+                v, m, name, passes, max_seg=max_seg), 20)[0]
+            del got
+        full = P2.fill_floor(v, m, 'full', max_seg=max_seg)
+        p2_err = (full - P2.fill_floor_plain(v, m, 'full', 0, max_seg)
+                  ).abs().max().item()
+        n = v.shape[0]
+        res['p2'] = {
+            'name': 'probe_segscan_stage', 'route': 'cuda',
+            'source': src + 'probe_segscan.cu',
+            'replaces': 'benchmarks/probe_fill_floor.py:66',
+            'max_abs_err': p2_err, 'ms': ms['full'],
+            'plain_ms': device_ms(torch, lambda: P2.fill_floor_plain(
+                v, m, 'full', 0, max_seg), 1, 2)[0],
+            'bound_ms': 1e3 * 9 * n / PEAK_BYTES, 'bound_by': 'bytes',
+            'library_ms': device_ms(torch, lambda: torch.cumsum(v, 0),
+                                    20)[0],
+            'stage': 'full', 'stages_ms': ms,
+            'k3_mask_ms': device_ms(torch, lambda: segcumsum(
+                v, boundaries=m), 20)[0],
+            'checks': fields, 'n': n, 'max_seg': max_seg}
+        del v, m, full
+        # ---- P3: K3's packed form ------------------------------------------
+        v, s, m, p, _ = P3.inputs(dev)
+        got = P3.segcumsum_packed(p)
+        if not torch.equal(got, segcumsum(v, boundaries=m)):
+            fail('K3 probes: the packed form is not the mask form bit for '
+                 'bit')
+        p3_err = k3_within(torch, 'packed', got,
+                           P3.segcumsum_packed_plain(p, P3.MAX_SEG),
+                           segcumsum_plain(v.abs().double(), boundaries=m),
+                           torch.float32)
+        turns = [device_ms(torch, f, 20)[0] for f in (
+            lambda: segcumsum(v, boundaries=m), lambda: P3.segcumsum_packed(p),
+            lambda: P3.segcumsum_packed(p),
+            lambda: segcumsum(v, boundaries=m))]
+        n = v.shape[0]
+        res['p3'] = {
+            'name': 'segcumsum_packed', 'route': 'cuda',
+            'source': src + 'segcumsum.cu',
+            'replaces': 'benchmarks/probe_segcumsum_fill.py:116',
+            'max_abs_err': p3_err, 'ms': (turns[1] + turns[2]) / 2,
+            'plain_ms': device_ms(torch, lambda: P3.segcumsum_packed_plain(
+                p, P3.MAX_SEG), 1, 2)[0],
+            'bound_ms': 1e3 * 8 * n / PEAK_BYTES, 'bound_by': 'bytes',
+            'library_ms': device_ms(torch, lambda: torch.cumsum(v, 0),
+                                    20)[0],
+            'k3_mask_ms': (turns[0] + turns[3]) / 2,
+            'turns_mask_packed_packed_mask': turns,
+            'k3_ids_ms': device_ms(torch, lambda: segcumsum(v, s), 20)[0],
+            'n': n}
+        del v, s, m, p, got
+    torch.cuda.empty_cache()
+    checks_s = time.perf_counter() - t0
+    # ---- the scripts, every counter from 0 --------------------------------
+    wrappers = {'p5': P5.segscan_variant, 'p2': P2.fill_floor,
+                'p3': P3.segcumsum_packed, 'k3': segcumsum}
+    for w in wrappers.values():
+        w.launches = 0
+    t1 = time.perf_counter()
+    for name in K3P_SCRIPTS:
+        print(f'  K3 probes: python -m fsw_gnn_tpu_torch.benchmarks.{name}',
+              flush=True)
+        importlib.import_module(
+            f'fsw_gnn_tpu_torch.benchmarks.{name}').main([])
+        torch.cuda.synchronize()
+    scripts_s = time.perf_counter() - t1
+    for key, w in wrappers.items():
+        if key in res:
+            res[key]['launches'] = w.launches
+        if w.launches == 0:
+            fail(f'K3 probes: {key} was not launched by the scripts')
+    print('K3 probes: ' + json.dumps({
+        'checks_s': checks_s, 'scripts_s': scripts_s,
+        'total_s': time.perf_counter() - t0, 'power': smi_line,
+        'k3_launches_in_scripts': segcumsum.launches, **res}), flush=True)
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4836,11 +5009,11 @@ def main():
         if not kern.startswith('scan_kernel<') or len(parts) != 3:
             continue
         elem = 4 if parts[0] == 'float' else 8
-        ids = parts[1] == '1'
-        dyn = (k3_tile + k3_tile // 8) * (elem + (4 if ids else 0))
+        by = {'0': 'mask', '1': 'ids', '2': 'packed'}[parts[1]]
+        dyn = (k3_tile + k3_tile // 8) * (elem + (4 if by == 'ids' else 0))
         threads = k3_tile // K3_ITEMS + 32     # and the look-back warp
         nb = blocks_per_sm(regs, static + dyn, threads)
-        k3_occ[f'{parts[0]} {"ids" if ids else "mask"}'
+        k3_occ[f'{parts[0]} {by}'
                f'{" reverse" if parts[2] == "1" else ""}'] = dict(
             registers=regs, smem_bytes=static + dyn, blocks_per_sm=nb,
             warps_per_sm=nb * threads // 32)
@@ -4931,10 +5104,11 @@ def main():
     autotune_phase(torch, T, dev, smi_line, counts, errs)
     utils_phase(torch, T, dev, smi_line, counts, errs)
 
-    # ---- 38. the benchmark folder's kernels ---------------------------------
+    # ---- 38. the benchmark folder's kernels, 39. K3's probes ----------------
     folder = bench_folder_phase(torch, T, dev, smi_line)
+    probes = k3_probes_phase(torch, T, dev, smi_line)
 
-    # ---- 39. kernels line, 40. last line ------------------------------------
+    # ---- 40. kernels line, 41. last line ------------------------------------
     src = 'fsw_gnn_tpu_torch/csrc/'
     pallas = 'fsw_gnn_tpu/ops/fsw_rank_pallas.py:'
     line = {'kernels': [
@@ -4986,7 +5160,10 @@ def main():
          'library_ms': None}] + [
              {k: v for k, v in folder[key].items()
               if k not in ('errors', 'vs_sort_route_by_B')}
-             for key in ('a1', 'p1', 'p4', 'p6')]}
+             for key in ('a1', 'p1', 'p4', 'p6')] + [
+             {k: v for k, v in probes[key].items()
+              if k not in ('errors', 'checks')}
+             for key in ('p2', 'p3', 'p5')]}
     if not all(k['launches'] > 0 for k in line['kernels']):
         fail(f'a kernel was not launched on its path: {counts}')
     print(json.dumps(line))

@@ -3,14 +3,18 @@ benchmarks/_timing.py.
 
 Every timed region starts from a drained stream (`torch.cuda.synchronize()`)
 and is timed with CUDA events recorded on the stream around `iters`
-back-to-back calls; a time is the median over `reps` such windows.  The
+back-to-back calls; a time is the median over `reps` such windows.  A
+sleep kernel queued before the first event keeps the card busy while the
+host enqueues the window (three times the host's time for its calls, at
+least 2 ms, at most SLEEP_MAX_S), so no call waits for the host and a
+kernel shorter than its Python call is timed, not the host.  The
 JAX protocol ends each region with a value readback because a TPU's
 `block_until_ready` could return before the work retired; on the card an
 event's `elapsed_time` is read only after `synchronize()` on the end
 event, which returns once every kernel queued before it has finished, so
-no readback is needed.  A/B pairs are timed in one process in turns
-(A B B A a rep: `aba_ms`), the only comparison that two calls of the chip
-tool, which may land on different cards, cannot spoil.
+no readback is needed.  Functions compared are timed in one process in
+turns (A B B A a rep for two: `aba_ms`), the only comparison that two
+separate runs, which may land on different cards, cannot spoil.
 
 On the CPU (`--device cpu`) the same functions time with the host clock;
 the scripts then print those times as `cpu_ms`, never as a device time.
@@ -23,6 +27,9 @@ import subprocess
 import time
 
 import torch
+
+SLEEP_HZ = 2e9          # cycles a second: at least the SM clock
+SLEEP_MAX_S = 1.0
 
 
 def parse_device(argv=None, description: str = '') -> torch.device:
@@ -90,7 +97,15 @@ def drain(dev: torch.device):
         torch.cuda.synchronize(dev)
 
 
-def _window_ms(fn, iters: int, dev: torch.device) -> float:
+def _host_s(fn) -> float:
+    """The host's seconds for one call of fn (its enqueue on the card)."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def _window_ms(fn, iters: int, dev: torch.device, host_s: float = 0.0
+               ) -> float:
     if dev.type != 'cuda':
         t0 = time.perf_counter()
         for _ in range(iters):
@@ -98,6 +113,8 @@ def _window_ms(fn, iters: int, dev: torch.device) -> float:
         return 1e3 * (time.perf_counter() - t0) / iters
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SLEEP_HZ * min(max(2e-3, 3 * iters * host_s),
+                                         SLEEP_MAX_S)))
     a.record()
     for _ in range(iters):
         fn()
@@ -117,27 +134,29 @@ def median_ms(fn, dev: torch.device, iters: int = 20, reps: int = 5) -> float:
     each window from a drained stream, after one warm-up call."""
     iters, reps = _cpu_window(dev, iters, reps)
     fn()
+    host = _host_s(fn)
     ts = []
     for _ in range(reps):
         drain(dev)
-        ts.append(_window_ms(fn, iters, dev))
+        ts.append(_window_ms(fn, iters, dev, host))
     return median(ts)
 
 
 def aba_ms(fns: dict, dev: torch.device, iters: int = 20,
            reps: int = 5) -> dict:
-    """{name: [ms of each turn]} of two functions timed in turns, A B B A
-    a rep, each window from a drained stream, after one warm-up call
-    each."""
-    (na, fa), (nb, fb) = fns.items()
+    """{name: [ms of each turn]} of functions timed in turns, forward then
+    back a rep (A B B A for two, A B C C B A for three), each window from a
+    drained stream, after one warm-up call each."""
+    order = list(fns.items())
     iters, reps = _cpu_window(dev, iters, reps)
-    fa()
-    fb()
-    out = {na: [], nb: []}
+    for _, fn in order:
+        fn()
+    host = {name: _host_s(fn) for name, fn in order}
+    out = {name: [] for name in fns}
     for _ in range(reps):
-        for name, fn in ((na, fa), (nb, fb), (nb, fb), (na, fa)):
+        for name, fn in order + order[::-1]:
             drain(dev)
-            out[name].append(_window_ms(fn, iters, dev))
+            out[name].append(_window_ms(fn, iters, dev, host[name]))
     return out
 
 

@@ -17,7 +17,13 @@
 // is the forward's gradient.  A forward segment starts at a row's first
 // element, where ids[i] != ids[i-1], or after a set end[i-1]; a reverse one
 // at a row's last element, where ids[i] != ids[i+1], or at a set end[i].
-// Neither needs the ids sorted, only equal ids contiguous.  `max_seg_size`,
+// Neither needs the ids sorted, only equal ids contiguous.  A third form,
+// which no route takes, carries the end flag in the value's sign bit (the
+// probe P3, benchmarks/probe_segcumsum_fill.py `mask_kernel`'s packed mode:
+// values >= 0, the last element of each segment stored negated, a 0 there as
+// -0.0): forward only, each row with its own flags, it scans |v| over the
+// flags of the sign bits, bit for bit the mask form on the same values and
+// ends, from one stream of 8 bytes an element.  `max_seg_size`,
 // a bound the TPU kernel uses to prune its doubling passes, is not needed:
 // the result is exact for any segment length.
 //
@@ -35,7 +41,9 @@
 //     its ITEMS = 16 consecutive elements (the transpose; one 16-byte pad
 //     every 128 bytes keeps both sides free of bank conflicts).  The mask
 //     comes as one 16-byte load a thread, its own 16 bytes; ids go through
-//     shared memory like the values.  A start flag comes from the thread's
+//     shared memory like the values; sign bits come with the values and are
+//     read there (the element before a warp's first too).  A start flag
+//     comes from the thread's
 //     own registers or the previous thread's (`__shfl_up_sync`; across
 //     warps through shared memory); only the tile's first element reads
 //     one value of the tile before it.  Unaligned or ragged tiles load
@@ -118,6 +126,9 @@ constexpr unsigned PUBLISHED = 1u;         // a slot word's tag once written
 // spilled and ran slower; in float64 3 ran faster than 2 (PERF.md).
 constexpr int MIN_BLOCKS_F32 = 4, MIN_BLOCKS_F64 = 3;
 typedef unsigned long long u64;
+// Where a call's segments come from: an is_end mask, ids, or the sign bits
+// of the values (the packed form, float32 forward only).
+constexpr int BY_MASK = 0, BY_IDS = 1, BY_SIGN = 2;
 
 // Shared-memory index of element e of a tile held as 4-byte (V = 4) or
 // 8-byte (V = 2) words: one 16-byte pad after every 128 bytes.
@@ -176,6 +187,23 @@ __device__ __forceinline__ bool get(const u64* s, unsigned tag, double& v) {
   const u64 a = ld_relaxed(s), b = ld_relaxed(s + 1);
   v = __longlong_as_double((long long)(b << 32 | (a & 0xffffffffull)));
   return (unsigned)(a >> 32) == tag && (unsigned)(b >> 32) == tag;
+}
+
+// The packed form: whether x's sign bit is set (so also for -0.0), and bit
+// k of the result for y[k], whose sign bits are then cleared.
+__device__ __forceinline__ unsigned sign_set(float x) {
+  return __float_as_uint(x) >> 31;
+}
+
+template <typename T>
+__device__ __forceinline__ unsigned strip_signs(T (&y)[ITEMS]) {
+  unsigned nz = 0;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    nz |= sign_set(y[k]) << k;
+    y[k] = fabsf(y[k]);
+  }
+  return nz;
 }
 
 // Inclusive scan over a warp of (v, f) pairs in the monoid above.
@@ -321,15 +349,17 @@ struct Work {
 
 // Whether the tile's first element, in processing order, starts a
 // segment (then it needs no carry).
-template <typename T, bool IDS, bool REV>
-__device__ __forceinline__ bool first_starts(const Work<T>& w, long long lo) {
+template <typename T, int BY, bool REV>
+__device__ __forceinline__ bool first_starts(const Work<T>& w, long long row,
+                                             long long lo) {
   if (REV) {
     const long long e = lo + TILE - 1;
     if (e >= w.m - 1) return true;
-    return IDS ? w.ids[e] != w.ids[e + 1] : w.end[e] != 0;
+    return BY == BY_IDS ? w.ids[e] != w.ids[e + 1] : w.end[e] != 0;
   }
   if (lo == 0) return true;
-  return IDS ? w.ids[lo] != w.ids[lo - 1] : w.end[lo - 1] != 0;
+  if constexpr (BY == BY_SIGN) return sign_set(w.v[row * w.m + lo - 1]);
+  return BY == BY_IDS ? w.ids[lo] != w.ids[lo - 1] : w.end[lo - 1] != 0;
 }
 
 // One pass of the look-back: the prefix and aggregate slots j of this
@@ -414,7 +444,7 @@ __device__ __forceinline__ unsigned thread_scan(T (&x)[ITEMS], unsigned sb,
 // computes it, read again from device memory by the look-back warp:
 // (v, f) of its lane 31 after the warp scan.  Where f is set this is the
 // tile's trailing-segment total, the prefix it publishes, bit for bit.
-template <typename T, bool IDS, bool REV>
+template <typename T, int BY, bool REV>
 __device__ __forceinline__ void rescan_last_warp(const Work<T>& w,
                                                  long long row, long long lo,
                                                  int lane, T& v, int& f) {
@@ -425,14 +455,16 @@ __device__ __forceinline__ void rescan_last_warp(const Work<T>& w,
   const long long pe = REV ? e0 + ITEMS : e0 - 1;
   const bool pin = lane == 0 && pe >= 0 && pe < m;
   T x[ITEMS];
+  unsigned nz = 0;
   {
     T y[ITEMS];
     load_chunk<T>(w.v + row * m + e0, m - e0, y, T(0));
+    if constexpr (BY == BY_SIGN) nz = strip_signs(y);
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) x[k] = REV ? y[ITEMS - 1 - k] : y[k];
   }
   unsigned sb;
-  if (IDS) {
+  if (BY == BY_IDS) {
     const int pid = pin ? w.ids[pe] : 0;
     int y[ITEMS], id[ITEMS];
     load_chunk<int>(w.ids + e0, m - e0, y, 0);
@@ -444,8 +476,13 @@ __device__ __forceinline__ void rescan_last_warp(const Work<T>& w,
 #pragma unroll
     for (int k = 1; k < ITEMS; ++k) sb |= (unsigned)(id[k] != id[k - 1]) << k;
   } else {
-    const unsigned pbit = !REV && pin && w.end[pe] != 0;
-    const unsigned nz = load_mask(w.end + e0, m - e0);
+    unsigned pbit;
+    if constexpr (BY == BY_SIGN) {
+      pbit = !REV && pin && sign_set(w.v[row * m + pe]);
+    } else {
+      pbit = !REV && pin && w.end[pe] != 0;
+      nz = load_mask(w.end + e0, m - e0);
+    }
     if (REV) {
       sb = __brev(nz) >> (32 - ITEMS);
     } else {
@@ -463,7 +500,7 @@ __device__ __forceinline__ void rescan_last_warp(const Work<T>& w,
   f = __shfl_sync(FULL, f, 31);
 }
 
-template <typename T, bool IDS, bool REV>
+template <typename T, int BY, bool REV>
 __global__ void __launch_bounds__(BLOCK, sizeof(T) == 4 ? MIN_BLOCKS_F32
                                                          : MIN_BLOCKS_F64)
     scan_kernel(Work<T> w) {
@@ -504,13 +541,13 @@ __global__ void __launch_bounds__(BLOCK, sizeof(T) == 4 ? MIN_BLOCKS_F32
     // previous tile's last scan warp read again (where that warp holds a
     // start its total is the previous tile's prefix, known without waiting
     // for its block)
-    const bool need = !first_starts<T, IDS, REV>(w, lo);
+    const bool need = !first_starts<T, BY, REV>(w, row, lo);
     const long long j = d - 1 - lane;
     Window<T> win = read_window(w, sd - 1 - lane, j >= row_first);
     T pv = T(0);
     int pf = 0;
     if (d > row_first)
-      rescan_last_warp<T, IDS, REV>(w, row, REV ? lo + TILE : lo - TILE,
+      rescan_last_warp<T, BY, REV>(w, row, REV ? lo + TILE : lo - TILE,
                                     lane, pv, pf);
     T carry = T(0);
     if (need) {
@@ -532,7 +569,9 @@ __global__ void __launch_bounds__(BLOCK, sizeof(T) == 4 ? MIN_BLOCKS_F32
   // ---- loads: values (and ids) into shared memory, mask bytes to registers
   load_tile<T>(w.v + row * m, lo, m, sv, T(0));
   unsigned nz = 0;        // mask: bit k = end[lo + 16 c + k] != 0
-  if (IDS) {
+  if constexpr (BY == BY_SIGN) {
+    if (tid == 0) edge[0] = lo > 0 && sign_set(w.v[row * m + lo - 1]);
+  } else if (BY == BY_IDS) {
     load_tile<int>(w.ids, lo, m, sid, 0);
     if (tid == 0) {
       const long long e = REV ? lo + TILE : lo - 1;   // before the first
@@ -554,11 +593,12 @@ __global__ void __launch_bounds__(BLOCK, sizeof(T) == 4 ? MIN_BLOCKS_F32
   {
     T y[ITEMS];
     read_chunk<T>(sv, c, y);
+    if constexpr (BY == BY_SIGN) nz = strip_signs(y);
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) x[k] = REV ? y[ITEMS - 1 - k] : y[k];
   }
   unsigned sb;            // bit k: item k starts a segment
-  if (IDS) {
+  if (BY == BY_IDS) {
     int y[ITEMS], id[ITEMS];
     read_chunk<int>(sid, c, y);
 #pragma unroll
@@ -574,7 +614,13 @@ __global__ void __launch_bounds__(BLOCK, sizeof(T) == 4 ? MIN_BLOCKS_F32
     sb = __brev(nz) >> (32 - ITEMS);
   } else {
     unsigned prev = __shfl_up_sync(FULL, (nz >> 15) & 1u, 1);
-    if (lane == 0) prev = edge[warp];
+    if constexpr (BY == BY_SIGN) {
+      // the element before the warp's first, from shared memory
+      if (lane == 0)
+        prev = tid == 0 ? edge[0] : sign_set(sv[pad<4>(c * ITEMS - 1)]);
+    } else {
+      if (lane == 0) prev = edge[warp];
+    }
     sb = ((nz << 1) | prev) & 0xffffu;
   }
   sb = force_starts<REV>(sb, lo + (long long)c * ITEMS, m);
@@ -654,39 +700,36 @@ inline long long tiles_of(long long m) { return (m + TILE - 1) / TILE; }
 
 inline size_t align256(size_t b) { return (b + 255) / 256 * 256; }
 
-template <typename T, bool IDS>
+template <typename T, int BY>
 constexpr size_t dyn_smem() {
   return sizeof(T) * PADDED +
-         (IDS ? sizeof(int) * PADDED : 0);
+         (BY == BY_IDS ? sizeof(int) * PADDED : 0);
 }
 
-template <typename T, bool IDS, bool REV>
+template <typename T, int BY, bool REV>
 int launch(const Work<T>& w, unsigned blocks, cudaStream_t s) {
-  constexpr size_t bytes = dyn_smem<T, IDS>();
+  constexpr size_t bytes = dyn_smem<T, BY>();
   if (bytes > 48 * 1024) {      // float64 with ids
     const cudaError_t e = cudaFuncSetAttribute(
-        scan_kernel<T, IDS, REV>,
+        scan_kernel<T, BY, REV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  scan_kernel<T, IDS, REV><<<blocks, BLOCK, bytes, s>>>(w);
+  scan_kernel<T, BY, REV><<<blocks, BLOCK, bytes, s>>>(w);
   return (int)cudaGetLastError();
 }
 
 // workspace of `capacity` tiles: the state word, then the aggregate slots
-// and the prefix slots (16 bytes each) of two banks of `capacity`
+// and the prefix slots (16 bytes each) of two banks of `capacity`; false
+// where the call does not fit it
 template <typename T>
-int run(const void* v, const void* ids, const void* end, void* out, void* ws,
-        long long capacity, long long rows, long long m, int reverse,
-        void* stream) {
-  if (rows <= 0 || m <= 0) return 0;
-  if ((ids == nullptr) == (end == nullptr)) return (int)cudaErrorInvalidValue;
+bool make_work(Work<T>& w, const void* v, const void* ids, const void* end,
+               void* out, void* ws, long long capacity, long long rows,
+               long long m) {
   const long long tpr = tiles_of(m);
   const long long tiles = rows * tpr;
-  if (tiles > 0x7fffffffLL || tiles > capacity)
-    return (int)cudaErrorInvalidValue;
+  if (tiles > 0x7fffffffLL || tiles > capacity) return false;
   char* p = (char*)ws;
-  Work<T> w;
   w.v = (const T*)v;
   w.ids = (const int*)ids;
   w.end = (const int8_t*)end;
@@ -700,13 +743,25 @@ int run(const void* v, const void* ids, const void* end, void* out, void* ws,
   w.tiles_per_row = tpr;
   w.capacity = capacity;
   w.total = (unsigned)tiles;
+  return true;
+}
+
+template <typename T>
+int run(const void* v, const void* ids, const void* end, void* out, void* ws,
+        long long capacity, long long rows, long long m, int reverse,
+        void* stream) {
+  if (rows <= 0 || m <= 0) return 0;
+  if ((ids == nullptr) == (end == nullptr)) return (int)cudaErrorInvalidValue;
+  Work<T> w;
+  if (!make_work(w, v, ids, end, out, ws, capacity, rows, m))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned blocks = (unsigned)tiles;
+  const unsigned blocks = w.total;
   if (ids != nullptr)
-    return reverse ? launch<T, true, true>(w, blocks, s)
-                   : launch<T, true, false>(w, blocks, s);
-  return reverse ? launch<T, false, true>(w, blocks, s)
-                 : launch<T, false, false>(w, blocks, s);
+    return reverse ? launch<T, BY_IDS, true>(w, blocks, s)
+                   : launch<T, BY_IDS, false>(w, blocks, s);
+  return reverse ? launch<T, BY_MASK, true>(w, blocks, s)
+                 : launch<T, BY_MASK, false>(w, blocks, s);
 }
 
 }  // namespace
@@ -747,6 +802,22 @@ int segcumsum_f64(const void* values, const void* ids, const void* end,
                   long long m, int reverse, void* stream) {
   return run<double>(values, ids, end, out, ws, capacity, rows, m, reverse,
                      stream);
+}
+
+// The packed form, forward, float32: values and out (rows, m), each row's
+// segment ends in the sign bits of its own values (set on the last element
+// of each segment); out = the forward scan of |values| over those ends.  The
+// workspace as for segcumsum_f32, shared with its calls on the stream.
+// Launches one kernel on `stream` and returns cudaGetLastError() (0 on
+// success); does not synchronise.
+int segcumsum_packed_f32(const void* values, void* out, void* ws,
+                         long long capacity, long long rows, long long m,
+                         void* stream) {
+  if (rows <= 0 || m <= 0) return 0;
+  Work<float> w;
+  if (!make_work(w, values, nullptr, nullptr, out, ws, capacity, rows, m))
+    return (int)cudaErrorInvalidValue;
+  return launch<float, BY_SIGN, false>(w, w.total, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -376,6 +376,12 @@ _SIGNATURES = {
         'dv_f32': ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
         'dv_loop_f32': ([_PTR] * 4 + [_INT] * 4 + [_PTR], _INT),
         'dv_parts': ([_INT], ctypes.c_longlong)}),
+    'probe_segscan': (None, {
+        'variant_f32': ([_PTR] * 6 + [ctypes.c_longlong] * 2 + [_INT, _PTR],
+                        _INT),
+        'stage_f32': ([_PTR] * 6 + [ctypes.c_longlong] * 2 + [_INT] * 2
+                      + [_PTR], _INT),
+        'blocks': ([ctypes.c_longlong] * 2, ctypes.c_longlong)}),
 }
 
 

@@ -8,19 +8,25 @@ earlier version of the same source, in turns on one card.
 
 The parent's source is built with the package's nvcc flags into the
 parent's directory and bound with its own C interface: the K3 of the
-commit before the device-side look-back state took an epoch from the host
+commits before the device-side look-back state took an epoch from the host
 each call (`segcumsum_f32(v, ids, end, out, ws, capacity, rows, m,
-reverse, epoch, stream)`).  Two shapes: the flat scan of 2^24 float32
-values over a mask of segments of about 32, and the CSR call (127 rows of
-the bench graph's 130944 padded edges over its mask).  Each is timed
-parent, change, change, parent (device time, CUDA events, the median of
-5 windows of 20 calls: chip_smoke.device_ms), and both outputs must be the
-same bits.  Prints one JSON line with the card's name and power limit.
+reverse, epoch, stream)`), later ones do not; which one a source has is
+read from its text.  Four cases: the flat scan of 2^24 float32 values over
+segments of about 32, by ids and by mask, and the CSR call (127 rows of
+the bench graph's 130944 padded edges over its mask, and over its ids).
+Each is timed parent, change, change, parent (device time, CUDA events,
+the median of 5 windows of 20 calls: chip_smoke.device_ms), and both
+outputs must be the same bits.  Where `cuobjdump` is found, each
+scan_kernel instance that both libraries have is also compared in its
+SASS, the kernel's name aside (`sass_equal`).  Prints one JSON line with
+the card's name and power limit.
 """
 import argparse
 import ctypes
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -31,21 +37,55 @@ sys.path.insert(0, ROOT)
 
 
 def build_parent(src):
+    """(library, whether its entry takes an epoch, its path)."""
     from fsw_gnn_tpu_torch import kernels
     out = os.path.join(os.path.dirname(os.path.abspath(src)),
                        'libsegcumsum_parent.so')
     subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, '-o', out, src],
                    check=True, capture_output=True, text=True)
+    with open(src) as f:
+        epoch = bool(re.search(r'int reverse,\s*unsigned epoch', f.read()))
     lib = ctypes.CDLL(out)
     fn = lib.segcumsum_f32
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
-        ctypes.c_int, ctypes.c_uint, ctypes.c_void_p]
+        ctypes.c_int] + ([ctypes.c_uint] if epoch else []) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.segcumsum_tiles.argtypes = [ctypes.c_longlong, ctypes.c_longlong]
     lib.segcumsum_tiles.restype = ctypes.c_longlong
     lib.segcumsum_workspace_bytes.argtypes = [ctypes.c_longlong]
     lib.segcumsum_workspace_bytes.restype = ctypes.c_size_t
-    return lib
+    return lib, epoch, out
+
+
+def sass_by_kernel(path):
+    """{scan_kernel instance's mangled template arguments: its SASS with
+    names and addresses blanked} of a library, or None without
+    cuobjdump."""
+    from fsw_gnn_tpu_torch import kernels
+    tool = shutil.which('cuobjdump') or os.path.join(
+        os.path.dirname(kernels._nvcc()), 'cuobjdump')
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, '-sass', path], capture_output=True,
+                          text=True).stdout
+    out, name, body = {}, None, []
+    for line in text.splitlines():
+        m = re.match(r'\s*Function : (\S+)', line)
+        if m:
+            if name:
+                out[name] = '\n'.join(body)
+            sym = m.group(1)
+            # a bool template argument (Lb1E) named as an int one (Li1E)
+            name = re.sub(r'Lb(\d)E', r'Li\1E',
+                          sym[sym.find('scan_kernel'):]) \
+                if 'scan_kernel' in sym else None
+            body = []
+        elif name and re.search(r'/\*[0-9a-f]{4}\*/', line):
+            body.append(re.sub(r'/\*[0-9a-f]{4}\*/|\S*scan_kernel\S*', '',
+                               line).strip())
+    if name:
+        out[name] = '\n'.join(body)
+    return out
 
 
 def main():
@@ -58,16 +98,17 @@ def main():
         sys.exit('needs an NVIDIA GPU')
     import chip_smoke as C
     import fsw_gnn_tpu_torch as T
+    from fsw_gnn_tpu_torch import kernels
     from fsw_gnn_tpu_torch.ops.segcumsum import _run, segment_boundaries
     dev = torch.device('cuda')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip()
-    lib = build_parent(args.parent)
+    lib, takes_epoch, parent_path = build_parent(args.parent)
     state = {'epoch': 0}
     ws_cache = {}
 
-    def parent(values, mask):
+    def parent(values, ids, mask):
         rows, m = values.shape
         tiles = lib.segcumsum_tiles(rows, m)
         if tiles not in ws_cache:
@@ -77,43 +118,51 @@ def main():
         state['epoch'] += 1
         out = torch.empty_like(values)
         rc = lib.segcumsum_f32(
-            values.data_ptr(), None, mask.data_ptr(), out.data_ptr(),
-            ws_cache[tiles].data_ptr(), tiles, rows, m, 0, state['epoch'],
+            values.data_ptr(), None if ids is None else ids.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            ws_cache[tiles].data_ptr(), tiles, rows, m, 0,
+            *([state['epoch']] if takes_epoch else []),
             torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f'parent K3 failed: CUDA error {rc}')
         return out
 
-    def change(values, mask):
-        return _run(values, None, mask, False)
+    def change(values, ids, mask):
+        return _run(values, ids, mask, False)
 
     rng = np.random.default_rng(0)
-    ids = np.sort(rng.integers(0, C.K3_N // 32, C.K3_N)).astype(np.int32)
-    flat_mask = segment_boundaries(torch.from_numpy(ids).to(dev))
+    flat_ids = torch.from_numpy(np.sort(rng.integers(
+        0, C.K3_N // 32, C.K3_N)).astype(np.int32)).to(dev)
     flat = torch.from_numpy(rng.standard_normal((1, C.K3_N))
                             .astype(np.float32)).to(dev)
     g = T.from_edge_index(C.simple_graph(0, C.N_NODES)[0], C.N_NODES)
-    csr_mask = segment_boundaries(torch.from_numpy(g.dst).to(dev))
-    csr = torch.from_numpy(rng.standard_normal((127, csr_mask.shape[0]))
+    csr_ids = torch.from_numpy(g.dst.astype(np.int32)).to(dev)
+    csr = torch.from_numpy(rng.standard_normal((127, csr_ids.shape[0]))
                            .astype(np.float32)).to(dev)
-    res = {'device': smi}
-    for label, v, mask in (('flat 2^24', flat, flat_mask),
-                           ('CSR call 127 x %d' % csr_mask.shape[0], csr,
-                            csr_mask)):
-        if not torch.equal(parent(v, mask), change(v, mask)):
+    res = {'device': smi, 'parent_takes_epoch': takes_epoch}
+    m = csr_ids.shape[0]
+    for label, v, ids, mask in (
+            ('flat 2^24 mask', flat, None, segment_boundaries(flat_ids)),
+            ('flat 2^24 ids', flat, flat_ids, None),
+            (f'CSR call 127 x {m} mask', csr, None,
+             segment_boundaries(csr_ids)),
+            (f'CSR call 127 x {m} ids', csr, csr_ids, None)):
+        if not torch.equal(parent(v, ids, mask), change(v, ids, mask)):
             sys.exit(f'{label}: the parent and the change differ')
         times = []
         for name, fn in (('parent', parent), ('change', change),
                          ('change', change), ('parent', parent)):
-            ms, _ = C.device_ms(torch, lambda: fn(v, mask), 20)
+            ms, _ = C.device_ms(torch, lambda: fn(v, ids, mask), 20)
             times.append((name, ms))
-        res[label] = {
-            'turns_ms': times,
-            'parent_ms': float(np.mean([t for n, t in times
-                                        if n == 'parent'])),
-            'change_ms': float(np.mean([t for n, t in times
-                                        if n == 'change'])),
-            'bit_equal': True}
+        p_ms = float(np.mean([t for n, t in times if n == 'parent']))
+        c_ms = float(np.mean([t for n, t in times if n == 'change']))
+        res[label] = {'turns_ms': times, 'parent_ms': p_ms,
+                      'change_ms': c_ms, 'change_over_parent': c_ms / p_ms,
+                      'bit_equal': True}
+    old = sass_by_kernel(parent_path)
+    new = sass_by_kernel(str(kernels._target('segcumsum')))
+    if old is not None and new is not None:
+        res['sass_equal'] = {k: old[k] == new.get(k) for k in sorted(old)}
     print('k3 ab: ' + json.dumps(res), flush=True)
     return 0
 

@@ -1113,3 +1113,134 @@ def test_select_bodies_match_plain(cuda_device):
                                    msg=name)
     torch.cuda.synchronize()
     assert P6.probe_select.launches == before + len(P6.KERNEL_BODIES)
+
+
+# ---- K3's probes: P5's loops, P2's stages, K3's packed form -----------------
+
+def _sorted_ids(rng, n, avg):
+    return torch.from_numpy(np.sort(rng.integers(0, max(n // avg, 1), n))
+                            .astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('variant', ['roll', 'shift', 'fma'])
+@pytest.mark.parametrize('n,avg', [(1, 1), (5, 2), (128, 128), (1000, 29),
+                                   (8192, 32), (8193, 7), (40000, 29),
+                                   (70000, 70000), (1 << 20, 32),
+                                   (1 << 20, 1 << 20)])
+def test_segscan_variant_matches_plain(cuda_device, variant, n, avg):
+    """P5's kernel against its plain version (the TPU's tiles of 256 rows)
+    and K3 in float64: within 2 TOL_ULPS and TOL_ULPS float32 eps of each
+    element's segment prefix of |v| (both sum trees of adds); the same bits
+    twice, one launch a call."""
+    from fsw_gnn_tpu_torch.benchmarks import probe_segscan_variants as P5
+    rng = np.random.default_rng(n + avg)
+    v = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    ids = _sorted_ids(rng, n, avg)
+    want = P5.segscan_variant_plain(v, ids, variant)
+    v, ids = v.to(cuda_device), ids.to(cuda_device)
+    before = P5.segscan_variant.launches
+    got = P5.segscan_variant(v, ids, variant)
+    again = P5.segscan_variant(v, ids, variant)
+    torch.cuda.synchronize()
+    assert P5.segscan_variant.launches == before + 2
+    assert torch.equal(got, again)
+    assert P5.ulps_of_prefix(got, v, ids) <= P5.TOL_ULPS
+    prefix = P5.segcumsum(v.abs().double(), ids).cpu()
+    err = (got.cpu().double() - want.double()).abs()
+    eps = torch.finfo(torch.float32).eps
+    assert bool(torch.all(err <= 2 * P5.TOL_ULPS * eps * prefix))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ablate,passes', [('io', 0), ('fill1', 1),
+                                           ('fill7', 7), ('mxu_only', 0),
+                                           ('nofill', 0), ('full', 0)])
+@pytest.mark.parametrize('n,avg,block_rows', [
+    (128, 1, 64), (8192, 64, 64), (8192 * 3 + 640, 700, 64),
+    (8192 * 3 + 640, 700, 128), (1 << 20, 4096, 64), (1 << 20, 4096, 256),
+    (1 << 20, 1 << 20, 64)])
+def test_fill_floor_stage_matches_plain(cuda_device, ablate, passes, n, avg,
+                                        block_rows):
+    """P2's stage kernels against their plain versions (the TPU's tiles of
+    1024 rows, its honest carry depth): io and the fills bit for bit, the
+    others against the plain version in float64 within TOL_EPS float32 eps
+    of their scale (`within`); full also against K3 in float64;
+    the same bits twice, one launch a call."""
+    from fsw_gnn_tpu_torch.benchmarks import probe_fill_floor as P2
+    from fsw_gnn_tpu_torch.ops.segcumsum import segment_boundaries
+    rng = np.random.default_rng(n + avg)
+    v = torch.from_numpy(np.abs(rng.standard_normal(n)).astype(np.float32))
+    ids = _sorted_ids(rng, n, avg)
+    m = segment_boundaries(ids)
+    max_seg = int(torch.bincount(ids).max())
+    want = P2.fill_floor_plain(v, m, ablate, passes, max_seg)
+    v, m = v.to(cuda_device), m.to(cuda_device)
+    before = P2.fill_floor.launches
+    got = P2.fill_floor(v, m, ablate, passes, block_rows=block_rows)
+    again = P2.fill_floor(v, m, ablate, passes, block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert P2.fill_floor.launches == before + 2
+    assert torch.equal(got, again)
+    got, v = got.cpu(), v.cpu()
+    if ablate in ('io', 'fill1', 'fill7'):
+        assert torch.equal(got, want)
+    else:
+        want = P2.fill_floor_plain(v.double(), m.cpu(), ablate, passes,
+                                   max_seg)
+        assert P2.within(got, want, v, m.cpu())[1] <= P2.TOL_EPS
+    if ablate == 'full':
+        ref = P2.segcumsum(v.double(), boundaries=m.cpu())
+        assert P2.within(got, ref, v, m.cpu())[1] <= P2.TOL_EPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,avg', [(1, 1), (5, 2), (4096, 4096), (4097, 9),
+                                   (70000, 256), (70000, 70000),
+                                   (1 << 20, 256), (1 << 20, 3)])
+def test_packed_k3_is_mask_k3(cuda_device, n, avg):
+    """K3's packed form against its mask form on the same values and ends,
+    zeros at some ends (-0.0 packed): the same bits; against the plain
+    version within K3's 8 eps of the prefix; one launch a call."""
+    from fsw_gnn_tpu_torch.benchmarks import probe_segcumsum_fill as P3
+    from fsw_gnn_tpu_torch.ops.segcumsum import segcumsum, segment_boundaries
+    rng = np.random.default_rng(n + avg)
+    vals = np.abs(rng.standard_normal(n)).astype(np.float32)
+    m = segment_boundaries(_sorted_ids(rng, n, avg))
+    vals[(m.numpy() == 1) & (rng.random(n) < 0.3)] = 0.0
+    v = torch.from_numpy(vals)
+    packed = P3.pack(v, m)
+    assert int(torch.signbit(packed).sum()) == int(m.sum())
+    want = P3.segcumsum_packed_plain(packed)
+    before = P3.segcumsum_packed.launches
+    got = P3.segcumsum_packed(packed.to(cuda_device))
+    by_mask = segcumsum(v.to(cuda_device), boundaries=m.to(cuda_device))
+    torch.cuda.synchronize()
+    assert P3.segcumsum_packed.launches == before + 1
+    assert torch.equal(got, by_mask)
+    _k3_close(got, v.to(cuda_device),
+              torch.cumsum(m.long(), 0).sub(m.long()).to(cuda_device))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_segscan_probes_refuse_bad_inputs(cuda_device):
+    from fsw_gnn_tpu_torch.benchmarks import probe_fill_floor as P2
+    from fsw_gnn_tpu_torch.benchmarks import probe_segcumsum_fill as P3
+    from fsw_gnn_tpu_torch.benchmarks import probe_segscan_variants as P5
+    from fsw_gnn_tpu_torch.kernels import KernelError
+    v = torch.ones(1024, device=cuda_device)
+    ids = torch.zeros(1024, dtype=torch.int32, device=cuda_device)
+    m = torch.zeros(1024, dtype=torch.int8, device=cuda_device)
+    counts = (P5.segscan_variant.launches, P2.fill_floor.launches,
+              P3.segcumsum_packed.launches)
+    with pytest.raises(KernelError):
+        P5.segscan_variant(v[1:], ids[1:], 'fma')          # misaligned
+    with pytest.raises(TypeError):
+        P5.segscan_variant(v.double(), ids, 'fma')
+    with pytest.raises(KernelError):
+        P2.fill_floor(v[1:], m[1:], 'io')
+    with pytest.raises(TypeError):
+        P3.segcumsum_packed(v.half())
+    assert counts == (P5.segscan_variant.launches, P2.fill_floor.launches,
+                      P3.segcumsum_packed.launches)

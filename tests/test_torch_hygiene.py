@@ -41,7 +41,11 @@ def test_import_pulls_in_no_jax():
             'fsw_gnn_tpu_torch.benchmarks.probe_select_ceiling, '
             'fsw_gnn_tpu_torch.benchmarks.probe_emit_pipeline, '
             'fsw_gnn_tpu_torch.benchmarks.bench_rank_proj, '
-            'fsw_gnn_tpu_torch.benchmarks.bench_rank_kernel; '
+            'fsw_gnn_tpu_torch.benchmarks.bench_rank_kernel, '
+            'fsw_gnn_tpu_torch.benchmarks.probe_segscan_variants, '
+            'fsw_gnn_tpu_torch.benchmarks.probe_fill_floor, '
+            'fsw_gnn_tpu_torch.benchmarks.probe_segcumsum_fill, '
+            'fsw_gnn_tpu_torch.benchmarks.bench_segcumsum; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "flax", "optax", "orbax", "fsw_gnn_tpu")]; '
             'assert not bad, bad')
