@@ -290,7 +290,18 @@ Phases (any failure exits non-zero before the last line is printed):
      on the card (`probe_segscan_variants`, `probe_fill_floor`,
      `probe_segcumsum_fill`, `bench_segcumsum`), which must launch each
      kernel (`K3 probes:` line);
- 40. one JSON line listing the fourteen kernels with their launches,
+ 40. the ported benchmark scripts (`ported_scripts_phase`): the
+     fourteen scripts of `fsw_gnn_tpu_torch/benchmarks/` that drive the
+     model's kernels (serving, serving layouts in turns, the serving budget
+     and fresh-request probes, CSR against tables, the CSR and table
+     breakdowns, arxiv's scale, multisets ('auto' and 'rank'), the four
+     cartesian scripts, scaling at one NCCL rank), each `main([])` from
+     every counter at 0 at its defaults; each must pass its own check and
+     launch its kernels (`ported scripts:` line);
+ 41. the five demos (`ported_demos_phase`): `fsw_gnn_tpu_torch/examples/`
+     with their defaults, each from every counter at 0, each launching its
+     kernels (`ported demos:` line);
+ 42. one JSON line listing the fourteen kernels with their launches,
      errors, times and bounds (the launches of the seven of the model's
      paths are those of the main-path runs 4, 6, 7, 8, 9, 10, 12-16, 18,
      19, 20, 24, 26-30, 33, 34, 36 and 37 together, the four of the
@@ -301,7 +312,7 @@ Phases (any failure exits non-zero before the last line is printed):
      forward, P4's at the probe's shape, P6's of its 'rank' body, P5's of
      its 'fma' loop, P2's of its 'full' stage, P3's packed form at its
      probe's shape);
- 41. the last line: {"ok": true, "device": {...}}.
+ 43. the last line: {"ok": true, "device": {...}}.
 
 Tolerances:
   * K1f against its plain version, both on the card in float32:
@@ -4914,6 +4925,173 @@ def k3_probes_phase(torch, T, dev, smi_line):
     return res
 
 
+# the ported scripts of phase 40: (script, knobs set for its run, the
+# kernels it must launch: each inner tuple names kernels of which one at
+# least must be launched).  bench_multiset runs twice: 'auto' sorts at its
+# n = 256 (the H100's cap is 128), 'rank' takes K2 there.
+_ENVELOPE, _K3 = ('fsw_rank_fwdp', 'fsw_rank_fwd'), ('segcumsum',)
+_K4 = (('fsw_rank_cart_fwd',), ('fsw_rank_cart_bwd',))
+PORT_SCRIPTS = (
+    ('bench_serving', {}, (_ENVELOPE, _K3)),
+    ('bench_serving_aba', {}, (_ENVELOPE,)),
+    ('probe_serving_budget', {}, (_ENVELOPE,)),
+    ('probe_serving_fresh', {}, (_ENVELOPE, _K3)),
+    ('bench_csr_vs_table', {}, (_K3, ('fsw_rank_fwdp',),
+                                ('fsw_rank_bwdp',))),
+    ('bench_breakdown', {}, (_K3,)),
+    ('bench_table_breakdown', {}, (('fsw_rank_fwdp',), ('fsw_rank_bwdp',))),
+    # the K1 rule sends arxiv's tables (D = 128, 7 entries a node) to K2
+    ('bench_arxiv_scale', {}, (('fsw_rank_fwd',), ('fsw_rank_bwd',))),
+    ('bench_multiset', {}, ()),
+    ('bench_multiset', {'FSW_MS_AGG': 'rank'}, (('fsw_rank_fwd',),
+                                                ('fsw_rank_bwd',))),
+    ('bench_cart_kernel', {}, _K4),
+    ('bench_cart_dw', {}, _K4),
+    ('bench_cart_waste', {}, _K4),
+    # its children launch K4 (counted there and reported back)
+    ('probe_cart_dw_frontier', {}, _K4),
+    # its rank process launches the rank kernels (reported back)
+    ('bench_scaling', {}, (('fsw_rank_fwdp', 'fsw_rank_fwd'),
+                           ('fsw_rank_bwdp', 'fsw_rank_bwd'))),
+)
+# depth cuts of phase 40 (requests, steps, calls; never widths or rows), to
+# keep the smoke's time: most of what is left is process start-up
+# (probe_cart_dw_frontier's two children, bench_scaling's launch)
+PORT_SCRIPT_CUTS = {
+    'bench_serving': {'SRV_REQUESTS': '16'},
+    'bench_csr_vs_table': {'FSW_CT_ITERS': '3'},
+    'bench_arxiv_scale': {'FSW_AX_STEPS': '2'},
+    'probe_cart_dw_frontier': {'CART_STEPS': '3'},
+    'bench_scaling': {'FSW_SC_ITERS': '3'},
+}
+PORT_DEMOS = (
+    ('demo_fsw_embedding', [], (('fsw_rank_fwd',),)),
+    ('demo_conv', [], (_K3,)),
+    ('demo_serving', [], (('fsw_rank_fwdp',), ('fsw_rank_bwdp',), _K3)),
+    ('demo_dsmetric', [], ()),
+    # its rank process runs the steps (its counts reported back)
+    ('demo_distributed', [], (('fsw_rank_fwdp', 'fsw_rank_fwd'),
+                              ('fsw_rank_bwdp', 'fsw_rank_bwd'))),
+)
+
+
+def _missing(launched, need):
+    """The groups of `need` none of whose kernels was launched."""
+    return [g for g in need if not any(launched.get(k, 0) for k in g)]
+
+
+def _launched(res):
+    """This process's launches since the counts were reset, plus those a
+    script or demo ran in its children and returned under 'launches'."""
+    from fsw_gnn_tpu_torch.ops import launch_counts
+    launched = launch_counts()
+    child = res.get('launches', {}) if isinstance(res, dict) else {}
+    for k, v in child.items():
+        launched[k] = launched.get(k, 0) + v
+    return launched
+
+
+def _run_with_env(torch, module, env, call):
+    """call(module reloaded under `env`), the environment restored after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        mod = importlib.reload(importlib.import_module(module))
+        out = call(mod)
+        torch.cuda.synchronize()
+        return out
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        importlib.reload(importlib.import_module(module))
+
+
+def ported_scripts_phase(torch, smi_line):
+    """Phase 40: the ported benchmark scripts (`fsw_gnn_tpu_torch/
+    benchmarks/`) on the card at their defaults but for the depth cuts of
+    `PORT_SCRIPT_CUTS`, which keep the smoke's time (requests and steps,
+    never a width: SRV_REQUESTS 16 of bench_serving's 32, FSW_CT_ITERS 3 of
+    10, FSW_AX_STEPS 2 of 5, probe_cart_dw_frontier's CART_STEPS 3 of 10,
+    FSW_SC_ITERS 3 of 10), each from every launch counter at 0: `main([])`, its JSON lines printed, must return
+    (each raises where its own check fails: the serving routes' cross-check
+    at 1e-4 of the scale, K4b's gradients against the sort route, the CSR
+    and multi-table outputs against each other, bench_scaling's first loss
+    against the single device) and must launch the kernels `PORT_SCRIPTS`
+    names for it (probe_cart_dw_frontier's children and bench_scaling's
+    rank process return their counts under 'launches', added to this
+    process's by `_launched`).  Prints the `ported scripts:`
+    line (each script's seconds, launches and result) and returns it."""
+    from fsw_gnn_tpu_torch.ops import reset_launches
+    out, t_all = {}, time.perf_counter()
+    for name, env, need in PORT_SCRIPTS:
+        label = name + ''.join(f' {k}={v}' for k, v in env.items())
+        env = {**PORT_SCRIPT_CUTS.get(name, {}), **env}
+        print(f'  ported scripts: python -m fsw_gnn_tpu_torch.benchmarks.'
+              f'{label}', flush=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            res = _run_with_env(
+                torch, f'fsw_gnn_tpu_torch.benchmarks.{name}', env,
+                lambda mod: mod.main([]))
+        except Exception as e:          # the script's own check, or a fault
+            fail(f'ported scripts: {label}: {type(e).__name__}: {e}')
+        launched = _launched(res)
+        missing = _missing(launched, need)
+        if missing:
+            fail(f'ported scripts: {label} launched none of {missing} '
+                 f'({launched})')
+        out[label] = {'s': time.perf_counter() - t0,
+                      'launches': {k: v for k, v in launched.items() if v},
+                      'result': res}
+        print(f'  ported scripts: {label}: {out[label]["s"]:.1f} s',
+              flush=True)
+    print('ported scripts: ' + json.dumps({
+        'total_s': time.perf_counter() - t_all, 'power': smi_line,
+        'cuts': PORT_SCRIPT_CUTS, **out}, default=str), flush=True)
+    return out
+
+
+def ported_demos_phase(torch, smi_line):
+    """Phase 41: the five demos (`fsw_gnn_tpu_torch/examples/`) on
+    the card with their default arguments, each from every launch counter
+    at 0: each must return (each raises where its output is not finite,
+    demo_serving where its artifact differs from the module by 1e-4 of the
+    scale or its server did not capture one graph a route,
+    demo_distributed where the three exchanges' 5-step losses differ by
+    1e-4) and launch the kernels `PORT_DEMOS` names for it
+    (demo_distributed's rank process returns its counts under 'launches';
+    demo_dsmetric takes no kernel of the port).  Prints the `ported demos:` line."""
+    from fsw_gnn_tpu_torch.ops import reset_launches
+    out, t_all = {}, time.perf_counter()
+    for name, argv, need in PORT_DEMOS:
+        print(f'  ported demos: python -m fsw_gnn_tpu_torch.examples.{name}',
+              flush=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            mod = importlib.import_module(f'fsw_gnn_tpu_torch.examples.{name}')
+            res = mod.main(argv)
+            torch.cuda.synchronize()
+        except Exception as e:
+            fail(f'ported demos: {name}: {type(e).__name__}: {e}')
+        launched = _launched(res)
+        missing = _missing(launched, need)
+        if missing:
+            fail(f'ported demos: {name} launched none of {missing} '
+                 f'({launched})')
+        out[name] = {'s': time.perf_counter() - t0,
+                     'launches': {k: v for k, v in launched.items() if v}}
+        print(f'  ported demos: {name}: {out[name]["s"]:.1f} s', flush=True)
+    print('ported demos: ' + json.dumps({
+        'total_s': time.perf_counter() - t_all, 'power': smi_line, **out}),
+        flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5108,7 +5286,12 @@ def main():
     folder = bench_folder_phase(torch, T, dev, smi_line)
     probes = k3_probes_phase(torch, T, dev, smi_line)
 
-    # ---- 40. kernels line, 41. last line ------------------------------------
+    # ---- 40. the ported benchmark scripts, 41. the demos --------------------
+    torch.cuda.empty_cache()
+    ported_scripts_phase(torch, smi_line)
+    ported_demos_phase(torch, smi_line)
+
+    # ---- 42. kernels line, 43. last line ------------------------------------
     src = 'fsw_gnn_tpu_torch/csrc/'
     pallas = 'fsw_gnn_tpu/ops/fsw_rank_pallas.py:'
     line = {'kernels': [

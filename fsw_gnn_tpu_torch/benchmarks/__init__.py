@@ -7,13 +7,21 @@ on the card unless given `--device cpu` (then the kernels' plain versions,
 which the first line says), with the JAX script's environment knobs and
 defaults, one JSON line a case, each with the card's name and power limit.
 
-Ported so far: `_timing` (the protocol), `attic.fsw_table` (kernel A1),
-`bench_fused_table`, `probe_kernel_matmul` (P1), `probe_select_ceiling`
-(P6), `probe_emit_pipeline` (P4), `bench_rank_proj`, `bench_rank_kernel`,
-and K3's: `probe_segscan_variants` (P5), `probe_fill_floor` (P2),
-`probe_segcumsum_fill` (P3) and `bench_segcumsum`.  The probe and attic
-kernels are CUDA sources in `csrc/` (fsw_table_sort.cu, probe_matmul.cu,
-probe_select.cu, probe_stage.cu, probe_segscan.cu for P5 and P2, and K3's
-packed form in segcumsum.cu for P3), built at first use as the package's
-other kernels; no route of the package reaches them.
+Ported: every script of `benchmarks/` but `bench_repspread` (it times
+`bench.build`, which waits for the port's main-path benchmark), with
+`_timing` (the protocol) and `attic.fsw_table` (kernel A1).  The probe and
+attic kernels are CUDA sources in `csrc/` (fsw_table_sort.cu for A1,
+probe_matmul.cu for P1, probe_select.cu for P6, probe_stage.cu for P4,
+probe_segscan.cu for P5 and P2, and K3's packed form in segcumsum.cu for
+P3), built at first use as the package's other kernels; no route of the
+package reaches them.  The others drive the package's public API and its
+kernels K1-K4: `bench_fused_table`, `bench_rank_proj`, `bench_rank_kernel`
+and `bench_segcumsum`; serving (`bench_serving`, `bench_serving_aba`,
+`probe_serving_budget`, `probe_serving_fresh`); the CSR path against the
+tables and both by stages (`bench_csr_vs_table`, `bench_breakdown`,
+`bench_table_breakdown`); `bench_arxiv_scale`; `bench_multiset`; cartesian
+mode (`bench_cart_kernel`, `bench_cart_dw`, `bench_cart_waste`,
+`probe_cart_dw_frontier`); and `bench_scaling` (the edge-partitioned step
+over processes started by `parallel.launch`).  Each script's `setup`
+builds the JAX script's inputs from the same seed.
 """

@@ -129,9 +129,10 @@ def _cpu_window(dev, iters, reps):
     return (iters, reps) if dev.type == 'cuda' else (min(iters, 2), 1)
 
 
-def median_ms(fn, dev: torch.device, iters: int = 20, reps: int = 5) -> float:
-    """Median over `reps` windows of the mean ms of `iters` calls of fn,
-    each window from a drained stream, after one warm-up call."""
+def windows_ms(fn, dev: torch.device, iters: int = 20, reps: int = 5
+               ) -> list:
+    """The mean ms of `iters` calls of fn in each of `reps` windows, each
+    window from a drained stream, after one warm-up call."""
     iters, reps = _cpu_window(dev, iters, reps)
     fn()
     host = _host_s(fn)
@@ -139,7 +140,13 @@ def median_ms(fn, dev: torch.device, iters: int = 20, reps: int = 5) -> float:
     for _ in range(reps):
         drain(dev)
         ts.append(_window_ms(fn, iters, dev, host))
-    return median(ts)
+    return ts
+
+
+def median_ms(fn, dev: torch.device, iters: int = 20, reps: int = 5) -> float:
+    """Median over `reps` windows of the mean ms of `iters` calls of fn
+    (`windows_ms`)."""
+    return median(windows_ms(fn, dev, iters, reps))
 
 
 def aba_ms(fns: dict, dev: torch.device, iters: int = 20,
@@ -160,6 +167,44 @@ def aba_ms(fns: dict, dev: torch.device, iters: int = 20,
     return out
 
 
+def enqueue_ms(fn, dev: torch.device, reps: int = 5) -> float:
+    """The host clock's median ms to issue one call of fn on a drained
+    stream: its enqueue, not its run.  A window's sleep kernel lets the
+    host run ahead of the card only as far as the card's launch queue
+    holds: a call whose enqueue exceeds its device time keeps a
+    device-timed window while the window's launches fit in that queue;
+    beyond it the window reads the host's rate in part."""
+    ts = []
+    for _ in range(reps):
+        drain(dev)
+        ts.append(1e3 * _host_s(fn))
+    drain(dev)
+    return median(ts)
+
+
 def median(xs) -> float:
     xs = sorted(xs)
     return xs[len(xs) // 2]
+
+
+def host_ms(fn, dev: torch.device, reps: int) -> list:
+    """The host clock's ms of each of `reps` calls of fn, each ended by a
+    synchronize (on the card), after one warm-up call."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        drain(dev)
+        t0 = time.perf_counter()
+        fn()
+        drain(dev)
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return ts
+
+
+def spread(ts) -> dict:
+    """{p50, p90, min, max}_ms of a list of times (ms): p50 the element at
+    n // 2 and p90 at int(0.9 n) of the sorted list, as the JAX serving
+    scripts take them."""
+    ts = sorted(ts)
+    return {'p50_ms': ts[len(ts) // 2], 'p90_ms': ts[int(len(ts) * 0.9)],
+            'min_ms': ts[0], 'max_ms': ts[-1]}

@@ -25,7 +25,7 @@ the JSON line.  `autotune` measures the rank-vs-sort and K1 crossovers on
 the card (`utils/autotune.py`) and caches them under its kind (not with
 --dry-run); it prints {"rules": ..., "cache": path or null}.  Only `bench`
 is not ported yet: it waits for the port's main-path benchmark
-(ROADMAP.md section 1, item 3).
+(ROADMAP.md section 1, item 1).
 """
 from __future__ import annotations
 

@@ -45,7 +45,26 @@ def test_import_pulls_in_no_jax():
             'fsw_gnn_tpu_torch.benchmarks.probe_segscan_variants, '
             'fsw_gnn_tpu_torch.benchmarks.probe_fill_floor, '
             'fsw_gnn_tpu_torch.benchmarks.probe_segcumsum_fill, '
-            'fsw_gnn_tpu_torch.benchmarks.bench_segcumsum; '
+            'fsw_gnn_tpu_torch.benchmarks.bench_segcumsum, '
+            'fsw_gnn_tpu_torch.benchmarks.bench_serving, '
+            'fsw_gnn_tpu_torch.benchmarks.bench_serving_aba, '
+            'fsw_gnn_tpu_torch.benchmarks.probe_serving_budget, '
+            'fsw_gnn_tpu_torch.benchmarks.probe_serving_fresh, '
+            'fsw_gnn_tpu_torch.benchmarks.bench_csr_vs_table, '
+            'fsw_gnn_tpu_torch.benchmarks.bench_breakdown, '
+            'fsw_gnn_tpu_torch.benchmarks.bench_table_breakdown, '
+            'fsw_gnn_tpu_torch.benchmarks.bench_arxiv_scale, '
+            'fsw_gnn_tpu_torch.benchmarks.bench_multiset, '
+            'fsw_gnn_tpu_torch.benchmarks.bench_cart_kernel, '
+            'fsw_gnn_tpu_torch.benchmarks.bench_cart_dw, '
+            'fsw_gnn_tpu_torch.benchmarks.bench_cart_waste, '
+            'fsw_gnn_tpu_torch.benchmarks.probe_cart_dw_frontier, '
+            'fsw_gnn_tpu_torch.benchmarks.bench_scaling, '
+            'fsw_gnn_tpu_torch.examples.demo_fsw_embedding, '
+            'fsw_gnn_tpu_torch.examples.demo_conv, '
+            'fsw_gnn_tpu_torch.examples.demo_serving, '
+            'fsw_gnn_tpu_torch.examples.demo_dsmetric, '
+            'fsw_gnn_tpu_torch.examples.demo_distributed; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "flax", "optax", "orbax", "fsw_gnn_tpu")]; '
             'assert not bad, bad')
@@ -147,3 +166,27 @@ def test_distributed_entry_points_default_to_the_card(tmp_path):
         assert make_graph_mesh(1, device='cpu').device.type == 'cpu'
     finally:
         dist.destroy_process_group()
+
+
+SCRIPTS_AND_DEMOS = (
+    [f'benchmarks.{n}' for n in (
+        'bench_serving', 'bench_serving_aba', 'probe_serving_budget',
+        'probe_serving_fresh', 'bench_csr_vs_table', 'bench_breakdown',
+        'bench_table_breakdown', 'bench_arxiv_scale', 'bench_multiset',
+        'bench_cart_kernel', 'bench_cart_dw', 'bench_cart_waste',
+        'probe_cart_dw_frontier', 'bench_scaling')]
+    + [f'examples.{n}' for n in (
+        'demo_fsw_embedding', 'demo_conv', 'demo_serving', 'demo_dsmetric',
+        'demo_distributed')])
+
+
+@pytest.mark.parametrize('name', SCRIPTS_AND_DEMOS)
+def test_scripts_and_demos_default_to_the_card(name):
+    """With no `--device`, each benchmark script and demo asks for the card
+    and, where there is none, raises before any work."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present; the refusal cannot be shown')
+    import importlib
+    mod = importlib.import_module(f'fsw_gnn_tpu_torch.{name}')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        mod.main([])
