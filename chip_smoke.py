@@ -301,10 +301,21 @@ Phases (any failure exits non-zero before the last line is printed):
  41. the five demos (`ported_demos_phase`): `fsw_gnn_tpu_torch/examples/`
      with their defaults, each from every counter at 0, each launching its
      kernels (`ported demos:` line);
- 42. one JSON line listing the fourteen kernels with their launches,
+ 42. the headline benchmark (`bench_phase`): `python -m
+     fsw_gnn_tpu_torch.bench` (the bench FSWConv's forward, backward and
+     SGD step on the bench graph, replayed as one CUDA graph, beside the
+     eager step) at its defaults, in bfloat16, on the CSR Graph and on one
+     NeighborTable (2 reps each), and `bench_repspread` at 4 reps, each
+     from every counter at 0: every probe finite, the captured step's
+     parameters after 60 steps those of the eager step, K1f and K1b one
+     launch a class in every eager step (the capture's warm-up included)
+     and none in a replay, K3 on the CSR Graph; then bench.py's own loss,
+     sum(out**2), for four eager steps, printed as a record (`bench:`
+     line);
+ 43. one JSON line listing the fourteen kernels with their launches,
      errors, times and bounds (the launches of the seven of the model's
      paths are those of the main-path runs 4, 6, 7, 8, 9, 10, 12-16, 18,
-     19, 20, 24, 26-30, 33, 34, 36 and 37 together, the four of the
+     19, 20, 24, 26-30, 33, 34, 36, 37 and 42 together, the four of the
      benchmark folder those of phase 38's scripts, the three of K3's
      probes those of phase 39's; K2's times and bounds at phase 8's
      shape, K3's at phase 12's, K4's at phase 17's with B = 32, K4b's with
@@ -312,7 +323,7 @@ Phases (any failure exits non-zero before the last line is printed):
      forward, P4's at the probe's shape, P6's of its 'rank' body, P5's of
      its 'fma' loop, P2's of its 'full' stage, P3's packed form at its
      probe's shape);
- 43. the last line: {"ok": true, "device": {...}}.
+ 44. the last line: {"ok": true, "device": {...}}.
 
 Tolerances:
   * K1f against its plain version, both on the card in float32:
@@ -393,7 +404,9 @@ Tolerances:
     is printed, not bounded (bfloat16 features and weights, about 3
     significant digits, through phases up to f = 253).
 
-Bounds: the least time the card could take for a kernel's work, the
+Bounds (`fsw_gnn_tpu_torch/utils/bounds.py`, which the headline
+benchmark's floor sums too): the least time the card could take for a
+kernel's work, the
 largest of (bytes that must move) / 3.35 TB/s, (float32 operations
 outside the tensor cores) / 67 TFLOP/s and, for K1's projections,
 (their operations) / (495 / 3) TFLOP/s: the H100 SXM's published peaks
@@ -463,6 +476,11 @@ import time
 
 import numpy as np
 
+# the H100's bound model, shared with the package's headline benchmark
+from fsw_gnn_tpu_torch.utils.bounds import (PEAK_BYTES, rank2_bound_ms,
+                                            rank_bound_ms, rank_bwd_bound_ms)
+from fsw_gnn_tpu_torch.utils.bounds import bound as _bound
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 N_NODES, AVG_DEG, D_IN, D_OUT = 8192, 16, 64, 64
@@ -476,10 +494,6 @@ GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-4
 N_STEPS, STEP_LR = 60, 1e-3
 TRAIN_EPOCHS, TRAIN_EVAL_EVERY, TRAIN_ACC_MIN = 30, 10, 0.9
 LOSS0_RTOL = 1e-4
-PEAK_F32_OPS = 67e12
-PEAK_TF32_OPS = 495e12
-PEAK_BYTES = 3.35e12
-TRIG_OPS, BWD_TRIG_OPS = 20, 45
 MMA_THREADS = 128  # a block of K1's products (csrc/fsw_rank_common.cuh)
 FWD_THREADS = 64   # a block of K2f or K4f (TS in csrc/fsw_rank_common.cuh)
 BWD_NAMES = ('dZ', 'dwn', 'dpad', 'df', 'dV')
@@ -677,69 +691,6 @@ def blocks_per_sm(regs, smem, threads):
     per_warp = -(-regs * 32 // 256) * 256
     return min(65536 // (per_warp * warps), 233472 // (smem + 1024),
                2048 // threads, 32)
-
-
-def _bound(ops, nbytes, mma_ops=0.0):
-    """(bound ms, 'operations' or 'bytes') of `ops` float32 operations,
-    `mma_ops` more as 3xTF32 products on the tensor cores, and `nbytes`
-    (see the module docstring)."""
-    t_ops = max(ops / PEAK_F32_OPS, 3 * mma_ops / PEAK_TF32_OPS)
-    t_bytes = nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes
-                                       else 'bytes')
-
-
-def rank_ops(deg):
-    """Operations that rank the real entries of one slice at the least,
-    per row of deg real entries (a float64 tensor): a stable sort's
-    deg log2 deg compares and a cumsum's deg adds."""
-    return deg * deg.clamp(min=1.0).log2() + deg
-
-
-def rank_bound_ms(wn, D, S):
-    """(bound ms, 'operations' or 'bytes', padded-shape bound ms) of one
-    K1f call on (R, B) normalized weights wn, zero at the padding (see the
-    module docstring)."""
-    R, B = wn.shape
-    deg = (wn > 0).sum(dim=1).double()
-    ops = S * float((deg * TRIG_OPS + rank_ops(deg)).sum())
-    mma = S * float(deg.sum()) * 2 * D
-    nbytes = 4 * (R * B * D + R * B + R + S + D * S + R * S)
-    ms, by = _bound(ops, nbytes, mma)
-    padded = _bound(R * S * (B * TRIG_OPS + B * np.log2(max(B, 1)) + B),
-                    nbytes, R * S * B * 2 * D)[0]
-    return ms, by, padded
-
-
-def rank_bwd_bound_ms(wn, D, S):
-    """(bound ms, 'operations' or 'bytes') of one K1b call without with_dw
-    on (R, B) normalized weights wn: reads Z, wn, pad, freqs, V and the
-    output cotangent, writes dZ, df and dV (see the module docstring)."""
-    R, B = wn.shape
-    deg = (wn > 0).sum(dim=1).double()
-    ops = S * float((deg * BWD_TRIG_OPS + rank_ops(deg)).sum())
-    mma = S * float(deg.sum()) * 6 * D
-    nbytes = 4 * (2 * R * B * D + R * B + R + 2 * S + 2 * D * S + R * S)
-    return _bound(ops, nbytes, mma)
-
-
-def rank2_bound_ms(wn, S, bwd=False, with_dw=False, F=1):
-    """(bound ms, 'operations' or 'bytes') of one K2f call, or K2b call
-    with or without with_dw, on (R, B) normalized weights wn, zero at the
-    padding (see the module docstring); with F frequency columns, of K4f
-    or K4b.  The forward reads the real entries' columns of P, wn, pad,
-    freqs and writes out; the backward reads P, wn, pad, freqs and the
-    cotangent and writes dP, df (and dwn, dpad)."""
-    R, B = wn.shape
-    deg = (wn > 0).sum(dim=1).double()
-    per = (BWD_TRIG_OPS * F + (1 if with_dw else 0)) if bwd else TRIG_OPS * F
-    ops = S * float((deg * per + rank_ops(deg)).sum())
-    if bwd:
-        nbytes = 4 * (2 * R * B * S + R * S * F + R * B + R + 2 * S * F
-                      + (R * B + R if with_dw else 0))
-    else:
-        nbytes = 4 * (S * float(deg.sum()) + R * B + R + S * F + R * S * F)
-    return _bound(ops, nbytes)
 
 
 def time_k2_calls(torch, calls, gen, n=3):
@@ -5092,6 +5043,94 @@ def ported_demos_phase(torch, smi_line):
     return out
 
 
+# phase 42: the headline benchmark (`fsw_gnn_tpu_torch.bench`) at its
+# defaults, in bfloat16, and on the CSR and one-table layouts (the last two
+# at 2 reps of its 5, a depth cut), then bench_repspread at 4 reps of 12
+BENCH_RUNS = (
+    ('multi', {}),
+    ('multi, bfloat16', {'FSW_BENCH_DTYPE': 'bfloat16'}),
+    ('csr', {'FSW_BENCH_LAYOUT': 'csr', 'FSW_BENCH_REPS': '2'}),
+    ('table', {'FSW_BENCH_LAYOUT': 'table', 'FSW_BENCH_REPS': '2'}),
+)
+SPREAD_REPS, PLAIN_SUM_STEPS = 4, 4
+
+
+def bench_phase(torch, smi_line, counts):
+    """Phase 42: `fsw_gnn_tpu_torch.bench.main([])` under each of
+    `BENCH_RUNS`' knobs and `bench_repspread.main([])` at FSW_SPREAD_REPS
+    4, each from every launch counter at 0; each must return (each raises
+    where a probe or a parameter is not finite, bench where its captured
+    step's parameters after 60 steps differ from the eager step's).  The
+    `multi` runs must launch K1f and K1b (classes x eager steps) times
+    each: one a class in every eager step, the capture's warm-up step
+    included, and none in a replay; the CSR run must launch K3, the table
+    run a rank kernel.  Then, as a record and not a check, bench.py's own
+    loss sum(out**2) on the bench's model for four eager SGD(1e-3) steps:
+    the losses, and whether they left the finite numbers.  Every launch is
+    added to `counts`.  Prints the `bench:` line (each run's line, its
+    launches and seconds) and returns it."""
+    from fsw_gnn_tpu_torch.ops import launch_counts, reset_launches
+    out, t_all = {}, time.perf_counter()
+    runs = [('fsw_gnn_tpu_torch.bench', label, env)
+            for label, env in BENCH_RUNS] + [
+        ('fsw_gnn_tpu_torch.benchmarks.bench_repspread', 'repspread',
+         {'FSW_SPREAD_REPS': str(SPREAD_REPS)})]
+    for module, label, env in runs:
+        print(f'  bench: {label}', flush=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            res = _run_with_env(torch, module, env, lambda mod: mod.main([]))
+        except Exception as e:          # the bench's own check, or a fault
+            fail(f'bench: {label}: {type(e).__name__}: {e}')
+        launched = {k: v for k, v in launch_counts().items() if v}
+        for k, v in launched.items():
+            counts[k] += v
+        if not res['probes_finite']:
+            fail(f'bench: {label}: a probe is not finite')
+        if label.startswith('multi') or label == 'repspread':
+            want = res['classes'] * res['eager_steps']
+            got = (launched.get('fsw_rank_fwdp', 0),
+                   launched.get('fsw_rank_bwdp', 0))
+            if got != (want, want):
+                fail(f'bench: {label}: K1f and K1b launched {got} times; '
+                     f'expected {want} each ({res["classes"]} classes x '
+                     f'{res["eager_steps"]} eager steps)')
+        if label == 'csr' and not launched.get('segcumsum'):
+            fail(f'bench: csr launched no K3 ({launched})')
+        if label == 'table' and not any(
+                launched.get(k) for k in ('fsw_rank_fwdp', 'fsw_rank_fwd')):
+            fail(f'bench: table launched no rank kernel ({launched})')
+        out[label] = {'s': time.perf_counter() - t0, 'launches': launched,
+                      'result': res}
+        print(f'  bench: {label}: {out[label]["s"]:.1f} s', flush=True)
+
+    # bench.py's loss on the same model and graph (the record for the
+    # bench's sum(out**2) / N)
+    from fsw_gnn_tpu_torch import bench
+    reset_launches()
+    b = bench.build()
+    model, X, g = b['model'], b['X'], b['graph']
+    opt = torch.optim.SGD(model.parameters(), lr=bench.LR)
+    losses = []
+    for _ in range(PLAIN_SUM_STEPS):
+        opt.zero_grad(set_to_none=False)
+        y = model(X, g)
+        loss = (y * y).sum()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    for k, v in launch_counts().items():
+        counts[k] += v
+    del b, model, X, g, opt
+    out['plain_sum_losses'] = losses
+    out['plain_sum_goes_non_finite'] = not bool(np.isfinite(losses).all())
+    print('bench: ' + json.dumps({
+        'total_s': time.perf_counter() - t_all, 'power': smi_line, **out},
+        default=str), flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5291,7 +5330,11 @@ def main():
     ported_scripts_phase(torch, smi_line)
     ported_demos_phase(torch, smi_line)
 
-    # ---- 42. kernels line, 43. last line ------------------------------------
+    # ---- 42. the headline benchmark -----------------------------------------
+    torch.cuda.empty_cache()
+    bench_phase(torch, smi_line, counts)
+
+    # ---- 43. kernels line, 44. last line ------------------------------------
     src = 'fsw_gnn_tpu_torch/csrc/'
     pallas = 'fsw_gnn_tpu/ops/fsw_rank_pallas.py:'
     line = {'kernels': [

@@ -7,9 +7,9 @@ on the card unless given `--device cpu` (then the kernels' plain versions,
 which the first line says), with the JAX script's environment knobs and
 defaults, one JSON line a case, each with the card's name and power limit.
 
-Ported: every script of `benchmarks/` but `bench_repspread` (it times
-`bench.build`, which waits for the port's main-path benchmark), with
-`_timing` (the protocol) and `attic.fsw_table` (kernel A1).  The probe and
+Ported: every script of `benchmarks/`, with `_timing` (the protocol) and
+`attic.fsw_table` (kernel A1); `bench_repspread` times the port's headline
+benchmark, `fsw_gnn_tpu_torch.bench` (bench.py's counterpart).  The probe and
 attic kernels are CUDA sources in `csrc/` (fsw_table_sort.cu for A1,
 probe_matmul.cu for P1, probe_select.cu for P6, probe_stage.cu for P4,
 probe_segscan.cu for P5 and P2, and K3's packed form in segcumsum.cu for

@@ -52,22 +52,30 @@ def parse_device(argv=None, description: str = '') -> torch.device:
 _CARD: dict = {}
 
 
+def smi_line():
+    """The first card's 'name, power.limit' line as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints it, or None
+    where nvidia-smi does not answer."""
+    try:
+        smi = subprocess.run(
+            ['nvidia-smi', '--query-gpu=name,power.limit',
+             '--format=csv,noheader'], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    return smi[0].strip() if smi else None
+
+
 def card(dev: torch.device) -> dict:
     """{'device': the card's name, 'power_limit': nvidia-smi's limit} (on
     the CPU: 'cpu' and None), looked up once."""
     if dev.type != 'cuda':
         return {'device': 'cpu', 'power_limit': None}
     if not _CARD:
-        try:
-            smi = subprocess.run(
-                ['nvidia-smi', '--query-gpu=name,power.limit',
-                 '--format=csv,noheader'], capture_output=True, text=True,
-                timeout=60).stdout.strip().splitlines()
-            limit = smi[0].split(',')[-1].strip() if smi else None
-        except (OSError, subprocess.TimeoutExpired):
-            limit = None
+        line = smi_line()
         _CARD.update(device=torch.cuda.get_device_name(dev),
-                     power_limit=limit)
+                     power_limit=line.split(',')[-1].strip() if line
+                     else None)
     return dict(_CARD)
 
 

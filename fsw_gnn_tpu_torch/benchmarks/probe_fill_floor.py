@@ -55,6 +55,7 @@ import torch
 from .. import kernels
 from ..ops.fsw_rank import _count, _kernel, _launch
 from ..ops.segcumsum import segcumsum, segment_boundaries
+from ..utils.bounds import PEAK_BYTES
 from . import _timing
 from .probe_segscan_variants import LANES, _shift_in, affine_carry_scan
 
@@ -69,7 +70,6 @@ ABLATIONS = (('io', 0), ('fill1', 1), ('fill7', 7), ('mxu_only', 0),
 STAGES = {'io': 0, 'fill': 1, 'mxu_only': 2, 'nofill': 3, 'full': 4}
 EXACT = ('io', 'fill')
 CHUNK_ROWS = 64
-PEAK_BYTES = 3.35e12
 # a prefix minus a base, each a tree of nine float32 adds over a row of
 # 128 (its lane's four, five warp levels, the offset), then the carries
 # into the row and the block: 32 roundings of the scale (`within`) bound

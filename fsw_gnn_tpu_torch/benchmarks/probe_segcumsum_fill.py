@@ -44,6 +44,7 @@ from .. import kernels
 from ..ops.fsw_rank import _count
 from ..ops.segcumsum import (_kernel, _workspace, segcumsum,
                              segcumsum_plain)
+from ..utils.bounds import PEAK_BYTES
 from . import _timing
 
 N = int(os.environ.get('SEG_N', 1 << 24))
@@ -54,7 +55,6 @@ ITERS = int(os.environ.get('SEG_ITERS', 20))
 INTERP = os.environ.get('SEG_INTERPRET') == '1'
 
 TOL_REL = 1e-4
-PEAK_BYTES = 3.35e12
 BYTES = {'ids': 12, 'mask8': 9, 'packed': 8}
 _FN = {}
 

@@ -44,6 +44,7 @@ import torch
 
 from .. import kernels
 from ..ops.fsw_rank import _check, _count, _kernel, _launch
+from ..utils.bounds import PEAK_F32_OPS
 from . import _timing
 
 R = int(os.environ.get('FSW_PROBE_R', 8192))
@@ -53,7 +54,6 @@ REP = int(os.environ.get('FSW_PROBE_REP', 4))
 ITERS = int(os.environ.get('FSW_PROBE_ITERS', 10))
 TILE_R = int(os.environ.get('FSW_PROBE_TILE', 64))
 
-PEAK_F32_OPS = 67e12
 TWO_PI = 2.0 * math.pi
 S_COEF = tuple((-1.0) ** k * (2 * math.pi) ** (2 * k + 1)
                / math.factorial(2 * k + 1) for k in range(7))

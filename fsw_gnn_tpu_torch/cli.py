@@ -12,9 +12,10 @@ and the autotune of the routing rules on the card.
   torchrun --nproc-per-node 4 -m fsw_gnn_tpu_torch.cli train \
       --dataset cora --num-devices 4 --exchange all_to_all
   python -m fsw_gnn_tpu_torch.cli autotune [--dry-run]
+  python -m fsw_gnn_tpu_torch.cli bench [--device cpu]
 
-Counterpart of the `train`, `export` and `autotune` subcommands of
-`fsw_gnn_tpu/cli.py`, on the card unless --device says otherwise (for
+Counterpart of the `train`, `export`, `autotune` and `bench` subcommands
+of `fsw_gnn_tpu/cli.py`, on the card unless --device says otherwise (for
 `export`, --device is where the artifact runs, as the JAX command's
 --platform).  A dataset whose npz file is absent (FSW_DATA_DIR, else
 `data/`) runs on its size-matched synthetic stand-in.  `--num-devices P`
@@ -23,9 +24,9 @@ trains over P processes, one per device, started by torchrun or by
 (edge-partitioned, or data-parallel with --minibatch); only rank 0 prints
 the JSON line.  `autotune` measures the rank-vs-sort and K1 crossovers on
 the card (`utils/autotune.py`) and caches them under its kind (not with
---dry-run); it prints {"rules": ..., "cache": path or null}.  Only `bench`
-is not ported yet: it waits for the port's main-path benchmark
-(ROADMAP.md section 1, item 1).
+--dry-run); it prints {"rules": ..., "cache": path or null}.  `bench`
+runs the headline benchmark (`fsw_gnn_tpu_torch.bench`) and prints its
+JSON line.
 """
 from __future__ import annotations
 
@@ -136,6 +137,13 @@ def cmd_autotune(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """The headline benchmark, `fsw_gnn_tpu_torch.bench.main`."""
+    from .bench import main as bench_main
+    bench_main(['--device', args.device])
+    return 0
+
+
 def cmd_export(args) -> int:
     """The latest checkpoint in --checkpoint-dir -> a torch.export
     artifact of the model's forward on the dataset's graph."""
@@ -190,6 +198,10 @@ def main(argv=None) -> int:
     p_auto.add_argument('--device', default=None,
                         help="'cuda' (the default) or 'cpu'")
     p_auto.set_defaults(fn=cmd_autotune)
+    p_bench = sub.add_parser('bench', help='run the headline benchmark')
+    p_bench.add_argument('--device', default='cuda', choices=('cuda', 'cpu'),
+                         help="'cuda' (the default) or 'cpu'")
+    p_bench.set_defaults(fn=cmd_bench)
     args = parser.parse_args(argv)
     return args.fn(args)
 

@@ -60,6 +60,8 @@ def test_import_pulls_in_no_jax():
             'fsw_gnn_tpu_torch.benchmarks.bench_cart_waste, '
             'fsw_gnn_tpu_torch.benchmarks.probe_cart_dw_frontier, '
             'fsw_gnn_tpu_torch.benchmarks.bench_scaling, '
+            'fsw_gnn_tpu_torch.benchmarks.bench_repspread, '
+            'fsw_gnn_tpu_torch.bench, fsw_gnn_tpu_torch.utils.bounds, '
             'fsw_gnn_tpu_torch.examples.demo_fsw_embedding, '
             'fsw_gnn_tpu_torch.examples.demo_conv, '
             'fsw_gnn_tpu_torch.examples.demo_serving, '
@@ -174,7 +176,8 @@ SCRIPTS_AND_DEMOS = (
         'probe_serving_fresh', 'bench_csr_vs_table', 'bench_breakdown',
         'bench_table_breakdown', 'bench_arxiv_scale', 'bench_multiset',
         'bench_cart_kernel', 'bench_cart_dw', 'bench_cart_waste',
-        'probe_cart_dw_frontier', 'bench_scaling')]
+        'probe_cart_dw_frontier', 'bench_scaling', 'bench_repspread')]
+    + ['bench']
     + [f'examples.{n}' for n in (
         'demo_fsw_embedding', 'demo_conv', 'demo_serving', 'demo_dsmetric',
         'demo_distributed')])
