@@ -271,16 +271,21 @@ Phases (any failure exits non-zero before the last line is printed):
      whose Chrome trace holds K1f's and K3's kernels and the fsw_project
      and fsw_segcumsum ranges; a SectionTimer summary (`utils:` line);
  38. the benchmark folder's kernels (`bench_folder_phase`): A1
-     (`fsw_table_sort`, the sorting-network table forward), P1
-     (`probe_matmul`, K1's contractions on its tile routine), P4
-     (`probe_stage`, K2f with staged loads) and P6 (`probe_select`, the
-     rank loop's and the trig tails' op mixes) against their plain
-     versions at their scripts' shapes, timed beside their bounds; A1
-     against the port's sort route on bench_fused_table's graph and at
-     B = 16 .. 1024; P4 bit for bit against K2f; then, every counter at 0,
-     the four scripts' `main` on the card (`python -m
-     fsw_gnn_tpu_torch.benchmarks.<name>`, their JSON lines printed),
-     which must launch each kernel (`bench folder:` line);
+     (`fsw_table_sort`, the sorting-network table forward in registers,
+     its P entry and its gathered entry `fsw_table_forward`), P1
+     (`probe_matmul`, K1's contractions on two tile routines: 'wgmma' and
+     K1's own 'k1'), P4 (`probe_stage`, K2f with staged loads) and P6
+     (`probe_select`, the rank loop's and the trig tails' op mixes)
+     against their plain versions at their scripts' shapes, timed beside
+     their bounds; A1's two entries bit for bit each other and against
+     the port's sort route on bench_fused_table's graph and at B = 16 ..
+     1024; P1's five contractions on both routines at the probe's, the
+     headline's and Cora's shapes against float64 and the plain version,
+     the same bits on two calls, the headline's and Cora's timed beside
+     `torch.matmul` in float32 and TF32; P4 bit for bit against K2f;
+     then, every counter at 0, the four scripts' `main` on the card
+     (`python -m fsw_gnn_tpu_torch.benchmarks.<name>`, their JSON lines
+     printed), which must launch each kernel (`bench folder:` line);
  39. K3's probes (`k3_probes_phase`): P5 (`probe_segscan`'s three
      inner-loop variants), P2 (its six stage ablations) and K3's packed
      form (P3) against their plain versions at their scripts' default
@@ -312,15 +317,16 @@ Phases (any failure exits non-zero before the last line is printed):
      and none in a replay, K3 on the CSR Graph; then bench.py's own loss,
      sum(out**2), for four eager steps, printed as a record (`bench:`
      line);
- 43. one JSON line listing the fourteen kernels with their launches,
+ 43. one JSON line listing the fifteen kernels with their launches,
      errors, times and bounds (the launches of the seven of the model's
      paths are those of the main-path runs 4, 6, 7, 8, 9, 10, 12-16, 18,
-     19, 20, 24, 26-30, 33, 34, 36, 37 and 42 together, the four of the
-     benchmark folder those of phase 38's scripts, the three of K3's
+     19, 20, 24, 26-30, 33, 34, 36, 37 and 42 together, the five of the
+     benchmark folder (A1's two entries apart) those of phase 38's
+     scripts, the three of K3's
      probes those of phase 39's; K2's times and bounds at phase 8's
      shape, K3's at phase 12's, K4's at phase 17's with B = 32, K4b's with
      with_dw, A1's at bench_fused_table's graph, P1's at K1's headline
-     forward, P4's at the probe's shape, P6's of its 'rank' body, P5's of
+     forward on the 'wgmma' routine (the 'k1' routine's beside it), P4's at the probe's shape, P6's of its 'rank' body, P5's of
      its 'fma' loop, P2's of its 'full' stage, P3's packed form at its
      probe's shape);
  44. the last line: {"ok": true, "device": {...}}.
@@ -445,9 +451,10 @@ A1 (phase 38) runs its bitonic network whatever the data: B log2 B
 (log2 B + 1) / 4 compare-exchanges a row and slice, counted as 4
 operations each (a min, a max and two selects of the weights), and the
 scan and the trig of each real entry, 26 operations (`table_sort_bound_ms`);
-its bytes are P, wn, pad and freqs read once and the output written.  P1:
-its 2 M N K products at the 3xTF32 rate against its operands' and
-output's bytes.  P4: K2f's bound.  P6: each body's modeled operations
+the P entry's bytes are P, wn, pad and freqs read once and the output
+written, the gathered entry's Xp, idx, wn, pad and freqs (its operations
+decide it).  P1: its 2 M N K products at the 3xTF32 rate against its
+operands' and output's bytes.  P4: K2f's bound.  P6: each body's modeled operations
 (the TPU probe's table) at 67 TFLOP/s against P, wn and the output.
 K3 needs one add an element and moves 12 bytes an element in float32
 with ids (values and ids read, output written), 9 with the mask: its
@@ -4503,38 +4510,43 @@ BF_SCRIPTS = ('bench_fused_table', 'probe_kernel_matmul',
               'probe_select_ceiling', 'probe_emit_pipeline')
 
 
-def table_sort_bound_ms(wn, S):
+def table_sort_bound_ms(wn, S, n_xp=None):
     """(bound ms, 'operations' or 'bytes') of one A1 call on (R, B)
     normalized weights wn: the network's B log2 B (log2 B + 1) / 4
     compare-exchanges a row and slice (BF_CE_OPS each), the scan and the
     trig of the real entries (BF_TRIG_OPS each), against P, wn, pad and
-    freqs read once and the output written once."""
+    freqs read once and the output written once; with n_xp, the gathered
+    entry's: Xp (n_xp, S) and the int32 idx read instead of P."""
     R, B = wn.shape
     lg = int(np.log2(B))
     deg = float((wn > 0).sum())
     ops = S * (R * BF_CE_OPS * B * lg * (lg + 1) / 4 + BF_TRIG_OPS * deg)
-    return _bound(ops, 4 * (R * B * S + R * B + R + S + R * S))
+    read = R * B * S if n_xp is None else n_xp * S + R * B
+    return _bound(ops, 4 * (read + R * B + R + S + R * S))
 
 
 def bench_folder_phase(torch, T, dev, smi_line):
     """Phase 38: the benchmark folder's kernels (A1, P1, P4, P6) on the
     card.  Each against its plain version at its script's shapes, timed
-    beside it and its bound: A1 on bench_fused_table's default graph (and
-    against the port's sort route there, `fsw_embed_table(...,
-    aggregate='sort')`, and on P of widths 16 .. 1024 against
-    `bucket_quadrature(..., 'sort')`; `torch.sort` of P along B and the
-    sort route timed beside it); P1's five contractions at each of its
-    script's shapes (the probe's, K1's headline, Cora's layer 0) against
-    float64 and the plain einsum, the headline forward timed
-    (`torch.matmul` beside it, TF32 off); P4's staged forward bit-equal to
+    beside it and its bound: A1's P entry and its gathered entry on
+    bench_fused_table's default graph, bit for bit each other (and against
+    the port's sort route there, `fsw_embed_table(..., aggregate='sort')`,
+    and on P of widths 16 .. 1024 against `bucket_quadrature(...,
+    'sort')`, the gathered entry on P's own rows bit for bit the P entry;
+    `torch.sort` of P along B, the sort route and PyTorch's gather before
+    the P entry timed beside them); P1's five contractions on both tile
+    routines at each of its script's shapes (the probe's, K1's headline,
+    Cora's layer 0) against float64 and the plain einsum, the same bits on
+    two calls, the headline's and Cora's timed beside `torch.matmul` in
+    float32 and TF32; P4's staged forward bit-equal to
     K2f at the probe's shape and on padded rows with NaN projections; P6's
     21 bodies and its two pipe bodies on the probe's whole launch (R 8192,
     B 32, S 128) against their plain versions, the 'rank' body timed.
     Then every launch counter at 0 and the four scripts' `main` on the
     card, each printing its JSON lines (the main path of this slice) and
     raising where its kernel disagrees with its reference: every kernel
-    must be launched there.  Returns the four kernels' entries of the
-    `kernels` line."""
+    must be launched there.  Returns the five kernels' entries of the
+    `kernels` line (A1's two entries apart)."""
     from fsw_gnn_tpu_torch import embedding as E
     from fsw_gnn_tpu_torch.benchmarks import (bench_fused_table as BFT,
                                               probe_emit_pipeline as P4,
@@ -4560,78 +4572,128 @@ def bench_folder_phase(torch, T, dev, smi_line):
     g, t, X, cfg, proj, freqs, wn, pad = BFT.setup(dev)
     with torch.no_grad():
         Xp = (X @ proj.t()).contiguous()
-        P = Xp[t.idx.reshape(-1).long()].reshape(
-            t.num_recipients, t.bucket_size, -1).contiguous()
+        idx = t.idx.to(torch.int32).contiguous()
+        P = A1._gather(idx, Xp)
         a1 = A1.fsw_table_sort(P, wn, pad, freqs)
         a1_err = close('A1 against its plain version', a1,
                        A1.fsw_table_sort_plain(P, wn, pad, freqs))
+        a1g = A1.fsw_table_forward(idx, wn, pad, Xp, freqs)
+        if not (torch.equal(a1g, a1) and torch.equal(
+                A1.fsw_table_sort(P, wn, pad, freqs), a1)):
+            fail('bench folder: A1\'s gathered entry is not its P entry bit '
+                 'for bit, or a call changed its bits')
         route = E.fsw_embed_table(X, t, proj, freqs, cfg, aggregate='sort')
-        close("A1 against the sort route's fsw_embed_table",
-              A1.fsw_table_forward(t.idx, wn, pad, Xp, freqs), route)
+        close("A1 against the sort route's fsw_embed_table", a1g, route)
         S = P.shape[2]
         a1_ms = device_ms(torch, lambda: A1.fsw_table_sort(P, wn, pad, freqs),
                           20)[0]
+        a1g_ms = device_ms(torch, lambda: A1.fsw_table_forward(
+            idx, wn, pad, Xp, freqs), 20)[0]
+        gather_p_ms = device_ms(torch, lambda: A1.fsw_table_sort(
+            A1._gather(idx, Xp), wn, pad, freqs), 20)[0]
         a1_plain = device_ms(torch, lambda: A1.fsw_table_sort_plain(
             P, wn, pad, freqs), 3, 3)[0]
+        a1g_plain = device_ms(torch, lambda: A1.fsw_table_forward_plain(
+            idx, wn, pad, Xp, freqs), 3, 3)[0]
         sort_cfg = E.FSWConfig(d_in=1, d_out=S, enable_bias=False)
         route_ms = device_ms(torch, lambda: E.bucket_quadrature(
             P, wn, pad, freqs, sort_cfg, 'sort'), 5)[0]
         tsort_ms = device_ms(torch, lambda: torch.sort(P, dim=1), 20)[0]
         bound, by = table_sort_bound_ms(wn, S)
-        ladder = {}
+        g_bound, g_by = table_sort_bound_ms(wn, S, n_xp=Xp.shape[0])
+        ladder, ladder_ms = {}, {}
         for B in BF_TABLE_WIDTHS:
             Pb, wb, pb, fb = BFT.sweep_inputs(B, dev)
             got = A1.fsw_table_sort(Pb, wb, pb, fb)
             ladder[B] = close(f'A1 against the sort route at B={B}', got,
                               E.bucket_quadrature(Pb, wb, pb, fb, sort_cfg,
                                                   'sort'))
-            del Pb, wb, pb, fb, got
-    res['a1'] = {'name': 'fsw_table_sort', 'route': 'cuda',
-                 'source': src + 'fsw_table_sort.cu',
+            # the gathered entry on Xp = P's rows, idx = their numbers
+            rows = torch.arange(Pb.shape[0] * B, dtype=torch.int32,
+                                device=dev).reshape(-1, B)
+            if not torch.equal(A1.fsw_table_forward(
+                    rows, wb, pb, Pb.reshape(-1, Pb.shape[2]), fb), got):
+                fail(f'bench folder: A1\'s entries part at B={B}')
+            ladder_ms[B] = device_ms(torch, lambda: A1.fsw_table_sort(
+                Pb, wb, pb, fb), 5)[0]
+            del Pb, wb, pb, fb, got, rows
+    a1_common = {'route': 'cuda', 'source': src + 'fsw_table_sort.cu',
                  'replaces': 'benchmarks/attic/fsw_table_pallas.py:107',
+                 'library_ms': None, 'shape': list(P.shape)}
+    res['a1'] = {'name': 'fsw_table_sort', **a1_common,
                  'max_abs_err': a1_err, 'ms': a1_ms, 'plain_ms': a1_plain,
-                 'bound_ms': bound, 'bound_by': by, 'library_ms': None,
+                 'bound_ms': bound, 'bound_by': by,
                  'sort_route_ms': route_ms, 'torch_sort_ms': tsort_ms,
-                 'shape': list(P.shape), 'vs_sort_route_by_B': ladder}
-    del g, t, X, Xp, P, route
-    # ---- P1 at each of its script's shapes, the headline timed -------------
-    errs = {}
+                 'vs_sort_route_by_B': ladder, 'ms_by_B': ladder_ms}
+    res['a1g'] = {'name': 'fsw_table_gather', **a1_common,
+                  'max_abs_err': close('A1 gathered against its plain '
+                                       'version', a1g,
+                                       A1.fsw_table_forward_plain(
+                                           idx, wn, pad, Xp, freqs)),
+                  'ms': a1g_ms, 'plain_ms': a1g_plain, 'bound_ms': g_bound,
+                  'bound_by': g_by,
+                  'torch_gather_and_p_entry_ms': gather_p_ms}
+    del g, t, X, Xp, P, route, idx
+    # ---- P1: both routines at each of its script's shapes; the headline's
+    # and Cora's timed beside torch.matmul -----------------------------------
+    errs, times = {}, {}
     with torch.no_grad():
         for shape in P1.SHAPES:
             x = P1.operands(shape, dev)
             for kind in P1.KINDS:
                 a, b = (x[n] for n in P1.SPEC[kind][0])
-                got = P1.kernel_matmul(kind, a, b)
-                e = dict(zip(('vs_f64', 'vs_f64_rel'), P1.check(kind, x)))
-                if not e['vs_f64_rel'] <= P1.TOL_REL:
-                    fail(f'bench folder: P1 {kind} at {shape[0]} is {e} '
-                         f'from float64')
-                e['vs_plain'] = close(
-                    f'P1 {kind} at {shape[0]} against its plain version',
-                    got, P1.kernel_matmul_plain(kind, a, b))
-                errs[f'{shape[0]}/{kind}'] = e
-                del got
+                want = P1.kernel_matmul_plain(kind, a, b)
+                for routine in P1.ROUTINES:
+                    got = P1.kernel_matmul(kind, a, b, routine)
+                    if not torch.equal(got, P1.kernel_matmul(kind, a, b,
+                                                             routine)):
+                        fail(f'bench folder: P1 {kind} ({routine}) at '
+                             f'{shape[0]} changed its bits on a second call')
+                    e = dict(zip(('vs_f64', 'vs_f64_rel'),
+                                 P1.check(kind, x, routine)))
+                    if not e['vs_f64_rel'] <= P1.TOL_REL:
+                        fail(f'bench folder: P1 {kind} ({routine}) at '
+                             f'{shape[0]} is {e} from float64')
+                    e['vs_plain'] = close(
+                        f'P1 {kind} ({routine}) at {shape[0]} against its '
+                        f'plain version', got, want)
+                    errs[f'{shape[0]}/{kind}/{routine}'] = e
+                    del got
+                if shape[0] == 'probe':
+                    continue
+                n = 5 if shape[3] > 256 else 20
+                row = {r: device_ms(torch, lambda: P1.kernel_matmul(
+                    kind, a, b, r), n)[0] for r in P1.ROUTINES}
+                ma, mb = P1.matmul_operands(kind, x)
+                for tf32 in (False, True):
+                    torch.backends.cuda.matmul.allow_tf32 = tf32
+                    row['matmul_tf32' if tf32 else 'matmul_f32'] = \
+                        device_ms(torch, lambda: torch.matmul(ma, mb), n)[0]
+                torch.backends.cuda.matmul.allow_tf32 = False
+                times[f'{shape[0]}/{kind}'] = row
+                del ma, mb, want
             del x, a, b
         shape = dict((s[0], s) for s in P1.SHAPES)['headline']
         x = P1.operands(shape, dev)
-        Z, V = x['Z'], x['V']
-        p1_ms = device_ms(torch, lambda: P1.kernel_matmul('fwd', Z, V), 20)[0]
         p1_plain = device_ms(torch, lambda: P1.kernel_matmul_plain(
-            'fwd', Z, V), 20)[0]
-        Z2 = Z.reshape(-1, Z.shape[2])
-        mm_ms = device_ms(torch, lambda: torch.matmul(Z2, V), 20)[0]
+            'fwd', x['Z'], x['V']), 20)[0]
+        del x
     _, TR, B1, D1, S1 = shape
     bound, by = _bound(0.0, 4 * (TR * B1 * D1 + D1 * S1 + TR * B1 * S1),
                        2.0 * TR * B1 * D1 * S1)
+    head = times['headline/fwd']
     res['p1'] = {'name': 'probe_matmul', 'route': 'cuda',
                  'source': src + 'probe_matmul.cu',
+                 'source_routine': src + 'tf32x3_wgmma.cuh',
                  'replaces': 'benchmarks/probe_kernel_matmul.py:45',
-                 'max_abs_err': errs['headline/fwd']['vs_plain'],
-                 'ms': p1_ms,
+                 'max_abs_err': errs['headline/fwd/wgmma']['vs_plain'],
+                 'ms': head['wgmma'], 'k1_ms': head['k1'],
                  'plain_ms': p1_plain, 'bound_ms': bound, 'bound_by': by,
-                 'library_ms': mm_ms, 'contraction': 'fwd',
-                 'shape': list(shape[1:]), 'errors': errs}
-    del x, Z, V, Z2
+                 'library_ms': head['matmul_f32'],
+                 'library_tf32_ms': head['matmul_tf32'],
+                 'contraction': 'fwd', 'routine': 'wgmma',
+                 'shape': list(shape[1:]), 'ms_by_contraction': times,
+                 'errors': errs}
     # ---- P4 at the probe's shape, and on padded rows -----------------------
     args = P4.inputs(dev)
     pad_args = list(BFT.sweep_inputs(32, dev))
@@ -4695,7 +4757,8 @@ def bench_folder_phase(torch, T, dev, smi_line):
     torch.cuda.empty_cache()
     checks_s = time.perf_counter() - t0
     # ---- the scripts, every counter from 0 --------------------------------
-    wrappers = {'a1': A1.fsw_table_sort, 'p1': P1.kernel_matmul,
+    wrappers = {'a1': A1.fsw_table_sort, 'a1g': A1.fsw_table_forward,
+                'p1': P1.kernel_matmul,
                 'p4': P4.fsw_rank_aggregate_staged, 'p6': P6.probe_select}
     for w in wrappers.values():
         w.launches = 0
@@ -5386,7 +5449,7 @@ def main():
          'library_ms': None}] + [
              {k: v for k, v in folder[key].items()
               if k not in ('errors', 'vs_sort_route_by_B')}
-             for key in ('a1', 'p1', 'p4', 'p6')] + [
+             for key in ('a1', 'a1g', 'p1', 'p4', 'p6')] + [
              {k: v for k, v in probes[key].items()
               if k not in ('errors', 'checks')}
              for key in ('p2', 'p3', 'p5')]}

@@ -11,7 +11,8 @@ Ported: every script of `benchmarks/`, with `_timing` (the protocol) and
 `attic.fsw_table` (kernel A1); `bench_repspread` times the port's headline
 benchmark, `fsw_gnn_tpu_torch.bench` (bench.py's counterpart).  The probe and
 attic kernels are CUDA sources in `csrc/` (fsw_table_sort.cu for A1,
-probe_matmul.cu for P1, probe_select.cu for P6, probe_stage.cu for P4,
+probe_matmul.cu for P1 with its `wgmma` routine in tf32x3_wgmma.cuh,
+probe_select.cu for P6, probe_stage.cu for P4,
 probe_segscan.cu for P5 and P2, and K3's packed form in segcumsum.cu for
 P3), built at first use as the package's other kernels; no route of the
 package reaches them.  The others drive the package's public API and its

@@ -12,18 +12,19 @@ wired into no route; so does the port: no route of the package calls it,
 and only this module and the benchmark scripts reach it.
 
 Scope, as the TPU kernel's: not cartesian, no edge features, float32, the
-bucket width B a power of two.  A width that is not one, or whose pairs do
-not fit a block's shared memory (B above 1024,
-`ops.fsw_rank.smem_bytes('fsw_table_sort', B)`), raises `KernelError`
-before any launch.
+bucket width B a power of two.  A width that is not one, or above the
+1024 whose column A1's lanes hold in registers
+(`ops.fsw_rank.table_sort_lanes`), raises `KernelError` before any launch.
 
-`fsw_table_sort` runs the kernel (csrc/fsw_table_sort.cu) on P (R, B, S)
-already gathered on CUDA tensors, the plain version on CPU tensors, and
-counts its launches; `fsw_table_forward` gathers P = Xp[idx] with a
-PyTorch index first, as the TPU kernel gathers outside Pallas.  The plain
-versions repeat the TPU kernel's formula: its bitonic network
-(`sort_pairs_plain`, so tied projections keep the same weights), the
-cumsum, the shift, the mod-1 range-reduced trig and the sum over B.
+`fsw_table_sort` runs the kernel's P entry (csrc/fsw_table_sort.cu) on P
+(R, B, S) already gathered; `fsw_table_forward` its gathered entry, which
+reads P[r, b] = Xp[idx[r, b]] inside the kernel, so the (R, B, S) P is
+never written (the TPU kernel gathers outside Pallas).  Both run one
+device function and give the same bits on the same values.  On CUDA
+tensors each counts its launches; on CPU tensors each is its plain
+version.  The plain versions repeat the TPU kernel's formula: its bitonic
+network (`sort_pairs_plain`, so tied projections keep the same weights),
+the cumsum, the shift, the mod-1 range-reduced trig and the sum over B.
 """
 from __future__ import annotations
 
@@ -32,8 +33,8 @@ import math
 import torch
 
 from ...kernels import KernelError
-from ...ops.fsw_rank import (_MAX_SMEM, _check, _count, _kernel, _launch,
-                               smem_bytes)
+from ...ops.fsw_rank import (_check, _count, _kernel, _launch,
+                               table_sort_lanes)
 
 
 def sort_pairs_plain(ps, ws):
@@ -87,14 +88,12 @@ def fsw_table_sort_plain(P, wn, pad_norm, freqs):
 
 
 def _width_fits(B: int):
-    """KernelError unless A1's block holds width B."""
+    """KernelError unless A1 takes width B: a power of two from 2 to 1024."""
     if B < 2 or B & (B - 1):
         raise KernelError(f'A1: bucket width {B} is not a power of two >= 2')
-    need = smem_bytes('fsw_table_sort', B)
-    if need > _MAX_SMEM:
-        raise KernelError(f'A1: bucket width {B} needs {need} bytes of '
-                          f'shared memory, above the {_MAX_SMEM} a block '
-                          f'has')
+    if table_sort_lanes(B) == 0:
+        raise KernelError(f'A1: bucket width {B} is above the 1024 whose '
+                          f'column a warp holds in registers')
 
 
 def fsw_table_sort(P, wn, pad_norm, freqs):
@@ -129,17 +128,41 @@ fsw_table_sort.launches = 0
 def fsw_table_forward(idx, wn, pad_norm, Xp, freqs):
     """out (R, S): the FSW aggregation over a dense neighbour table.
 
-    idx (R, B) integer sender indices; wn (R, B) normalized weights;
-    pad_norm (R,); Xp (N, S) projections; freqs (S,).  The row gather
-    P = Xp[idx] is a PyTorch index, then `fsw_table_sort` (A1 on the card,
-    its plain version on the CPU)."""
+    idx (R, B) integer sender indices, each in [0, N) (the kernel reads
+    them unchecked); wn (R, B) normalized weights;
+    pad_norm (R,); Xp (N, S) projections; freqs (S,).  CPU tensors: the
+    plain version (the row gather P = Xp[idx], then `fsw_table_sort`'s
+    plain version).  CUDA tensors: A1's gathered entry (float32 and int32
+    indices, contiguous; other index types are converted), each launch
+    adding one to `fsw_table_forward.launches`."""
     R, B = idx.shape
-    P = Xp[idx.reshape(-1).long()].reshape(R, B, Xp.shape[1])
-    return fsw_table_sort(P.contiguous(), wn, pad_norm, freqs)
+    if Xp.device.type == 'cpu':
+        return fsw_table_sort(_gather(idx, Xp), wn, pad_norm, freqs)
+    if Xp.device.type != 'cuda':
+        raise ValueError(f'unsupported device {Xp.device}')
+    _width_fits(B)
+    S = Xp.shape[1]
+    _check(list(zip(('Xp', 'wn', 'pad_norm', 'freqs'),
+                    (Xp, wn, pad_norm, freqs))),
+           {'wn': (R, B), 'pad_norm': (R,), 'freqs': (S,)})
+    idx = idx.to(device=Xp.device, dtype=torch.int32).contiguous()
+    out = torch.empty((R, S), dtype=torch.float32, device=Xp.device)
+    if R == 0 or S == 0:
+        return out
+    _launch('fsw_table_sort', _kernel('fsw_table_sort')[1]['gather_f32'],
+            idx, wn, pad_norm, Xp, freqs, out, R, B, S)
+    _count(fsw_table_forward)
+    return out
+
+
+fsw_table_forward.launches = 0
+
+
+def _gather(idx, Xp):
+    R, B = idx.shape
+    return Xp[idx.reshape(-1).long()].reshape(R, B, Xp.shape[1]).contiguous()
 
 
 def fsw_table_forward_plain(idx, wn, pad_norm, Xp, freqs):
     """The plain version of `fsw_table_forward` on any device."""
-    R, B = idx.shape
-    P = Xp[idx.reshape(-1).long()].reshape(R, B, Xp.shape[1])
-    return fsw_table_sort_plain(P, wn, pad_norm, freqs)
+    return fsw_table_sort_plain(_gather(idx, Xp), wn, pad_norm, freqs)

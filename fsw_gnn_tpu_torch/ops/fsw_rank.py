@@ -88,14 +88,20 @@ _NF_WIDE = 8
 
 RANK_KERNELS = ('fsw_rank_fwdp', 'fsw_rank_bwdp', 'fsw_rank_fwd',
                 'fsw_rank_bwd', 'fsw_rank_cart_fwd', 'fsw_rank_cart_bwd')
-# kernel A1 (csrc/fsw_table_sort.cu), which no route takes: threads a block
-_TABLE_NT = 256
+# kernel A1 (csrc/fsw_table_sort.cu), which no route takes: the widest
+# column its lanes hold in registers
+_TABLE_MAX_B = 1024
 
 
-def table_sort_ts(B: int) -> int:
-    """Slices one block of kernel A1 takes at width B (`table_ts` in
-    csrc/fsw_table_sort.cu): 32 up to B = 512, else 16."""
-    return 32 if B <= 512 else 16
+def table_sort_lanes(B: int) -> int:
+    """Lanes of a warp that kernel A1 gives one column at width B
+    (`fsw_table_sort_lanes` in csrc/fsw_table_sort.cu): B / min(B, 32) for
+    a power of two from 2 to 1024, each lane holding min(B, 32) entries in
+    registers; 0 for a width the kernel refuses.  A1 uses no shared
+    memory."""
+    if B < 2 or B > _TABLE_MAX_B or B & (B - 1):
+        return 0
+    return B // min(B, 32)
 
 
 def proj_rows(B: int) -> int:
@@ -143,14 +149,8 @@ def smem_bytes(name: str, B: int, F: int = 1, with_dw: bool = False,
 
     (K1b's products use a fixed 36 KB of static memory).  uniform_w does
     not enter: without dw the entry kernel keeps room for the uniform
-    trig's row values either way.
-
-    'fsw_table_sort', kernel A1 (benchmarks/attic/fsw_table.py), which no
-    route takes: 4 (2 B TS + 512), the row's (p, w) pairs of TS =
-    `table_sort_ts(B)` slices and two sums a thread."""
+    trig's row values either way."""
     dw = bool(with_dw)
-    if name == 'fsw_table_sort':
-        return 4 * (2 * B * table_sort_ts(B) + 2 * _TABLE_NT)
     if name == 'fsw_rank_fwdp':
         e = proj_rows(B) * B
         own = e * _TS + e
@@ -365,7 +365,9 @@ _SIGNATURES = {
                            'smem_bytes': ([_INT] * 4, _SIZE)}),
     # the benchmark folder's kernels (fsw_gnn_tpu_torch/benchmarks/)
     'fsw_table_sort': ([_PTR] * 5 + [_INT] * 3,
-                       {'ts': ([_INT], _INT), 'smem_bytes': ([_INT], _SIZE)}),
+                       {'lanes': ([_INT], _INT),
+                        'gather_f32': ([_PTR] * 6 + [_INT] * 3 + [_PTR],
+                                       _INT)}),
     'probe_stage': ([_PTR] * 5 + [_INT] * 4, {'smem_bytes': ([_INT], _SIZE)}),
     'probe_select': ([_INT] + [_PTR] * 3 + [_INT] * 4,
                      {'smem_bytes': ([_INT], _SIZE)}),
@@ -375,7 +377,9 @@ _SIGNATURES = {
         'dxr_f32': ([_PTR] * 3 + [_INT] * 3 + [_PTR], _INT),
         'dv_f32': ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
         'dv_loop_f32': ([_PTR] * 4 + [_INT] * 4 + [_PTR], _INT),
-        'dv_parts': ([_INT], ctypes.c_longlong)}),
+        'dv_parts': ([_INT], ctypes.c_longlong),
+        'wgmma_f32': ([_INT] + [_PTR] * 4 + [_INT] * 6 + [_PTR], _INT),
+        'wgmma_parts': ([_INT] * 5, ctypes.c_longlong)}),
     'probe_segscan': (None, {
         'variant_f32': ([_PTR] * 6 + [ctypes.c_longlong] * 2 + [_INT, _PTR],
                         _INT),

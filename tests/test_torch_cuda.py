@@ -1038,19 +1038,23 @@ def test_table_sort_refuses_widths_before_any_launch(cuda_device):
 
 @pytest.mark.cuda
 def test_bench_smem_need_matches_the_libraries(cuda_device):
-    """`smem_bytes('fsw_table_sort', B)` and the staged probe's need equal
-    their libraries' own exports."""
+    """A1's lanes a column (`table_sort_lanes`; A1 needs no shared memory)
+    and the staged probe's shared-memory need equal their libraries' own
+    exports, and so do P1's 'wgmma' partials (`wgmma_parts`)."""
+    from fsw_gnn_tpu_torch.benchmarks import probe_kernel_matmul as P1
     from fsw_gnn_tpu_torch.benchmarks.probe_emit_pipeline import \
         stage_smem_bytes
-    from fsw_gnn_tpu_torch.ops.fsw_rank import (_kernel, smem_bytes,
-                                                table_sort_ts)
-    own = _kernel('fsw_table_sort')[1]['smem_bytes']
-    ts = _kernel('fsw_table_sort')[1]['ts']
+    from fsw_gnn_tpu_torch.ops.fsw_rank import _kernel, table_sort_lanes
+    lanes = _kernel('fsw_table_sort')[1]['lanes']
     stage = _kernel('probe_stage')[1]['smem_bytes']
     for B in (2, 8, 16, 32, 64, 100, 128, 256, 447, 512, 1024, 2048):
-        assert own(B) == smem_bytes('fsw_table_sort', B), B
-        assert ts(B) == table_sort_ts(B), B
+        assert lanes(B) == table_sort_lanes(B), B
         assert stage(B) == stage_smem_bytes(B), B
+    parts = _kernel('probe_matmul')[1]['wgmma_parts']
+    for shape in list(P1.SHAPES) + [('ragged', 301, 3, 1433, 127)]:
+        for kind in P1.KINDS:
+            assert parts(P1.KINDS_C[kind], *shape[1:]) == P1.wgmma_parts(
+                kind, *shape[1:]), (shape, kind)
 
 
 @pytest.mark.cuda
@@ -1069,6 +1073,60 @@ def test_kernel_matmul_contractions_against_float64(cuda_device, shape):
         assert rel <= P1.TOL_REL, (kind, err, rel)
     torch.cuda.synchronize()
     assert P1.kernel_matmul.launches == before + len(P1.KINDS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('routine', ['wgmma', 'k1'])
+@pytest.mark.parametrize('shape', [('aligned', 64, 8, 128, 256),
+                                   ('ragged', 301, 3, 1433, 127)])
+def test_kernel_matmul_routines_against_float64_and_stable(cuda_device,
+                                                           shape, routine):
+    """Both tile routines at an aligned shape (TMA and 16-byte copies)
+    and a ragged one (D = 1433, S = 127, M = 903 not a multiple of 128:
+    4-byte copies, partial tiles): each contraction within TOL_REL of
+    float64 and the same bits on two calls."""
+    from fsw_gnn_tpu_torch.benchmarks import probe_kernel_matmul as P1
+    x = P1.operands(shape, cuda_device)
+    before = P1.kernel_matmul.launches
+    for kind in P1.KINDS:
+        err, rel = P1.check(kind, x, routine)
+        assert rel <= P1.TOL_REL, (kind, err, rel)
+        a, b = (x[n] for n in P1.SPEC[kind][0])
+        assert torch.equal(P1.kernel_matmul(kind, a, b, routine),
+                           P1.kernel_matmul(kind, a, b, routine)), kind
+    torch.cuda.synchronize()
+    assert P1.kernel_matmul.launches == before + 3 * len(P1.KINDS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B', [2, 4, 8, 16, 32, 64, 128, 256, 512, 1024])
+def test_table_gather_matches_plain_and_the_p_entry(cuda_device, B):
+    """A1's gathered entry (`fsw_table_forward`: Xp[idx] read inside the
+    kernel) against its plain version at S = 129, with tied sender rows
+    (every fourth idx repeats the one before) and tied projections, and
+    bit for bit the P entry on the same gathered values."""
+    from fsw_gnn_tpu_torch.benchmarks.attic.fsw_table import (
+        _gather, fsw_table_forward, fsw_table_forward_plain, fsw_table_sort)
+    rng = np.random.default_rng(B + 1)
+    R = max(4096 // B, 3)
+    _, wn, pad, freqs = [a.to(cuda_device) for a in
+                         _table_inputs(rng, R, B, 129)]
+    Xp = rng.standard_normal((600, 129))
+    Xp[1::3] = Xp[0:-1:3]
+    Xp = torch.from_numpy(Xp.astype(np.float32)).to(cuda_device)
+    idx = rng.integers(0, 600, (R, B))
+    idx[:, 1::4] = idx[:, 0:B - 1:4]
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda_device)
+    before = fsw_table_forward.launches
+    got = fsw_table_forward(idx, wn, pad, Xp, freqs)
+    torch.cuda.synchronize()
+    assert fsw_table_forward.launches == before + 1
+    want = fsw_table_forward_plain(idx, wn, pad, Xp, freqs)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=2e-5 * want.abs().max().item())
+    assert torch.equal(got, fsw_table_sort(_gather(idx, Xp), wn, pad, freqs))
+    assert torch.equal(fsw_table_forward(idx.long(), wn, pad, Xp, freqs),
+                       got)
 
 
 @pytest.mark.cuda

@@ -100,14 +100,15 @@ def test_network_sorts_and_keeps_the_pairs_as_jax(B):
 
 def test_width_rules():
     """A width that is not a power of two raises before any work, on the
-    CPU too; the shared-memory rule holds B up to 1024 and refuses 2048."""
+    CPU too; the register network holds B up to 1024 and refuses 2048."""
     P = torch.zeros((2, 12, 4))
     with pytest.raises(KernelError, match='power of two'):
         A1.fsw_table_sort(P, torch.zeros((2, 12)), torch.zeros(2),
                           torch.ones(4))
-    from fsw_gnn_tpu_torch.ops.fsw_rank import _MAX_SMEM, misfit, smem_bytes
+    from fsw_gnn_tpu_torch.ops.fsw_rank import table_sort_lanes
     for B in (2, 8, 64, 256, 512, 1024):
-        assert smem_bytes('fsw_table_sort', B) <= _MAX_SMEM
-    assert misfit(('fsw_table_sort',), 2048) is not None
-    with pytest.raises(KernelError, match='shared memory'):
+        assert table_sort_lanes(B) > 0
+        A1._width_fits(B)
+    assert table_sort_lanes(2048) == 0
+    with pytest.raises(KernelError, match='1024'):
         A1._width_fits(2048)
