@@ -275,7 +275,9 @@ Phases (any failure exits non-zero before the last line is printed):
      its P entry and its gathered entry `fsw_table_forward`), P1
      (`probe_matmul`, K1's contractions on two tile routines: 'wgmma' and
      K1's own 'k1'), P4 (`probe_stage`, K2f with staged loads) and P6
-     (`probe_select`, the rank loop's and the trig tails' op mixes)
+     (`probe_select`, the rank loop's and the trig tails' op mixes; both
+     on the register rank loop at B 32, the loop each launch took
+     counted)
      against their plain versions at their scripts' shapes, timed beside
      their bounds; A1's two entries bit for bit each other and against
      the port's sort route on bench_fused_table's graph and at B = 16 ..
@@ -285,7 +287,8 @@ Phases (any failure exits non-zero before the last line is printed):
      `torch.matmul` in float32 and TF32; P4 bit for bit against K2f;
      then, every counter at 0, the four scripts' `main` on the card
      (`python -m fsw_gnn_tpu_torch.benchmarks.<name>`, their JSON lines
-     printed), which must launch each kernel (`bench folder:` line);
+     printed), which must launch each kernel, P4 and P6 on the register
+     loop (`bench folder:` line, with the loop counters);
  39. K3's probes (`k3_probes_phase`): P5 (`probe_segscan`'s three
      inner-loop variants), P2 (its six stage ablations) and K3's packed
      form (P3) against their plain versions at their scripts' default
@@ -454,8 +457,13 @@ scan and the trig of each real entry, 26 operations (`table_sort_bound_ms`);
 the P entry's bytes are P, wn, pad and freqs read once and the output
 written, the gathered entry's Xp, idx, wn, pad and freqs (its operations
 decide it).  P1: its 2 M N K products at the 3xTF32 rate against its
-operands' and output's bytes.  P4: K2f's bound.  P6: each body's modeled operations
-(the TPU probe's table) at 67 TFLOP/s against P, wn and the output.
+operands' and output's bytes.  P4: K2f's bound (its pair loop's issue
+floor beside it, `pair_floor_ms`).  P6's 'rank': the card's own floor,
+its R B S B REP pairs at two issue slots each (a compare and a fused
+multiply-add) at the FFMA issue rate, half of 67 TFLOP/s
+(`probe_select_ceiling.issue_floor`); the TPU probe's model, 6
+operations an element-step at 67 TFLOP/s, beside it
+(`tpu_model_bound_ms`).
 K3 needs one add an element and moves 12 bytes an element in float32
 with ids (values and ids read, output written), 9 with the mask: its
 bound is the bytes'.  So are those of K3's probes (phase 39): P5 12 bytes
@@ -4540,12 +4548,13 @@ def bench_folder_phase(torch, T, dev, smi_line):
     two calls, the headline's and Cora's timed beside `torch.matmul` in
     float32 and TF32; P4's staged forward bit-equal to
     K2f at the probe's shape and on padded rows with NaN projections; P6's
-    21 bodies and its two pipe bodies on the probe's whole launch (R 8192,
+    21 bodies and its three pipe bodies on the probe's whole launch (R 8192,
     B 32, S 128) against their plain versions, the 'rank' body timed.
     Then every launch counter at 0 and the four scripts' `main` on the
     card, each printing its JSON lines (the main path of this slice) and
     raising where its kernel disagrees with its reference: every kernel
-    must be launched there.  Returns the five kernels' entries of the
+    must be launched there, P4 and P6 on the register rank loop (their
+    `loops` counters).  Returns the five kernels' entries of the
     `kernels` line (A1's two entries apart)."""
     from fsw_gnn_tpu_torch import embedding as E
     from fsw_gnn_tpu_torch.benchmarks import (bench_fused_table as BFT,
@@ -4715,6 +4724,7 @@ def bench_folder_phase(torch, T, dev, smi_line):
         p4_plain = device_ms(torch, lambda: P4.fsw_rank_aggregate_plain(
             *args), 2, 3)[0]
     bound, by = rank2_bound_ms(args[1], args[0].shape[2])
+    R4, B4, S4 = args[0].shape
     res['p4'] = {'name': 'probe_stage', 'route': 'cuda',
                  'source': src + 'probe_stage.cu',
                  'replaces': 'benchmarks/probe_emit_pipeline.py:102',
@@ -4722,6 +4732,8 @@ def bench_folder_phase(torch, T, dev, smi_line):
                  'plain_ms': p4_plain, 'bound_ms': bound, 'bound_by': by,
                  'library_ms': None, 'k2f_ms': (turns[0] + turns[3]) / 2,
                  'turns_k2f_staged_staged_k2f': turns,
+                 'pair_floor_ms': P4.pair_floor_ms(R4, B4, S4),
+                 'loop': P4.stage_loop(B4, S4),
                  'shape': list(args[0].shape)}
     del args, pad_args
     # ---- P6: every body against plain on the whole launch, 'rank' timed ---
@@ -4744,14 +4756,20 @@ def bench_folder_phase(torch, T, dev, smi_line):
         p6_plain = device_ms(torch, lambda: P6.probe_select_plain(
             'rank', Pq, wq, P6.REP), 1, 3)[0]
     R6, B6, S6 = Pq.shape
-    bound, by = _bound(R6 * B6 * S6 * B6 * P6.REP * P6.BODIES['rank'][1],
-                       4 * (R6 * B6 * S6 + R6 * B6 + R6 * S6))
+    # the card's floor: the loop's least issue slots a pair (a compare and
+    # a fused multiply-add) at the FFMA issue rate, above the bytes; the
+    # TPU model's 6 operations an element-step beside it
+    tpu_bound = _bound(R6 * B6 * S6 * B6 * P6.REP * P6.BODIES['rank'][1],
+                       4 * (R6 * B6 * S6 + R6 * B6 + R6 * S6))[0]
+    bound = P6.issue_floor('rank', R6, B6, S6, P6.REP)
     res['p6'] = {'name': 'probe_select', 'route': 'cuda',
                  'source': src + 'probe_select.cu',
                  'replaces': 'benchmarks/probe_select_ceiling.py:409',
                  'max_abs_err': max(body_err.values()), 'ms': p6_ms,
-                 'plain_ms': p6_plain, 'bound_ms': bound, 'bound_by': by,
-                 'library_ms': None, 'body': 'rank',
+                 'plain_ms': p6_plain, 'bound_ms': bound,
+                 'bound_by': 'operations', 'library_ms': None,
+                 'tpu_model_bound_ms': tpu_bound, 'body': 'rank',
+                 'loop': P6.loop_of('rank', B6),
                  'shape': [R6, B6, S6, P6.REP], 'errors': body_err}
     del Pq, wq
     torch.cuda.empty_cache()
@@ -4762,6 +4780,8 @@ def bench_folder_phase(torch, T, dev, smi_line):
                 'p4': P4.fsw_rank_aggregate_staged, 'p6': P6.probe_select}
     for w in wrappers.values():
         w.launches = 0
+    for w in (P4.fsw_rank_aggregate_staged, P6.probe_select):
+        w.loops = {}
     t1 = time.perf_counter()
     for name in BF_SCRIPTS:
         print(f'  bench folder: python -m fsw_gnn_tpu_torch.benchmarks.{name}',
@@ -4775,6 +4795,13 @@ def bench_folder_phase(torch, T, dev, smi_line):
         if w.launches == 0:
             fail(f'bench folder: {res[key]["name"]} was not launched by the '
                  f'scripts')
+    # the register loop ran at the probes' width (B 32)
+    for key, w in (('p4', P4.fsw_rank_aggregate_staged),
+                   ('p6', P6.probe_select)):
+        res[key]['loops'] = dict(w.loops)
+        if not w.loops.get(res[key]['loop']):
+            fail(f'bench folder: {res[key]["name"]} took no launch on its '
+                 f'{res[key]["loop"]} loop in the scripts: {w.loops}')
     print('bench folder: ' + json.dumps({
         'checks_s': checks_s, 'scripts_s': scripts_s,
         'total_s': time.perf_counter() - t0, 'power': smi_line,

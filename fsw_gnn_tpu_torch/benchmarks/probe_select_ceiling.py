@@ -3,32 +3,41 @@ tails reach on the card.
 
 Counterpart of benchmarks/probe_select_ceiling.py.  Kernels that are
 nothing but one loop body or one tail of the rank kernels, on one table row
-of B entries a block (csrc/probe_select.cu, one template instance a body),
+a block (csrc/probe_select.cu, one template instance a body and layout),
 run as the TPU probe's `make_kernel` runs them: REP repeats of
-c = body(P, wn), acc += sum_b c, P = P + 1e-30 c; out (R, S) = acc.  Per
-body it prints the ms, the modeled operations per element-step (the TPU
-probe's `BODIES` column), the rate in Gops/s and its share of the H100's
-float32 rate (67 TFLOP/s, a fused multiply-add counted as two operations,
-as the model counts it), then what the compare and select bodies compiled
-to (`cuobjdump -sass` on the built library: FSETP, FSEL, FSET and the
-other opcodes of each instance).  Two bodies that are not the TPU probe's,
-`PIPE_BODIES`, then price one pipe each (NI = 8 chains in registers, 64
-steps an element, of one FFMA or of one FSETP + FSEL): their instruction
-rates, against the FFMA issue rate (half of 67 TFLOP/s), say whether
-compares and selects issue as fast as fused multiply-adds.  A body that
-differs from its plain version by more than 1e-5 of max |plain| on any of
-the R rows raises after its line.
+c = body(P, wn), acc += sum_b c, P = P + 1e-30 c; out (R, S) = acc.  At
+B <= REGS_W (32) the three loop bodies run on the register loop
+(csrc/rank_regs.cuh: the column in registers across the repeats, the pairs
+unrolled); wider rows, and every other body, keep the column in shared
+memory (`loop_of`; the library's choice is counted in
+`probe_select.loops`).  Per body it prints the ms, the modeled operations
+per element-step (the TPU probe's `BODIES` column), the rate in Gops/s
+and its share of the H100's float32 rate (67 TFLOP/s, a fused
+multiply-add counted as two operations, as the model counts it), and for
+the loop bodies the card's own floor, their least issue slots a pair
+(`ISSUE_SLOTS`) at the FFMA issue rate (`of_issue_floor`), then what the
+loop and pipe bodies compiled to (`cuobjdump -sass` on the built library:
+FSETP, FSEL, FSET and the other opcodes of each instance).  Three bodies
+that are not the TPU probe's, `PIPE_BODIES`, then price one pipe each
+(NI = 8 chains in registers, 64 steps an element, of one FFMA, of one
+FSETP + FSEL, or of the register loop's FSET + FFMA pair): their
+instruction rates, against the FFMA issue rate (half of 67 TFLOP/s), say
+whether compares and selects issue as fast as fused multiply-adds.  A body
+that differs from its plain version by more than 1e-5 of max |plain| on
+any of the R rows raises after its line.
 
     python -m fsw_gnn_tpu_torch.benchmarks.probe_select_ceiling [--device cpu]
 
 Knobs (the TPU probe's, with its defaults): FSW_PROBE_R 8192,
 FSW_PROBE_B 32, FSW_PROBE_S 128, FSW_PROBE_REP 4, FSW_PROBE_ITERS 10 (the
-calls a timing window), FSW_PROBE_TILE 64 (read; a block here is always
-one row and 64 slices), FSW_PROBE_ONLY (a comma list of bodies).
+calls a timing window), FSW_PROBE_TILE 64 (read; a block here is one row
+and 128 slices at B <= REGS_W, 64 wider), FSW_PROBE_ONLY (a comma list of
+bodies).
 
 `probe_select` runs a body's kernel on CUDA tensors (counting launches in
-`probe_select.launches`) and its plain PyTorch version (`BODIES`,
-the TPU probe's bodies term for term) on CPU tensors.
+`probe_select.launches`, and by loop in `probe_select.loops`) and its
+plain PyTorch version (`BODIES`, the TPU probe's bodies term for term) on
+CPU tensors.
 """
 from __future__ import annotations
 
@@ -44,7 +53,7 @@ import torch
 
 from .. import kernels
 from ..ops.fsw_rank import _check, _count, _kernel, _launch
-from ..utils.bounds import PEAK_F32_OPS
+from ..utils.bounds import PEAK_F32_OPS, issue_floor_ms
 from . import _timing
 
 R = int(os.environ.get('FSW_PROBE_R', 8192))
@@ -370,9 +379,6 @@ BODIES = {'fma_anchor': (body_fma_anchor, 2, True),
           'cast_round_only': (body_cast_round_only, 5, False),
           'floor_wrap_only': (body_floor_wrap_only, 3, False)}
 BODY_NAMES = tuple(BODIES)
-# the compare and select bodies, whose SASS answers what they compiled to
-SELECT_BODIES = ('select_add', 'rank')
-
 
 NI, PIPE_STEPS = 8, 64      # csrc/probe_select.cu's chains and steps
 
@@ -399,12 +405,39 @@ def body_pipe_select(P, wn, pos):
     return _pipe(P, wn, lambda v, a, z, ws, P: torch.where(v < ws, P, z))
 
 
+def body_pipe_rank(P, wn, pos):
+    """The register loop's pair: v = fma(w - P, [v < w], P), the
+    predicate as 1.0 or 0.0 (z s is exact, so one rounding, as fmaf)."""
+    return _pipe(P, wn, lambda v, a, z, ws, P: torch.addcmul(
+        P, z, (v < ws).to(P.dtype)))
+
+
 # name -> (plain body, SASS instructions an element): the pipe bodies,
 # after the table in csrc/probe_select.cu's `Body` order
 PIPE_BODIES = {'pipe_ffma': (body_pipe_ffma, PIPE_STEPS * NI),
-               'pipe_select': (body_pipe_select, 2 * PIPE_STEPS * NI)}
+               'pipe_select': (body_pipe_select, 2 * PIPE_STEPS * NI),
+               'pipe_rank': (body_pipe_rank, 2 * PIPE_STEPS * NI)}
 KERNEL_BODIES = BODY_NAMES + tuple(PIPE_BODIES)
 TOL_REL = 1e-5               # of max |plain|, every body
+
+# the loop bodies' least issue slots a pair on the card: one FFMA; a
+# compare and an add; a compare and a fused multiply-add
+ISSUE_SLOTS = {'fma_anchor': 1, 'select_add': 2, 'rank': 2}
+REGS_W = 32                  # csrc/rank_regs.cuh's W
+LOOPS = ('shared', 'registers')   # `probe_select_loop`'s codes
+
+
+def loop_of(name, B: int) -> str:
+    """The loop the library runs body `name` on at width B (mirrors
+    `probe_select_loop`): the register loop for the loop bodies up to
+    REGS_W entries, the shared-memory layout otherwise."""
+    return 'registers' if name in ISSUE_SLOTS and B <= REGS_W else 'shared'
+
+
+def issue_floor(name, R: int, B: int, S: int, rep: int) -> float:
+    """Loop body `name`'s floor in ms on the card: its R B S B rep pairs at
+    ISSUE_SLOTS[name] issue slots each, at the FFMA issue rate."""
+    return issue_floor_ms(R * B * S * B * rep, ISSUE_SLOTS[name])
 
 
 def probe_select_plain(name, P, wn, rep: int):
@@ -431,13 +464,15 @@ def probe_select(name, P, wn, rep: int):
     out = torch.empty((Rr, Ss), dtype=torch.float32, device=P.device)
     if Rr == 0 or Ss == 0:
         return out
-    _launch('probe_select', _kernel('probe_select')[0],
-            KERNEL_BODIES.index(name), P, wn, out, Rr, Bb, Ss, rep)
-    _count(probe_select)
+    fn, aux = _kernel('probe_select')
+    body = KERNEL_BODIES.index(name)
+    _launch('probe_select', fn, body, P, wn, out, Rr, Bb, Ss, rep)
+    _count(probe_select, LOOPS[aux['loop'](body, Bb)])
     return out
 
 
 probe_select.launches = 0
+probe_select.loops = {}
 
 
 def cuobjdump() -> str | None:
@@ -456,19 +491,28 @@ SASS_OPS = ('FSETP', 'FSEL', 'FSET', 'FFMA', 'FADD', 'FMUL', 'FMNMX',
             'ISETP', 'SEL', 'LDS', 'PLOP3', 'LOP3')
 
 
-def sass_counts(names=SELECT_BODIES + tuple(PIPE_BODIES)) -> dict:
-    """{body: {opcode: count, 'total': n}} of each named body's kernel
-    instance in the built probe_select library (`cuobjdump -sass`); every
-    opcode of the instance is counted, the loop and what surrounds it."""
+def instance_tag(name, B: int = B) -> str:
+    """The mangled-name fragment of the kernel instance that runs body
+    `name` at width B (csrc/probe_select.cu)."""
+    i = KERNEL_BODIES.index(name)
+    if loop_of(name, B) == 'registers':
+        return f'probe_select_regsILi{i}EE'
+    return f'probe_select_kernelILi{i}ELi{128 if B <= REGS_W else 64}EE'
+
+
+def sass_of(lib: str, tags) -> dict:
+    """{tag: {opcode: count, 'total': n}} of the kernel instances whose
+    mangled names hold each tag, in the built library `csrc/<lib>.cu`
+    (`cuobjdump -sass`); every opcode of an instance is counted, its loops
+    and what surrounds them.  {'error': ...} without cuobjdump."""
     tool = cuobjdump()
     if tool is None:
         return {'error': 'cuobjdump not found'}
-    lib = kernels._target('probe_select')
-    text = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
-                          text=True, timeout=120).stdout
+    text = subprocess.run([tool, '-sass', str(kernels._target(lib))],
+                          capture_output=True, text=True,
+                          timeout=120).stdout
     out = {}
-    for name in names:
-        tag = f'probe_select_kernelILi{KERNEL_BODIES.index(name)}E'
+    for tag in tags:
         counts, on = {}, False
         for line in text.splitlines():
             if 'Function :' in line:
@@ -477,8 +521,53 @@ def sass_counts(names=SELECT_BODIES + tuple(PIPE_BODIES)) -> dict:
             m = _OPCODE.search(line) if on else None
             if m:
                 counts[m.group(1)] = counts.get(m.group(1), 0) + 1
-        out[name] = dict({k: counts.get(k, 0) for k in SASS_OPS},
-                         total=sum(counts.values()))
+        out[tag] = dict({k: counts.get(k, 0) for k in SASS_OPS},
+                        total=sum(counts.values()))
+    return out
+
+
+def ptxas_of(lib: str, tags) -> dict:
+    """{tag: {'registers', 'spill_stores', 'spill_loads', 'stack'}} of the
+    kernel instances whose mangled names hold each tag, from ptxas' report
+    in the build log of `csrc/<lib>.cu` (`kernels.build_log`)."""
+    out, cur = {}, None
+    for line in kernels.build_log(lib).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            cur = next((t for t in tags if t in m.group(1)), None)
+            continue
+        if cur is None:
+            continue
+        rec = out.setdefault(cur, {})
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m:
+            rec.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            rec['registers'] = int(m.group(1))
+    return out
+
+
+def sass_counts(names=tuple(ISSUE_SLOTS) + tuple(PIPE_BODIES),
+                B: int = B) -> dict:
+    """{body: {opcode: count, 'total': n}} of each named body's kernel
+    instance at width B in the built probe_select library; a body on the
+    register loop also gets its opcodes a pair ('per_pair', over the
+    REGS_W x REGS_W unrolled pairs of one repeat, the whole instance
+    counted)."""
+    tags = {name: instance_tag(name, B) for name in names}
+    got = sass_of('probe_select', tags.values())
+    if 'error' in got:
+        return got
+    out = {}
+    for name, tag in tags.items():
+        out[name] = dict(got[tag])
+        if loop_of(name, B) == 'registers':
+            out[name]['per_pair'] = {k: v / REGS_W ** 2 for k, v in
+                                     got[tag].items() if v}
     return out
 
 
@@ -526,15 +615,20 @@ def main(argv=None):
         _, ops_per, loop = BODIES[name]
         ms, err = checked(name)
         el_steps = R * B * S * (B if loop else 1) * REP
-        fields = {'variant': name, key: ms,
+        fields = {'variant': name, key: ms, 'loop': loop_of(name, B),
                   'modeled_ops_per_el_step': ops_per,
                   'max_rel_err_vs_plain': err}
+        if name in ISSUE_SLOTS:
+            fields.update(issue_slots_per_pair=ISSUE_SLOTS[name],
+                          issue_floor_ms=issue_floor(name, R, B, S, REP))
         if dev.type == 'cuda':       # rates of the card only
             ops_s = el_steps * ops_per / (ms * 1e-3)
             rates[name] = el_steps / (ms * 1e-3)
             fields.update(el_loop_steps_per_s=rates[name],
                           gops_per_s_at_model=ops_s / 1e9,
                           of_fp32_peak=ops_s / PEAK_F32_OPS)
+            if name in ISSUE_SLOTS:
+                fields['of_issue_floor'] = fields['issue_floor_ms'] / ms
         _timing.emit(dev, **fields)
         verdict(name, err)
     if 'rank' in rates:
@@ -553,7 +647,10 @@ def main(argv=None):
         verdict(name, err)
     if dev.type == 'cuda':
         _timing.emit(dev, select_vs_ffma_instr_rate=rates['pipe_select']
-                     / rates['pipe_ffma'], sass=sass_counts())
+                     / rates['pipe_ffma'],
+                     rank_pair_vs_ffma_instr_rate=rates['pipe_rank']
+                     / rates['pipe_ffma'], loops=dict(probe_select.loops),
+                     sass=sass_counts())
     return rates
 
 

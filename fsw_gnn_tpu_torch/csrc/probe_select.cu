@@ -4,9 +4,8 @@
 // Replaces the TPU probe `run_probe` / `make_kernel`
 // (benchmarks/probe_select_ceiling.py), which times kernels that are
 // nothing but one loop body or one tail of the rank kernels, to measure
-// the rate they can reach.  Each of its 21 bodies is an instance of
-// `probe_select_kernel<BODY>` here (the table `BODIES` of the probe, in
-// its order, mirrored by `BODY_NAMES` in
+// the rate they can reach.  Each of its 21 bodies is an instance here (the
+// table `BODIES` of the probe, in its order, mirrored by `BODY_NAMES` in
 // fsw_gnn_tpu_torch/benchmarks/probe_select_ceiling.py), run as
 // `make_kernel` runs it: for a table row of B entries and a slice,
 //
@@ -22,34 +21,57 @@
 // production tails (`*_new`, `*_unif`) are the JAX rank kernels' `_trig`,
 // `_trig_unif`, `_freq_consts` and `_sd` (fsw_gnn_tpu/ops/fsw_rank_pallas.py).
 //
-// Layout: one block of TS = 64 threads per (row, tile of 64 slices), one
-// thread a slice; the row's columns of P and c in shared memory as [b][64]
-// and its weights as [B].  A loop body keeps NI = 8 entries' sums in
-// registers for each pass over j, as the rank kernels' `rank_core` does,
-// so every p_j and w_j loaded feeds eight compares.  Products f = 0.7 +
-// 0.001 s are rounded twice, as the probe's float32 iota is.
+// Layout, by width (`probe_select_loop` says which loop a launch takes):
 //
-// What bounds it on an H100: the operations, at the FP32 rate; the timed
-// rate of each body against 67 TFLOP/s (the probe's model counts a fused
-// multiply-add as 2 operations) is the probe's answer.  The SASS of each
-// instance (`cuobjdump -sass`) shows what the compares and selects
-// compiled to.
+//   B <= rank_regs::W (32, the probe's width): a block holds one row's
+//     slices, TSN = 128 threads, one a slice (a ragged last tile where S is
+//     not a multiple of 128).  The three loop bodies run on the register
+//     loop of rank_regs.cuh (`probe_select_regs`): each thread loads its
+//     column once and keeps it in registers across the REP repeats, with
+//     the row's weights read once from shared memory by broadcast; the
+//     W x W pairs are unrolled, entries past B weigh 0.  `rank` is one
+//     compare to 1.f/0.f and one fused multiply-add a pair (the tie rule
+//     settled at compile time), `fma_anchor` one fused multiply-add,
+//     `select_add` its select and add as written.  The other bodies keep
+//     the column in shared memory as [b][TSN] and their arithmetic as
+//     below.
+//   wider rows: one block of TS = 64 threads per (row, tile of 64 slices),
+//     the row's columns of P and c in shared memory as [b][64] and its
+//     weights as [B]; a loop body keeps NI = 8 entries' sums in registers
+//     for each pass over j, with the tie rule of `rank` as an integer
+//     compare of the entry's index against j.
 //
-// Two more bodies, not of the TPU table, price one pipe each: NI
+// Products f = 0.7 + 0.001 s are rounded twice, as the probe's float32
+// iota is.
+//
+// What bounds it on an H100: issue.  The TPU probe's model counts
+// operations an element-step (a fused multiply-add as 2); on this card the
+// loop bodies' floor is their least issue slots a pair (fma_anchor 1,
+// select_add 2, rank 2) at the FFMA issue rate, half of 67 TFLOP/s
+// (`ISSUE_SLOTS` in the script).  The SASS of each instance
+// (`cuobjdump -sass`) shows what the compares and selects compiled to.
+//
+// Three more bodies, not of the TPU table, price one pipe each: NI
 // independent chains in registers, PIPE_STEPS steps an element, of one
-// fused multiply-add (pipe_ffma: v = fma(v, a, P)) or of one compare and
-// one select (pipe_select: v = v < w ? P : w - P), with one shared load
-// and store an element, so that the issue rate of FFMA and of FSETP +
-// FSEL can be compared without the loads that the loop bodies share.
+// fused multiply-add (pipe_ffma: v = fma(v, a, P)), of one compare and one
+// select (pipe_select: v = v < w ? P : w - P), or of the register loop's
+// pair, a compare to 1.f/0.f and a fused multiply-add (pipe_rank:
+// v = fma(w - P, v < w ? 1 : 0, P)), with one shared load and store an
+// element, so that the issue rates of FFMA, of FSETP + FSEL and of FSET +
+// FFMA can be compared without the loads that the loop bodies share.
 
 #include <cuda_runtime.h>
 
+#include "rank_regs.cuh"
+
 namespace {
 
-constexpr int TS = 64;
+constexpr int TS = 64;            // slices a block, rows wider than W
+constexpr int TSN = 128;          // slices a block, rows up to W
+constexpr int W = rank_regs::W;
 constexpr int NI = 8;
 constexpr size_t SMEM_LIMIT = 232448;
-constexpr int N_BODIES = 23;
+constexpr int N_BODIES = 24;
 constexpr int PIPE_STEPS = 64;
 
 enum Body {
@@ -57,8 +79,12 @@ enum Body {
   FLOOR_ONLY, SINCOS_POLY_ONLY, BWD_ARITH_ONLY, FWD_TAIL_POLY, BWD_TAIL_POLY,
   MAGIC_ROUND_ONLY, FWD_TAIL_POLY2, BWD_TAIL_POLY2, FWD_TAIL_NEW,
   BWD_TAIL_NEW, FWD_TAIL_UNIF, BWD_TAIL_UNIF, CAST_ROUND_ONLY,
-  FLOOR_WRAP_ONLY, PIPE_FFMA, PIPE_SELECT
+  FLOOR_WRAP_ONLY, PIPE_FFMA, PIPE_SELECT, PIPE_RANK
 };
+
+__host__ __device__ constexpr bool loop_body(int body) {
+  return body == FMA_ANCHOR || body == SELECT_ADD || body == RANK;
+}
 
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = 6.28318530717958647692f;
@@ -259,7 +285,7 @@ __device__ __forceinline__ float tail(float P, float ws, float wr, float f) {
   } else if (BODY == CAST_ROUND_ONLY) {
     const float half = P >= 0.f ? 0.5f : -0.5f;
     return P - (float)(int)(P + half);
-  } else if (BODY == PIPE_FFMA || BODY == PIPE_SELECT) {
+  } else if (BODY == PIPE_FFMA || BODY == PIPE_SELECT || BODY == PIPE_RANK) {
     const float a = 0.5f + 0.25f * ws, z = ws - P;
     float v[NI];
 #pragma unroll
@@ -268,7 +294,9 @@ __device__ __forceinline__ float tail(float P, float ws, float wr, float f) {
     for (int t = 0; t < PIPE_STEPS; ++t) {
 #pragma unroll
       for (int k = 0; k < NI; ++k)
-        v[k] = BODY == PIPE_FFMA ? fmaf(v[k], a, P) : (v[k] < ws ? P : z);
+        v[k] = BODY == PIPE_FFMA   ? fmaf(v[k], a, P)
+               : BODY == PIPE_RANK ? fmaf(z, v[k] < ws ? 1.f : 0.f, P)
+                                   : (v[k] < ws ? P : z);
     }
     float sum = v[0];
 #pragma unroll
@@ -279,20 +307,24 @@ __device__ __forceinline__ float tail(float P, float ws, float wr, float f) {
   }
 }
 
-template <int BODY>
+// Every body on a row's columns in shared memory, a block of TSX threads
+// per (row, tile of TSX slices): the layout of rows wider than W for all
+// bodies (TSX = TS), and of rows up to W for the tails and pipe bodies
+// (TSX = TSN).
+template <int BODY, int TSX>
 __global__ void probe_select_kernel(const float* __restrict__ P,
                                     const float* __restrict__ wn,
                                     float* __restrict__ out, int B, int S,
                                     int rep) {
   extern __shared__ float smem[];
-  float* p_sm = smem;               // [B][TS]
-  float* c_sm = p_sm + B * TS;      // [B][TS]
-  float* w_sm = c_sm + B * TS;      // [B]
-  const int r = blockIdx.x, tid = threadIdx.x, s = blockIdx.y * TS + tid;
+  float* p_sm = smem;               // [B][TSX]
+  float* c_sm = p_sm + B * TSX;     // [B][TSX]
+  float* w_sm = c_sm + B * TSX;     // [B]
+  const int r = blockIdx.x, tid = threadIdx.x, s = blockIdx.y * TSX + tid;
   const bool live = s < S;
-  for (int b = tid; b < B; b += TS) w_sm[b] = wn[(size_t)r * B + b];
+  for (int b = tid; b < B; b += TSX) w_sm[b] = wn[(size_t)r * B + b];
   for (int b = 0; b < B; ++b)
-    p_sm[b * TS + tid] = live ? P[((size_t)r * B + b) * S + s] : 0.f;
+    p_sm[b * TSX + tid] = live ? P[((size_t)r * B + b) * S + s] : 0.f;
   __syncthreads();
   const float f = __fadd_rn(0.7f, __fmul_rn(0.001f, (float)s));
   float wr = 0.f;
@@ -300,16 +332,16 @@ __global__ void probe_select_kernel(const float* __restrict__ P,
   float acc = 0.f;
   for (int it = 0; it < rep; ++it) {
     float sum = 0.f;
-    if constexpr (BODY == FMA_ANCHOR || BODY == SELECT_ADD || BODY == RANK) {
+    if constexpr (loop_body(BODY)) {
       for (int i0 = 0; i0 < B; i0 += NI) {
         float p[NI], c[NI];
 #pragma unroll
         for (int k = 0; k < NI; ++k) {
-          p[k] = i0 + k < B ? p_sm[(i0 + k) * TS + tid] : 0.f;
+          p[k] = i0 + k < B ? p_sm[(i0 + k) * TSX + tid] : 0.f;
           c[k] = 0.f;
         }
         for (int j = 0; j < B; ++j) {
-          const float pj = p_sm[j * TS + tid], wj = w_sm[j];
+          const float pj = p_sm[j * TSX + tid], wj = w_sm[j];
 #pragma unroll
           for (int k = 0; k < NI; ++k) {
             if (BODY == FMA_ANCHOR) {
@@ -324,19 +356,19 @@ __global__ void probe_select_kernel(const float* __restrict__ P,
         }
 #pragma unroll
         for (int k = 0; k < NI; ++k)
-          if (i0 + k < B) c_sm[(i0 + k) * TS + tid] = c[k];
+          if (i0 + k < B) c_sm[(i0 + k) * TSX + tid] = c[k];
       }
       for (int b = 0; b < B; ++b) {
-        const float cb = c_sm[b * TS + tid];
+        const float cb = c_sm[b * TSX + tid];
         sum += cb;
-        p_sm[b * TS + tid] = p_sm[b * TS + tid] + 1e-30f * cb;
+        p_sm[b * TSX + tid] = p_sm[b * TSX + tid] + 1e-30f * cb;
       }
     } else {
       for (int b = 0; b < B; ++b) {
-        const float pb = p_sm[b * TS + tid];
+        const float pb = p_sm[b * TSX + tid];
         const float cb = tail<BODY>(pb, w_sm[b], wr, f);
         sum += cb;
-        p_sm[b * TS + tid] = pb + 1e-30f * cb;
+        p_sm[b * TSX + tid] = pb + 1e-30f * cb;
       }
     }
     acc += sum;
@@ -344,20 +376,93 @@ __global__ void probe_select_kernel(const float* __restrict__ P,
   if (live) out[(size_t)r * S + s] = acc;
 }
 
+// A loop body on rows of B <= W entries, the column in registers: a block
+// of TSN threads per (row, tile of TSN slices).  Thread s holds
+// p[b] = P[r, b, s] and w[b] = wn[r, b] (0 past B) for the whole launch,
+// c[i] = sum_j term(i, j) in the order j = 0 .. W-1, fully unrolled.
+template <int BODY>
+__global__ void __launch_bounds__(TSN)
+    probe_select_regs(const float* __restrict__ P,
+                      const float* __restrict__ wn, float* __restrict__ out,
+                      int B, int S, int rep) {
+  __shared__ float w_sm[W];
+  const int r = blockIdx.x, tid = threadIdx.x, s = blockIdx.y * TSN + tid;
+  const bool live = s < S;
+  if (tid < W) w_sm[tid] = tid < B ? wn[(size_t)r * B + tid] : 0.f;
+  float p[W], w[W], c[W];
+#pragma unroll
+  for (int b = 0; b < W; ++b)
+    p[b] = (live && b < B) ? P[((size_t)r * B + b) * S + s] : 0.f;
+  __syncthreads();
+#pragma unroll
+  for (int b = 0; b < W; ++b) w[b] = w_sm[b];
+  float acc = 0.f;
+  for (int it = 0; it < rep; ++it) {
+    if constexpr (BODY == RANK) {
+      rank_regs::rank(p, w, c);
+    } else {
+#pragma unroll
+      for (int i = 0; i < W; ++i) c[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          if constexpr (BODY == FMA_ANCHOR)
+            c[i] = fmaf(p[i], w[j], c[i]);
+          else
+            c[i] = c[i] + (p[j] < p[i] ? w[j] : 0.f);
+        }
+      }
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int b = 0; b < W; ++b) {
+      if (b < B) sum += c[b];
+      p[b] = p[b] + 1e-30f * c[b];
+    }
+    acc += sum;
+  }
+  if (live) out[(size_t)r * S + s] = acc;
+}
+
+// Whether body `body` at width B runs on the register loop.
+__host__ __device__ constexpr bool on_registers(int body, int B) {
+  return loop_body(body) && B <= W;
+}
+
+// Dynamic shared memory of the shared-memory layout at width B.
+size_t smem_need(int B) {
+  return sizeof(float) * (2 * (size_t)B * (B <= W ? TSN : TS) + B);
+}
+
+template <typename K>
+int launch_kernel(K kern, int threads, size_t smem, const float* P,
+                  const float* wn, float* out, int R, int B, int S, int rep,
+                  cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((unsigned)R, (unsigned)((S + threads - 1) / threads));
+  kern<<<grid, threads, smem, stream>>>(P, wn, out, B, S, rep);
+  return (int)cudaGetLastError();
+}
+
 template <int BODY>
 int launch(const float* P, const float* wn, float* out, int R, int B, int S,
            int rep, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * (size_t)B * TS + B);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        probe_select_kernel<BODY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  if constexpr (loop_body(BODY)) {
+    if (on_registers(BODY, B))
+      return launch_kernel(probe_select_regs<BODY>, TSN, 0, P, wn, out, R, B,
+                           S, rep, stream);
+  } else {
+    if (B <= W)
+      return launch_kernel(probe_select_kernel<BODY, TSN>, TSN, smem_need(B),
+                           P, wn, out, R, B, S, rep, stream);
   }
-  const dim3 grid((unsigned)R, (unsigned)((S + TS - 1) / TS));
-  probe_select_kernel<BODY><<<grid, TS, smem, stream>>>(P, wn, out, B, S,
-                                                        rep);
-  return (int)cudaGetLastError();
+  return launch_kernel(probe_select_kernel<BODY, TS>, TS, smem_need(B), P,
+                       wn, out, R, B, S, rep, stream);
 }
 
 template <int BODY>
@@ -373,12 +478,16 @@ int dispatch(int body, const float* P, const float* wn, float* out, int R,
 
 extern "C" {
 
-// Bodies in the table, and the dynamic shared memory a launch at width B
-// needs.
+// Bodies in the table, and the dynamic shared memory a launch of a body on
+// the shared-memory layout at width B needs.
 int probe_select_bodies() { return N_BODIES; }
 
-size_t probe_select_smem_bytes(int B) {
-  return sizeof(float) * (2 * (size_t)B * TS + B);
+size_t probe_select_smem_bytes(int B) { return smem_need(B); }
+
+// The loop a launch of body `body` at width B takes: 1 the register loop
+// (rank_regs.cuh), 0 the shared-memory layout.
+int probe_select_loop(int body, int B) {
+  return on_registers(body, B) ? 1 : 0;
 }
 
 // Body `body` (an index of the table) on P (R, B, S) and wn (R, B), REP
@@ -386,8 +495,9 @@ size_t probe_select_smem_bytes(int B) {
 // on `stream` and returns cudaGetLastError() (0 on success).
 int probe_select_f32(int body, const void* P, const void* wn, void* out,
                      int R, int B, int S, int rep, void* stream) {
-  if (body < 0 || body >= N_BODIES ||
-      probe_select_smem_bytes(B) > SMEM_LIMIT || (S + TS - 1) / TS > 65535)
+  if (body < 0 || body >= N_BODIES || B <= 0 ||
+      (!on_registers(body, B) &&
+       (smem_need(B) > SMEM_LIMIT || (S + TS - 1) / TS > 65535)))
     return (int)cudaErrorInvalidValue;
   return dispatch<0>(body, (const float*)P, (const float*)wn, (float*)out, R,
                      B, S, rep, (cudaStream_t)stream);

@@ -1,8 +1,9 @@
 // A float32 matrix product on Hopper's warpgroup tensor-core instructions
 // (`wgmma.mma_async` on TF32), with float32's accuracy by the 3xTF32 split:
-// the tile routine of probe P1's `routine='wgmma'` (probe_matmul.cu, the one
-// source that includes this header).  K1's own routine, `tile_product` in
-// fsw_rank_common.cuh, is untouched.
+// the tile routine of probe P1's `routine='wgmma'` (probe_matmul.cu).  K1's
+// own routine, `tile_product` in fsw_rank_common.cuh, is untouched.  Probe
+// P4 (probe_stage.cu) includes it too, for its mbarrier helpers, its 3-D
+// tensor copy and its tensor-map encoder.
 //
 // What it computes: C[i][j] = sum_k A(i, k) B(j, k) for one work unit, with
 // A (M x K) and B (N x K) each given either K-major (element (i, k) at

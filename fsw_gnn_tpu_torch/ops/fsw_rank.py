@@ -368,9 +368,12 @@ _SIGNATURES = {
                        {'lanes': ([_INT], _INT),
                         'gather_f32': ([_PTR] * 6 + [_INT] * 3 + [_PTR],
                                        _INT)}),
-    'probe_stage': ([_PTR] * 5 + [_INT] * 4, {'smem_bytes': ([_INT], _SIZE)}),
+    'probe_stage': ([_PTR] * 5 + [_INT] * 4,
+                    {'smem_bytes': ([_INT] * 2, _SIZE),
+                     'loop': ([_INT] * 2, _INT)}),
     'probe_select': ([_INT] + [_PTR] * 3 + [_INT] * 4,
-                     {'smem_bytes': ([_INT], _SIZE)}),
+                     {'smem_bytes': ([_INT], _SIZE),
+                      'loop': ([_INT] * 2, _INT)}),
     'probe_matmul': (None, {
         'fwd_f32': ([_PTR] * 3 + [_INT] * 4 + [_PTR], _INT),
         'flat_f32': ([_PTR] * 3 + [_INT] * 3 + [_PTR], _INT),
@@ -456,12 +459,15 @@ def _launch(name, fn, *args):
         raise KernelError(f'{name} launch failed: CUDA error {rc}')
 
 
-def _count(wrapper):
+def _count(wrapper, loop=None):
     """One more launch on `wrapper`'s counter, unless the stream is
     capturing a graph: a capture records the kernel and runs nothing, and
-    a replay does not pass through Python."""
+    a replay does not pass through Python.  With `loop`, also one more on
+    `wrapper.loops[loop]`, the loop the library chose for the launch."""
     if not torch.cuda.is_current_stream_capturing():
         wrapper.launches += 1
+        if loop is not None:
+            wrapper.loops[loop] = wrapper.loops.get(loop, 0) + 1
 
 
 def _grads_wanted(*ts):

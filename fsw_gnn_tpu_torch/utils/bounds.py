@@ -20,6 +20,9 @@ a row with d real entries needs
   K2f, K2b: K1f's and K1b's without the products (plus d with with_dw);
   K4f, K4b: with F frequencies, the trig F times over one ranking.
 
+The probes P4 and P6 rank every pair of a row (they price the loop):
+`issue_floor_ms` is that loop's floor on the card's issue rate.
+
 `chip_smoke.py` prints every kernel's bound from these functions and
 `bench.speed_of_light_step` sums K1f's and K1b's over the degree classes,
 so the two cannot drift apart.  The functions take the (R, B) weights as
@@ -33,6 +36,14 @@ PEAK_F32_OPS = 67e12
 PEAK_TF32_OPS = 495e12
 PEAK_BYTES = 3.35e12
 TRIG_OPS, BWD_TRIG_OPS = 20, 45
+
+
+def issue_floor_ms(pairs, slots=2):
+    """The least time, in ms, that `pairs` pairs of a rank loop take at
+    `slots` issue slots a pair, at the FFMA issue rate (half of
+    PEAK_F32_OPS, which counts a fused multiply-add as two operations):
+    the register loop's pair is one compare and one fused multiply-add."""
+    return 1e3 * pairs * slots / (PEAK_F32_OPS / 2)
 
 
 def bound(ops, nbytes, mma_ops=0.0):

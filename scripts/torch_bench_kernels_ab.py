@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Time kernels A1 (csrc/fsw_table_sort.cu) and P1 (csrc/probe_matmul.cu)
-against an earlier version of the same sources, in turns on one card.
+"""Time kernels A1 (csrc/fsw_table_sort.cu), P1 (csrc/probe_matmul.cu), P4
+(csrc/probe_stage.cu) and P6 (csrc/probe_select.cu) against an earlier
+version of the same sources, in turns on one card.
 
     git archive <commit> fsw_gnn_tpu_torch/csrc | tar -x -C chip_ab
     python3 scripts/torch_bench_kernels_ab.py \\
-        --parent chip_ab/fsw_gnn_tpu_torch/csrc
+        --parent chip_ab/fsw_gnn_tpu_torch/csrc [--cases p4,p6]
 
-The parent's two sources are built with the package's nvcc flags into the
-parent's directory and bound with the C interface they had before the
-register network and the `wgmma` routine: `fsw_table_sort_f32(P, wn, pad,
-freqs, out, R, B, S, stream)` and P1's k1 entries
-(`probe_matmul_{fwd,flat,dxr,dv,dv_loop}_f32`).  Cases, each timed
-parent, change, change, parent (device time, CUDA events, the median of 5
-windows: chip_smoke.device_ms):
+The parent's sources of the chosen cases (`--cases`, a comma list of a1,
+p1, p4, p6; all by default) are built with the package's nvcc flags into
+the parent's directory and bound with the C interfaces they had before
+the redesigns: `fsw_table_sort_f32(P, wn, pad, freqs, out, R, B, S,
+stream)`, P1's k1 entries (`probe_matmul_{fwd,flat,dxr,dv,dv_loop}_f32`),
+`probe_stage_f32` (K2f's arguments) and `probe_select_f32(body, P, wn,
+out, R, B, S, rep, stream)`.  Cases, each timed parent, change, change,
+parent (device time, CUDA events, the median of 5 windows:
+chip_smoke.device_ms):
 
   A1 on bench_fused_table's graph (8192 nodes, average in-degree 16, B 64,
   S 129): the parent's P entry against the new P entry, the new gathered
@@ -26,11 +29,20 @@ windows: chip_smoke.device_ms):
   inside the call (pad=True, TMA) and unpadded (pad=False, cp.async for
   unaligned rows), and `torch.matmul` in float32 and in TF32 on the same
   operands.
+  P4 at its script's shape (8192 x 32 x 128) and at a ragged tensor-map
+  one (8192 x 32 x 300), K2f timed in the same turns (parent, change,
+  K2f, K2f, change, parent); the parent, the change and K2f must give the
+  same bits.
+  P6's loop bodies fma_anchor, select_add and rank at its script's shape
+  (R 8192, B 32, S 128, REP 4), the change within TOL_REL of max |parent|.
 
-Then a torch.profiler trace of one call each of the headline's dxr and
-Cora's fwd on 'wgmma', padded and not: each kernel's device ms (the
-padding copy apart from the product).  Prints one JSON line with the
-card's name and power limit (and writes it to --out when given).
+With P1, a torch.profiler trace of one call each of the
+headline's dxr and Cora's fwd on 'wgmma', padded and not: each kernel's
+device ms (the padding copy apart from the product).  With P4 or P6, the
+new kernel instances' ptxas registers and spills and their SASS opcodes,
+over the whole instance and a pair of the register loop.  Prints one JSON
+line with the card's name and power limit (and writes it to --out when
+given).
 """
 import argparse
 import ctypes
@@ -46,11 +58,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def build_parent(csrc):
-    """{name: library} of the parent's two sources, built in parallel."""
+# case -> the sources it builds
+CASE_SOURCES = {'a1': ('fsw_table_sort',), 'p1': ('probe_matmul',),
+                'p4': ('probe_stage', 'fsw_rank_fwd'),
+                'p6': ('probe_select',)}
+
+
+def build_parent(csrc, names):
+    """{name: library} of the parent's named sources, built in
+    parallel."""
     from fsw_gnn_tpu_torch import kernels
     procs = {}
-    for name in ('fsw_table_sort', 'probe_matmul'):
+    for name in names:
         out = os.path.join(csrc, f'lib{name}_parent.so')
         procs[name] = (out, subprocess.Popen(
             [kernels._nvcc(), *kernels.NVCC_FLAGS, '-o', out,
@@ -62,17 +81,25 @@ def build_parent(csrc):
         if proc.returncode:
             raise RuntimeError(f'nvcc failed for the parent {name}:\n{log}')
         libs[name] = ctypes.CDLL(out)
-    a1 = libs['fsw_table_sort'].fsw_table_sort_f32
-    a1.argtypes, a1.restype = [_P] * 5 + [_I] * 3 + [_P], _I
-    pm = libs['probe_matmul']
-    for kind, n_int, ws in (('fwd', 4, False), ('flat', 3, False),
-                            ('dxr', 3, False), ('dv', 3, True),
-                            ('dv_loop', 4, True)):
-        fn = getattr(pm, f'probe_matmul_{kind}_f32')
-        fn.argtypes = [_P] * (4 if ws else 3) + [_I] * n_int + [_P]
-        fn.restype = _I
-    pm.probe_matmul_dv_parts.argtypes = [_I]
-    pm.probe_matmul_dv_parts.restype = ctypes.c_longlong
+    if 'fsw_table_sort' in libs:
+        a1 = libs['fsw_table_sort'].fsw_table_sort_f32
+        a1.argtypes, a1.restype = [_P] * 5 + [_I] * 3 + [_P], _I
+    if 'probe_matmul' in libs:
+        pm = libs['probe_matmul']
+        for kind, n_int, ws in (('fwd', 4, False), ('flat', 3, False),
+                                ('dxr', 3, False), ('dv', 3, True),
+                                ('dv_loop', 4, True)):
+            fn = getattr(pm, f'probe_matmul_{kind}_f32')
+            fn.argtypes = [_P] * (4 if ws else 3) + [_I] * n_int + [_P]
+            fn.restype = _I
+        pm.probe_matmul_dv_parts.argtypes = [_I]
+        pm.probe_matmul_dv_parts.restype = ctypes.c_longlong
+    if 'probe_stage' in libs:
+        fn = libs['probe_stage'].probe_stage_f32
+        fn.argtypes, fn.restype = [_P] * 5 + [_I] * 4 + [_P], _I
+    if 'probe_select' in libs:
+        fn = libs['probe_select'].probe_select_f32
+        fn.argtypes, fn.restype = [_I] + [_P] * 3 + [_I] * 4 + [_P], _I
     return libs
 
 
@@ -211,6 +238,119 @@ def p1_cases(torch, libs, device_ms, dev):
     return res
 
 
+def p4_cases(torch, libs, device_ms, dev):
+    """P4 against the parent's, K2f in the same turns, at the script's
+    shape and a ragged tensor-map one."""
+    from fsw_gnn_tpu_torch.benchmarks import probe_emit_pipeline as P4
+    from fsw_gnn_tpu_torch.ops.fsw_rank import fsw_rank_aggregate
+    fn = libs['probe_stage'].probe_stage_f32
+
+    def parent(P, wn, pad, freqs):
+        out = torch.empty((P.shape[0], P.shape[2]), device=dev)
+        call(torch, fn, P, wn, pad, freqs, out, *P.shape, 0)
+        return out
+
+    res = {}
+    with torch.no_grad():
+        for S in (P4.S, 300):
+            args = P4.inputs(dev, S=S)
+            k2f = fsw_rank_aggregate(*args, with_dw=False)
+            if not (torch.equal(parent(*args), k2f) and torch.equal(
+                    P4.fsw_rank_aggregate_staged(*args), k2f)):
+                raise RuntimeError(f'P4 at S = {S}: the parent, the change '
+                                   f'and K2f part')
+            t = [device_ms(torch, f, 20)[0] for f in (
+                lambda: parent(*args),
+                lambda: P4.fsw_rank_aggregate_staged(*args),
+                lambda: fsw_rank_aggregate(*args, with_dw=False),
+                lambda: fsw_rank_aggregate(*args, with_dw=False),
+                lambda: P4.fsw_rank_aggregate_staged(*args),
+                lambda: parent(*args))]
+            R, B, _ = args[0].shape
+            res[f'S={S}'] = {
+                'shape': list(args[0].shape), 'loop': P4.stage_loop(B, S),
+                'turns_parent_change_k2f_k2f_change_parent': t,
+                'parent_ms': (t[0] + t[5]) / 2, 'change_ms': (t[1] + t[4]) / 2,
+                'k2f_ms': (t[2] + t[3]) / 2,
+                'bytes_bound_ms': P4.rank2_bound_ms(args[1], S)[0],
+                'pair_floor_ms': P4.pair_floor_ms(R, B, S)}
+            del args, k2f
+    return res
+
+
+def p6_cases(torch, libs, device_ms, dev):
+    """P6's three loop bodies against the parent's at the script's
+    shape."""
+    import numpy as np
+    from fsw_gnn_tpu_torch.benchmarks import probe_select_ceiling as P6
+    fn = libs['probe_select'].probe_select_f32
+
+    def parent(name, P, wn):
+        out = torch.empty((P.shape[0], P.shape[2]), device=dev)
+        call(torch, fn, P6.KERNEL_BODIES.index(name), P, wn, out, *P.shape,
+             P6.REP)
+        return out
+
+    rng = np.random.default_rng(0)
+    P = torch.from_numpy(rng.standard_normal((P6.R, P6.B, P6.S)).astype(
+        np.float32)).to(dev)
+    wn = torch.from_numpy(rng.random((P6.R, P6.B)).astype(np.float32)).to(dev)
+    res = {}
+    with torch.no_grad():
+        for name in P6.ISSUE_SLOTS:
+            want = parent(name, P, wn)
+            err = float((P6.probe_select(name, P, wn, P6.REP) - want).abs()
+                        .max()) / float(want.abs().max())
+            if not err <= P6.TOL_REL:
+                raise RuntimeError(f'P6 {name}: {err:.3e} of max |parent| '
+                                   f'from the parent')
+            t = turns(torch, device_ms, lambda: parent(name, P, wn),
+                      lambda: P6.probe_select(name, P, wn, P6.REP), 10)
+            res[name] = {'turns_parent_change': t,
+                         'parent_ms': (t[0] + t[3]) / 2,
+                         'change_ms': (t[1] + t[2]) / 2,
+                         'rel_err_vs_parent': err,
+                         'loop': P6.loop_of(name, P6.B),
+                         'issue_floor_ms': P6.issue_floor(
+                             name, P6.R, P6.B, P6.S, P6.REP),
+                         'shape': [P6.R, P6.B, P6.S, P6.REP]}
+    return res
+
+
+def instances():
+    """{lib: {instance: tag}} of the register loop's kernel instances."""
+    from fsw_gnn_tpu_torch.benchmarks import probe_select_ceiling as P6
+    return {'probe_select': {n: P6.instance_tag(n) for n in P6.ISSUE_SLOTS},
+            'probe_stage': {
+                f'{"tensor_map" if tm else "bulk"}/uniform_w={bool(u)}':
+                f'probe_stage_regs_kernelILb{tm}ELb{u}EE'
+                for tm in (0, 1) for u in (0, 1)}}
+
+
+def compiled(libs_used):
+    """ptxas' registers and spills and the SASS opcodes (whole instance,
+    and a pair: over the W x W pairs of one pass of the register loop) of
+    each register-loop instance of the libraries used."""
+    from fsw_gnn_tpu_torch.benchmarks import probe_select_ceiling as P6
+    out = {}
+    for lib, tags in instances().items():
+        if lib not in libs_used:
+            continue
+        ptx = P6.ptxas_of(lib, tags.values())
+        sass = P6.sass_of(lib, tags.values())
+        out[lib] = {}
+        for name, tag in tags.items():
+            rec = {'ptxas': ptx.get(tag)}
+            if 'error' in sass:
+                rec['sass'] = sass
+            else:
+                rec['sass'] = sass[tag]
+                rec['sass_per_pair'] = {k: v / P6.REGS_W ** 2 for k, v in
+                                        sass[tag].items() if v}
+            out[lib][name] = rec
+    return out
+
+
 def p1_traces(torch, dev):
     """{case: {kernel name: device ms of one call}} from a torch.profiler
     trace of one call each: K1's headline dxr and Cora's fwd on routine
@@ -239,22 +379,33 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--parent', required=True,
                     help="the parent's fsw_gnn_tpu_torch/csrc directory")
+    ap.add_argument('--cases', default='a1,p1,p4,p6',
+                    help='comma list of a1, p1, p4, p6')
     ap.add_argument('--out', help='also write the JSON line here')
     args = ap.parse_args(argv)
+    cases = args.cases.split(',')
+    if not set(cases) <= set(CASE_SOURCES):
+        ap.error(f'--cases takes {sorted(CASE_SOURCES)}')
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('needs an NVIDIA GPU')
     from chip_smoke import device_ms
     from fsw_gnn_tpu_torch import kernels
     from fsw_gnn_tpu_torch.benchmarks import _timing
-    kernels.build(['fsw_table_sort', 'probe_matmul'])
-    libs = build_parent(os.path.abspath(args.parent))
+    names = sorted({n for c in cases for n in CASE_SOURCES[c]})
+    kernels.build(names)
+    libs = build_parent(os.path.abspath(args.parent),
+                        [n for n in names if n != 'fsw_rank_fwd'])
     dev = torch.device('cuda')
     torch.backends.cuda.matmul.allow_tf32 = False
-    line = {'card': _timing.smi_line(),
-            'a1': a1_cases(torch, libs, device_ms, dev),
-            'p1': p1_cases(torch, libs, device_ms, dev),
-            'p1_traces': p1_traces(torch, dev)}
+    line = {'card': _timing.smi_line()}
+    runs = {'a1': a1_cases, 'p1': p1_cases, 'p4': p4_cases, 'p6': p6_cases}
+    for case in cases:
+        line[case] = runs[case](torch, libs, device_ms, dev)
+    if 'p1' in cases:
+        line['p1_traces'] = p1_traces(torch, dev)
+    if 'p4' in cases or 'p6' in cases:
+        line['compiled'] = compiled(names)
     text = json.dumps(line)
     print(text, flush=True)
     if args.out:

@@ -1049,7 +1049,8 @@ def test_bench_smem_need_matches_the_libraries(cuda_device):
     stage = _kernel('probe_stage')[1]['smem_bytes']
     for B in (2, 8, 16, 32, 64, 100, 128, 256, 447, 512, 1024, 2048):
         assert lanes(B) == table_sort_lanes(B), B
-        assert stage(B) == stage_smem_bytes(B), B
+        for S in (4, 36, 128, 132, 300):
+            assert stage(B, S) == stage_smem_bytes(B, S), (B, S)
     parts = _kernel('probe_matmul')[1]['wgmma_parts']
     for shape in list(P1.SHAPES) + [('ragged', 301, 3, 1433, 127)]:
         for kind in P1.KINDS:
@@ -1129,48 +1130,101 @@ def test_table_gather_matches_plain_and_the_p_entry(cuda_device, B):
                        got)
 
 
+# P4's widths: today's four; B = W and W + 1 of the register loop; S not a
+# multiple of its 128-slice tiles (the tensor map's ragged edge), alone and
+# with weight rows not 16-byte aligned (B % 4 != 0: 4-byte copies); a tensor
+# map over whole tiles; a block narrower than a warp's multiple
+P4_SHAPES = [(32, 128), (13, 40), (100, 196), (8, 64), (33, 128), (32, 300),
+             (13, 300), (30, 256), (31, 36), (1, 4)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('B,S', [(32, 128), (13, 40), (100, 196), (8, 64)])
+@pytest.mark.parametrize('B,S', P4_SHAPES)
 @pytest.mark.parametrize('uniform_w', [False, True])
 def test_staged_forward_is_k2f_bit_for_bit(cuda_device, B, S, uniform_w):
     """P4's staged kernel against K2f on the same inputs, padded entries
-    holding NaN projections (both skip them): the same bits."""
+    holding NaN projections (both skip them): the same bits, on the loop
+    and staging the library reports for the width (`stage_loop`)."""
     from fsw_gnn_tpu_torch.benchmarks.probe_emit_pipeline import (
-        fsw_rank_aggregate_staged)
+        fsw_rank_aggregate_staged, stage_loop)
     rng = np.random.default_rng(B + S)
     args = [a.to(cuda_device) for a in _table_inputs(rng, 300, B, S)]
     if uniform_w:
         args[1] = torch.where(args[1] > 0, 1.0 / B, 0.0).contiguous()
     args[0] = torch.where(args[1][:, :, None] == 0, float('nan'),
                           args[0]).contiguous()
+    loop = stage_loop(B, S)
     before = fsw_rank_aggregate_staged.launches
+    on_loop = fsw_rank_aggregate_staged.loops.get(loop, 0)
     got = fsw_rank_aggregate_staged(*args, uniform_w=uniform_w)
     want = fsw_rank_aggregate(*args, uniform_w=uniform_w, with_dw=False)
     torch.cuda.synchronize()
     assert fsw_rank_aggregate_staged.launches == before + 1
+    assert fsw_rank_aggregate_staged.loops[loop] == on_loop + 1
+    assert loop.startswith('registers') == (B <= 32)
     assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
-def test_select_bodies_match_plain(cuda_device):
-    """P6's 21 bodies and its two pipe bodies against their plain versions
-    on the card: within 1e-5 of max |plain| (sinf/cosf and fused
-    multiply-adds against PyTorch's kernels)."""
+def test_staged_forward_walks_many_rows_per_block(cuda_device):
+    """More rows than the card holds blocks (each block walks rows through
+    its three-stage ring many times over, the barriers' phases wrapping):
+    K2f's bits at the probe's width, both stagings."""
+    from fsw_gnn_tpu_torch.benchmarks.probe_emit_pipeline import (
+        fsw_rank_aggregate_staged)
+    for S in (128, 260):
+        args = [a.to(cuda_device) for a in
+                _table_inputs(np.random.default_rng(S), 5003, 32, S)]
+        got = fsw_rank_aggregate_staged(*args)
+        assert torch.equal(got, fsw_rank_aggregate(*args, with_dw=False)), S
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B', [32, 40])
+def test_select_bodies_match_plain(cuda_device, B):
+    """P6's 21 bodies and its three pipe bodies against their plain
+    versions on the card, at the probe's width (the loop bodies on the
+    register loop) and at one above it (every body in shared memory):
+    within 1e-5 of max |plain| (sinf/cosf and fused multiply-adds against
+    PyTorch's kernels); each launch counted on the loop `loop_of` names."""
     from fsw_gnn_tpu_torch.benchmarks import probe_select_ceiling as P6
     rng = np.random.default_rng(6)
-    P = torch.from_numpy(rng.standard_normal((64, 32, 130)).astype(
+    P = torch.from_numpy(rng.standard_normal((64, B, 130)).astype(
         np.float32)).to(cuda_device)
-    wn = torch.from_numpy(rng.random((64, 32)).astype(np.float32)).to(
+    wn = torch.from_numpy(rng.random((64, B)).astype(np.float32)).to(
         cuda_device)
     before = P6.probe_select.launches
+    start = dict(P6.probe_select.loops)
+    loops = dict(start)
     for name in P6.KERNEL_BODIES:
         got = P6.probe_select(name, P, wn, 2)
         want = P6.probe_select_plain(name, P, wn, 2)
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-5 * want.abs().max().item(),
                                    msg=name)
+        loop = P6.loop_of(name, B)
+        loops[loop] = loops.get(loop, 0) + 1
+        assert P6.probe_select.loops == loops, name
     torch.cuda.synchronize()
     assert P6.probe_select.launches == before + len(P6.KERNEL_BODIES)
+    on_registers = loops.get('registers', 0) - start.get('registers', 0)
+    assert on_registers == (3 if B <= 32 else 0)
+
+
+@pytest.mark.cuda
+def test_probe_loops_match_the_libraries(cuda_device):
+    """The libraries' own choice of loop (`probe_stage_loop`,
+    `probe_select_loop`) against the scripts' mirrors, across widths."""
+    from fsw_gnn_tpu_torch.benchmarks import probe_emit_pipeline as P4
+    from fsw_gnn_tpu_torch.benchmarks import probe_select_ceiling as P6
+    from fsw_gnn_tpu_torch.ops.fsw_rank import _kernel
+    stage = _kernel('probe_stage')[1]['loop']
+    select = _kernel('probe_select')[1]['loop']
+    for B in (1, 8, 13, 31, 32, 33, 64, 100):
+        for S in (4, 128, 132, 1000):
+            assert P4.LOOPS[stage(B, S)] == P4.stage_loop(B, S), (B, S)
+        for i, name in enumerate(P6.KERNEL_BODIES):
+            assert P6.LOOPS[select(i, B)] == P6.loop_of(name, B), (B, name)
 
 
 # ---- K3's probes: P5's loops, P2's stages, K3's packed form -----------------

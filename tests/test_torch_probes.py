@@ -115,10 +115,11 @@ def test_p6_plain_bodies_match_the_jax_probe(jax_bodies, name):
 
 @pytest.mark.parametrize('name', tuple(P6.PIPE_BODIES))
 def test_p6_pipe_bodies_match_a_numpy_loop(name):
-    """The two pipe bodies (not of the TPU table) against their steps
+    """The three pipe bodies (not of the TPU table) against their steps
     written out in numpy float32: NI chains from P + 0.25 k - 1, each
-    PIPE_STEPS steps of v = v a + P (a = 0.5 + 0.25 w) or of
-    v = P if v < w else w - P, summed over k."""
+    PIPE_STEPS steps of v = v a + P (a = 0.5 + 0.25 w), of
+    v = P if v < w else w - P, or of v = P + (w - P) [v < w], summed
+    over k."""
     P, wn = _probe_inputs()
     w = np.broadcast_to(wn[:, :, None], P.shape)
     a, z = np.float32(0.5) + np.float32(0.25) * w, w - P
@@ -126,7 +127,12 @@ def test_p6_pipe_bodies_match_a_numpy_loop(name):
     for k in range(P6.NI):
         v = P + np.float32(0.25 * k - 1.0)
         for _ in range(P6.PIPE_STEPS):
-            v = v * a + P if name == 'pipe_ffma' else np.where(v < w, P, z)
+            if name == 'pipe_ffma':
+                v = v * a + P
+            elif name == 'pipe_rank':
+                v = P + z * (v < w).astype(np.float32)
+            else:
+                v = np.where(v < w, P, z)
         want = want + v
     got = P6.PIPE_BODIES[name][0](torch.from_numpy(P), torch.from_numpy(wn),
                                   None).numpy()
