@@ -34,6 +34,7 @@ from .embedding import FSWConfig, promoted
 from .modules import FSWEmbedding
 from .ops.coherence import minimize_mutual_coherence
 from .registry import register_layer, register_pooling
+from .utils.profiling import spanned
 
 
 def leaky_relu_02(x):
@@ -186,6 +187,7 @@ class _MLPHead(nn.Module):
             self.rates.append(dropout_final if is_final else dropout_hidden)
             in_d = out_d
 
+    @spanned('fsw.mlp_head')
     def forward(self, x, generator: Optional[torch.Generator] = None):
         """x (..., in_dim) of any float type: each Linear and BatchNorm
         computes in its own parameters' type, as flax's Dense(dtype=...)
@@ -312,6 +314,7 @@ class FSWConv(nn.Module):
         kwargs.update(config)
         return cls(**kwargs)
 
+    @spanned('fsw.conv')
     def forward(self, vertex_features, graph, *, slice_chunk=None,
                 recipient_features=None, aggregate: str = 'auto',
                 proj_gather_fn=None, exchange_chunks: int = 4,

@@ -57,7 +57,7 @@ from .ops.fsw_rank import (fsw_rank_aggregate, fsw_rank_aggregate_cart,
 from .ops.segcumsum import segcumsum_rows, segment_boundaries
 from .ops.segment import (rows_gather, segment_expand, segment_lengths,
                           segment_sort_fused, segment_sum)
-from .utils.profiling import named_scope
+from .utils.profiling import count, gauge_max, named_scope, span, spanned
 
 # the widest bucket the JAX package routes to its rank kernels (its
 # `RANK_AGGREGATE_MAX_BUCKET_NO_DW`): the kernels hold a whole row in a
@@ -437,10 +437,26 @@ def table_weights(w, cfg: FSWConfig):
     return w_sum, w / w_sum_padded[..., None], pad_norm
 
 
+def _gather(src, table):
+    """src[table.idx], in the span `fsw.gather`, counted: its entries, its
+    padding and, where autograd differentiates `src`, the most entries one
+    sender row takes (the table's `pad_entries` and `hot_row_entries`,
+    where the layout functions of graph.py computed them)."""
+    with span('fsw.gather'):
+        out = src[table.idx]
+    count('gather.entries', table.idx.numel())
+    if table.pad_entries is not None:
+        count('gather.pad_entries', table.pad_entries)
+    if (table.hot_row_entries is not None and torch.is_grad_enabled()
+            and src.requires_grad):
+        gauge_max('gather.hot_row_entries', table.hot_row_entries)
+    return out
+
+
 def gather_rows(X, table, cfg: FSWConfig):
     """The (R, B, d_in + d_edge) sender rows of a table: X gathered by
     `table.idx`, edge features appended."""
-    Z = X[table.idx]                                           # (R, B, d_in)
+    Z = _gather(X, table)                                      # (R, B, d_in)
     if cfg.d_edge > 0:
         if table.edge_feat is None:
             raise ValueError('the table has no edge features')
@@ -495,7 +511,7 @@ def _unfused_block(X, table, wn, pad_norm, proj_block, f_block,
     by the table, then `bucket_quadrature` by `agg` (K2 / K4, or sort).
     Returns (R, S_blk) (or (R, S_blk, F))."""
     Xp = _mm(X, proj_block[:, :cfg.d_in].t())                  # (N, S_blk)
-    P = Xp[table.idx]                                          # (R, B, S_blk)
+    P = _gather(Xp, table)                                     # (R, B, S_blk)
     if cfg.d_edge > 0:
         if table.edge_feat is None:
             raise ValueError('the table has no edge features')
@@ -521,13 +537,24 @@ def fsw_embed_table(X, table, projVecs, freqs, cfg: FSWConfig,
     gradient (the kernel skips that loop), and only then is
     `table.uniform_w` honoured (the flag is detected once, at build
     time)."""
-    dt = X.dtype
     S = cfg.nSlices
     s_eff = S if slice_chunk is None else min(slice_chunk, S)
     agg = _resolve_aggregate(aggregate, cfg, table.bucket_size, s_eff,
                              weights_grad,
                              table.idx.numel() / max(X.shape[0], 1),
                              table.idx.device)
+    with span('fsw.embed.table', route=agg, B=table.bucket_size,
+              R=table.idx.shape[0]):
+        return _embed_table(X, table, projVecs, freqs, cfg, agg, bias,
+                            total_mass_scale, slice_chunk, return_raw,
+                            weights_grad)
+
+
+def _embed_table(X, table, projVecs, freqs, cfg: FSWConfig, agg: str,
+                 bias, total_mass_scale, slice_chunk, return_raw,
+                 weights_grad):
+    """`fsw_embed_table` on the route `agg` that it resolved."""
+    dt = X.dtype
     w_sum, wn, pad_norm = table_weights(table.weight, cfg)
 
     # the fused-projection route gathers the raw sender rows (R, B, D) and
@@ -552,6 +579,7 @@ def fsw_embed_table(X, table, projVecs, freqs, cfg: FSWConfig,
     return _finalize(emb.to(dt), w_sum, cfg, bias, total_mass_scale)
 
 
+@spanned('fsw.embed.multi_table')
 def fsw_embed_multi_table(X, mt, projVecs, freqs, cfg: FSWConfig,
                           bias=None, total_mass_scale=None,
                           slice_chunk: Optional[int] = None,
@@ -692,6 +720,7 @@ def graph_weights(graph, cfg: FSWConfig, dst_len):
             segment_expand(pad_norm, dst, lengths=dst_len))
 
 
+@spanned('fsw.embed.graph')
 def fsw_embed_graph(X, graph, projVecs, freqs, cfg: FSWConfig,
                     bias=None, total_mass_scale=None,
                     slice_chunk: Optional[int] = None):

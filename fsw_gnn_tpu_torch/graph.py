@@ -205,6 +205,11 @@ class NeighborTable:
     at build time: replace `weight` afterwards and it goes stale, so
     re-detect with `_detect_uniform_w` or set it False.  Differentiated
     weights are gated off it in `embedding.fsw_embed_table`.
+
+    pad_entries (the entries that hold no edge) and hot_row_entries (the
+    most entries any one sender takes, padding included) are counted once
+    by `to_neighbor_table` and `to_multi_table`, for the gather's counters
+    (`embedding._gather`); None where a table was made otherwise.
     """
     idx: np.ndarray
     weight: np.ndarray
@@ -214,6 +219,8 @@ class NeighborTable:
     num_recipients: int = 0
     num_edges: int = 0
     uniform_w: bool = False
+    pad_entries: Optional[int] = None
+    hot_row_entries: Optional[int] = None
 
     @property
     def bucket_size(self) -> int:
@@ -236,6 +243,13 @@ def _detect_uniform_w(wt: np.ndarray) -> bool:
         return True
     row_max = wt.max(axis=1, keepdims=True)
     return bool(np.all((wt == 0) | (wt == row_max)) and row_max.min() >= 0)
+
+
+def _gather_counts(idx: np.ndarray, real: int) -> dict:
+    """A table's pad_entries and hot_row_entries from its idx and the
+    number of entries that hold an edge."""
+    hot = int(np.bincount(idx.ravel()).max()) if idx.size else 0
+    return dict(pad_entries=int(idx.size - real), hot_row_entries=hot)
 
 
 def _degrees(graph: Graph):
@@ -279,7 +293,8 @@ def to_neighbor_table(graph: Graph, bucket_size: Optional[int] = None,
     return NeighborTable(
         idx=idx, weight=wt, in_degrees=np.asarray(graph.in_degrees),
         edge_feat=eft, num_nodes=graph.num_nodes, num_recipients=R,
-        num_edges=E_real, uniform_w=_detect_uniform_w(wt))
+        num_edges=E_real, uniform_w=_detect_uniform_w(wt),
+        **_gather_counts(idx, E_real))
 
 
 @dataclasses.dataclass
@@ -389,11 +404,12 @@ def to_multi_table(graph: Graph, min_bucket: int = 8,
         wt[lr, pos_e[sel]] = w[:E_real][sel]
         if eft is not None:
             eft[lr, pos_e[sel]] = ef[:E_real][sel]
+        real = int(deg[rows].sum())
         tables.append(NeighborTable(
             idx=idx, weight=wt, in_degrees=np.zeros(Rc, w.dtype),
             edge_feat=eft, num_nodes=graph.num_nodes, num_recipients=Rc,
-            num_edges=int(deg[rows].sum()),
-            uniform_w=_detect_uniform_w(wt)))
+            num_edges=real, uniform_w=_detect_uniform_w(wt),
+            **_gather_counts(idx, real)))
         row_ids.append(ids.astype(np.int32))
 
     return MultiTable(tables=tuple(tables), row_ids=tuple(row_ids),

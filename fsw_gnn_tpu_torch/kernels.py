@@ -27,6 +27,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from .utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -114,12 +116,14 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built first if needed."""
     lib = _libs.get(name)
     if lib is None:
-        build([name])
-        with _lock:
-            lib = _libs.get(name)
-            if lib is None:
-                lib = ctypes.CDLL(str(_target(name)))
-                _libs[name] = lib
+        with span('fsw.setup.kernel_load', library=name,
+                  built=not _target(name).exists()):
+            build([name])
+            with _lock:
+                lib = _libs.get(name)
+                if lib is None:
+                    lib = ctypes.CDLL(str(_target(name)))
+                    _libs[name] = lib
     return lib
 
 
@@ -142,19 +146,22 @@ def load_host(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         target = _host_target(name)
-        if not target.exists():
-            cxx = shutil.which('c++')
-            if cxx is None:
-                raise KernelError(f'no host C++ compiler (c++) on PATH: '
-                                  f'{name}.cpp cannot be built')
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = target.with_suffix(f'.{os.getpid()}.tmp')
-            proc = subprocess.run(
-                [cxx, *CXX_FLAGS, '-o', str(tmp), str(CSRC / key)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            if proc.returncode != 0:
-                raise KernelError(f'c++ failed for {key} '
-                                  f'(exit {proc.returncode}):\n{proc.stdout}')
-            os.replace(tmp, target)
-        lib = _libs[key] = ctypes.CDLL(str(target))
+        with span('fsw.setup.kernel_load', library=key,
+                  built=not target.exists()):
+            if not target.exists():
+                cxx = shutil.which('c++')
+                if cxx is None:
+                    raise KernelError(f'no host C++ compiler (c++) on PATH: '
+                                      f'{name}.cpp cannot be built')
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = target.with_suffix(f'.{os.getpid()}.tmp')
+                proc = subprocess.run(
+                    [cxx, *CXX_FLAGS, '-o', str(tmp), str(CSRC / key)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                if proc.returncode != 0:
+                    raise KernelError(f'c++ failed for {key} (exit '
+                                      f'{proc.returncode}):\n{proc.stdout}')
+                os.replace(tmp, target)
+            lib = _libs[key] = ctypes.CDLL(str(target))
     return lib

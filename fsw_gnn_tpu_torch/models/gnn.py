@@ -18,6 +18,7 @@ from torch import nn
 
 from ..conv import FSWConv, FSWReadout, leaky_relu_02
 from ..device import resolve_device
+from ..utils.profiling import span
 
 class FSWGNN(nn.Module):
     """N-layer FSW-GNN for node-level prediction.
@@ -87,12 +88,14 @@ class FSWGNN(nn.Module):
         if gather_fn is not None and proj_gather_fn is not None:
             raise ValueError('pass gather_fn or proj_gather_fn, not both')
         x = vertex_features
-        for conv in self.convs:
-            senders = x if gather_fn is None else gather_fn(x)
-            x = conv(senders, graph, slice_chunk=self.slice_chunk,
-                     recipient_features=x, aggregate=self.aggregate,
-                     proj_gather_fn=proj_gather_fn,
-                     exchange_chunks=exchange_chunks, generator=generator)
+        for i, conv in enumerate(self.convs):
+            with span('fsw.gnn.layer', layer=i):
+                senders = x if gather_fn is None else gather_fn(x)
+                x = conv(senders, graph, slice_chunk=self.slice_chunk,
+                         recipient_features=x, aggregate=self.aggregate,
+                         proj_gather_fn=proj_gather_fn,
+                         exchange_chunks=exchange_chunks,
+                         generator=generator)
         return x
 
 

@@ -21,6 +21,7 @@ from .embedding import (FSWConfig, fsw_embed_graph, fsw_embed_graph_dense,
                         fsw_embed_table)
 from .graph import Graph, MultiTable, NeighborTable
 from .params import bias_shape, generate_freqs, generate_proj_vecs
+from .utils.profiling import spanned
 
 
 def spread_freqs_at_interval(freqs, center: float, radius: float):
@@ -79,6 +80,7 @@ class FSWEmbedding(nn.Module):
                 torch.tensor(cfg.total_mass_encoding_scale),
                 cfg.learnable_total_mass_encoding_scale)
 
+    @spanned('fsw.embed')
     def forward(self, X, W=None, *, graph=None, X_edge=None,
                 graph_mode: bool = False, w_mode: str = 'unit',
                 slice_chunk=None, aggregate: str = 'auto',

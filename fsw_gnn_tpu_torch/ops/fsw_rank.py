@@ -71,6 +71,7 @@ import torch
 from torch import Tensor
 
 from ..kernels import KernelError
+from ..utils.profiling import first_op
 
 _FN = {}
 
@@ -581,8 +582,8 @@ def fsw_rank_aggregate_bwd(P, wn, pad_norm, freqs, g,
     `fsw_rank_aggregate_bwd.launches`."""
     if _device(P) == 'cuda':
         _fits('fsw_rank_bwd', P.shape[1], with_dw=with_dw)
-    return _grads(_rank_bwd_op(P, wn, pad_norm, freqs, g, bool(uniform_w),
-                               bool(with_dw)), with_dw)
+    return _grads(first_op(_rank_bwd_op, P, wn, pad_norm, freqs, g,
+                           bool(uniform_w), bool(with_dw)), with_dw)
 
 
 def _setup(ctx, inputs, output):
@@ -635,8 +636,8 @@ def fsw_rank_aggregate(P, wn, pad_norm, freqs, uniform_w: bool = False,
             # refuse now a width the backward could not take
             _fits('fsw_rank_bwd', B, with_dw=with_dw and (
                 wn.requires_grad or pad_norm.requires_grad))
-    return _rank_op(P, wn, pad_norm, freqs, bool(uniform_w) and not with_dw,
-                    bool(with_dw))
+    return first_op(_rank_op, P, wn, pad_norm, freqs,
+                    bool(uniform_w) and not with_dw, bool(with_dw))
 
 
 # ---- K4: the cartesian weighted-rank aggregation ---------------------------
@@ -729,8 +730,8 @@ def fsw_rank_aggregate_cart_bwd(P, wn, pad_norm, freqs, g,
     if _device(P) == 'cuda':
         _fits('fsw_rank_cart_bwd', P.shape[1], freqs.shape[1], with_dw,
               bool(uniform_w) and not with_dw)
-    return _grads(_rank_cart_bwd_op(P, wn, pad_norm, freqs, g,
-                                    bool(uniform_w), bool(with_dw)), with_dw)
+    return _grads(first_op(_rank_cart_bwd_op, P, wn, pad_norm, freqs, g,
+                           bool(uniform_w), bool(with_dw)), with_dw)
 
 
 _rank_cart_op.register_autograd(_backward(fsw_rank_aggregate_cart_bwd),
@@ -758,7 +759,8 @@ def fsw_rank_aggregate_cart(P, wn, pad_norm, freqs, uniform_w: bool = False,
             # refuse now a width the backward could not take
             _fits('fsw_rank_cart_bwd', B, F, with_dw and (
                 wn.requires_grad or pad_norm.requires_grad), unif)
-    return _rank_cart_op(P, wn, pad_norm, freqs, unif, bool(with_dw))
+    return first_op(_rank_cart_op, P, wn, pad_norm, freqs, unif,
+                    bool(with_dw))
 
 
 # ---- K1: the fused-projection weighted-rank aggregation --------------------
@@ -852,8 +854,8 @@ def fsw_rank_aggregate_proj_bwd(Z, wn, pad_norm, freqs, V, g,
     `fsw_rank_aggregate_proj_bwd.launches`."""
     if _device(Z) == 'cuda':
         _fits('fsw_rank_bwdp', Z.shape[1], with_dw=with_dw)
-    return _grads(_rank_proj_bwd_op(Z, wn, pad_norm, freqs, V, g,
-                                    bool(uniform_w), bool(with_dw)), with_dw)
+    return _grads(first_op(_rank_proj_bwd_op, Z, wn, pad_norm, freqs, V, g,
+                           bool(uniform_w), bool(with_dw)), with_dw)
 
 
 _rank_proj_op.register_autograd(_backward(fsw_rank_aggregate_proj_bwd),
@@ -897,8 +899,8 @@ def fsw_rank_aggregate_proj(Z, wn, pad_norm, freqs, V,
             # refuse now a width the backward could not take
             _fits('fsw_rank_bwdp', B, with_dw=with_dw and (
                 wn.requires_grad or pad_norm.requires_grad))
-    return _rank_proj_op(Z, wn, pad_norm, freqs, V,
-                         bool(uniform_w) and not with_dw, bool(with_dw))
+    return first_op(_rank_proj_op, Z, wn, pad_norm, freqs, V,
+                    bool(uniform_w) and not with_dw, bool(with_dw))
 
 
 fsw_rank_aggregate.launches = 0

@@ -50,6 +50,7 @@ import torch
 from torch import Tensor
 
 from ..kernels import KernelError
+from ..utils.profiling import first_op
 
 _FN = {}
 # (device index, stream) -> (workspace, capacity in tiles); the workspaces
@@ -328,9 +329,9 @@ def segcumsum(values, segment_ids=None, *, boundaries=None,
     CUDA tensors: kernel K3 (float32 or float64), or an error; each launch
     adds one to `segcumsum.launches`.  Differentiable in `values`."""
     _segments(values, segment_ids, boundaries)
-    return _segcumsum_op(values, segment_ids, boundaries,
-                         None if max_seg_size is None else int(max_seg_size),
-                         False)
+    return first_op(_segcumsum_op, values, segment_ids, boundaries,
+                    None if max_seg_size is None else int(max_seg_size),
+                    False)
 
 
 def segcumsum_rows(values, boundaries):
@@ -340,7 +341,7 @@ def segcumsum_rows(values, boundaries):
     float64, one launch for all rows, counted in `segcumsum.launches`), or
     an error.  Differentiable in `values`."""
     _rows(values, boundaries)
-    return _segcumsum_rows_op(values, boundaries, False)
+    return first_op(_segcumsum_rows_op, values, boundaries, False)
 
 
 segcumsum.launches = 0

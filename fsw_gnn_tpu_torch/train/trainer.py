@@ -54,7 +54,7 @@ from ..parallel import (make_distributed_forward,
 from ..parallel.collectives import all_reduce_sum
 from ..parallel.dist import gather_recipient_values
 from ..parallel.runtime import broadcast_module, broadcast_object
-from ..utils.profiling import trace
+from ..utils.profiling import span, trace
 
 _KEEP = 3
 _CKPT = re.compile(r'^step_(\d+)\.pt$')
@@ -246,24 +246,29 @@ class Trainer:
         """One optimizer step on the masked mean cross-entropy, in train
         mode (dropout on, BatchNorm on batch statistics, updating its
         running ones)."""
-        for group in self.opt.param_groups:
-            group['lr'] = self.schedule(self.step_count)
-        if self.distributed:
-            loss = self._step(self.X, self.labels, self.train_mask,
-                              generator=self.generator)
+        with span('fsw.train.step', step=self.step_count):
+            for group in self.opt.param_groups:
+                group['lr'] = self.schedule(self.step_count)
+            if self.distributed:
+                loss = self._step(self.X, self.labels, self.train_mask,
+                                  generator=self.generator)
+            else:
+                self.model.train()
+                self.opt.zero_grad(set_to_none=True)
+                with span('fsw.train.forward'):
+                    logits = self.model(self.X, self.compute_graph,
+                                        generator=self.generator)
+                with span('fsw.train.loss'):
+                    s, c = masked_softmax_cross_entropy(logits, self.labels,
+                                                        self.train_mask)
+                    loss = s / torch.clamp(c, min=1.0)
+                with span('fsw.train.backward'):
+                    loss.backward()
+                with span('fsw.train.optimizer'):
+                    self.opt.step()
             self.step_count += 1
-            return loss.item()
-        self.model.train()
-        self.opt.zero_grad(set_to_none=True)
-        logits = self.model(self.X, self.compute_graph,
-                            generator=self.generator)
-        s, c = masked_softmax_cross_entropy(logits, self.labels,
-                                            self.train_mask)
-        loss = s / torch.clamp(c, min=1.0)
-        loss.backward()
-        self.opt.step()
-        self.step_count += 1
-        return loss.item()
+            with span('fsw.train.readback'):
+                return loss.item()
 
     def predict(self) -> np.ndarray:
         """Logits of every node, in eval mode: one forward on the compute
