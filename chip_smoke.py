@@ -50,8 +50,10 @@ Phases (any failure exits non-zero before the last line is printed):
      dyadic grid and K2b with with_dw off (the path's) and on.  Then
      `fit`: the initial loss against a CPU forward of the same model, the
      loss falling, the final train accuracy above 0.9, each kernel
-     launched (its tables x passes) times; then one epoch's parts timed,
-     and each rank kernel on every table beside its bound;
+     launched (its tables x passes) times, the gather backward
+     (`gather_bwd`) the same nonzero number of times every step; then one
+     epoch's parts timed, and each rank kernel on every table beside its
+     bound;
   8. multisets: the reference demo's FSWEmbedding (d = 20, n = 100, 1000
      slices, random frequencies, seed 0) on 8 x 16 x 16 = 2048 multisets
      (X normal, W a softmax of normal values), so K2 sees P of 819 MB.
@@ -320,10 +322,20 @@ Phases (any failure exits non-zero before the last line is printed):
      and none in a replay, K3 on the CSR Graph; then bench.py's own loss,
      sum(out**2), for four eager steps, printed as a record (`bench:`
      line);
- 43. one JSON line listing the fifteen kernels with their launches,
-     errors, times and bounds (the launches of the seven of the model's
+ 43. the tables' gather backward (`gather_bwd_phase`): at every degree
+     class of the ogbn-arxiv-shaped graph's layout (`arxiv_data`,
+     `auto_layout`) in float32 at D = 64, the kernel (`gather_bwd`)
+     against its plain version on the CPU bit for bit, twice, and against
+     float64 sums, then the kernel, the plain version on the card and
+     PyTorch's index backward (`index_put_` with accumulate, what the
+     backward of X[idx] runs) on the same inputs, timed beside the bytes'
+     bound (dZ, the order and the partial rows read once, dX and the
+     partials written once) and the launches a call (`gather_bwd:` line);
+ 44. one JSON line listing the sixteen kernels with their launches,
+     errors, times and bounds (the launches of seven of the model's
      paths are those of the main-path runs 4, 6, 7, 8, 9, 10, 12-16, 18,
-     19, 20, 24, 26-30, 33, 34, 36, 37 and 42 together, the five of the
+     19, 20, 24, 26-30, 33, 34, 36, 37 and 42 together, the gather
+     backward's those of run 7's fit, the five of the
      benchmark folder (A1's two entries apart) those of phase 38's
      scripts, the three of K3's
      probes those of phase 39's; K2's times and bounds at phase 8's
@@ -332,7 +344,7 @@ Phases (any failure exits non-zero before the last line is printed):
      forward on the 'wgmma' routine (the 'k1' routine's beside it), P4's at the probe's shape, P6's of its 'rank' body, P5's of
      its 'fma' loop, P2's of its 'full' stage, P3's packed form at its
      probe's shape);
- 44. the last line: {"ok": true, "device": {...}}.
+ 45. the last line: {"ok": true, "device": {...}}.
 
 Tolerances:
   * K1f against its plain version, both on the card in float32:
@@ -518,7 +530,7 @@ MS_LEAD, MS_N, MS_D, MS_S, MS_CPU_SETS = (8, 16, 16), 100, 20, 1000, 128
 TABLE_CHUNK = 64
 KERNEL_NAMES = ('fsw_rank_fwdp', 'fsw_rank_bwdp', 'fsw_rank_fwd',
                 'fsw_rank_bwd', 'segcumsum', 'fsw_rank_cart_fwd',
-                'fsw_rank_cart_bwd')
+                'fsw_rank_cart_bwd', 'gather_bwd')
 CART_R, CART_B, CART_S, CART_F, CART_ZERO = 8192, 32, 128, 8, 0.2
 K3_N, K3_ULPS, K3_ITEMS = 1 << 24, 8, 16
 K3_CASES = (('avg 32', 32, 'float32'), ('avg 4096', 4096, 'float32'),
@@ -543,6 +555,7 @@ SCATTER_OPS = ('aten::index_add', 'aten::index_add_', 'aten::scatter_add',
                'aten::scatter_add_', 'aten::_index_put_impl_')
 ARXIV_NODES, ARXIV_EDGES = 169343, 1166243      # ogbn-arxiv's published
 ARXIV_FEATURES, ARXIV_CLASSES = 128, 40          # counts, and OGB's split
+ARXIV_HIDDEN = 64        # the width the Trainer's hidden layers gather
 ARXIV_SPLIT = (90941, 29799, 48603)
 ARXIV_SAME_CLASS, ARXIV_MEAN_SCALE = 0.8, 0.5
 MB_BATCH, MB_FANOUTS, MB_HIDDEN = 1024, (10, 10), (64,)
@@ -1289,6 +1302,7 @@ def trainer_phase(torch, T, dev, counts, errs):
     """Phase 7: check the rank kernels on every table of the Trainer's
     path, fit the Trainer on the card, and print its numbers."""
     from fsw_gnn_tpu_torch.ops import fsw_rank as R
+    from fsw_gnn_tpu_torch.ops.gather_bwd import gather_bwd
     from fsw_gnn_tpu_torch.data import load
     from fsw_gnn_tpu_torch.train import masked_softmax_cross_entropy
     data = load('cora')
@@ -1331,9 +1345,15 @@ def trainer_phase(torch, T, dev, counts, errs):
              'fsw_rank_aggregate', 'fsw_rank_aggregate_bwd')
     for name in names:
         getattr(R, name).launches = 0
+    gather_bwd.launches = 0
     out = tr.fit()
     torch.cuda.synchronize()
     n_f, n_b, n_f2, n_b2 = (getattr(R, name).launches for name in names)
+    n_g = gather_bwd.launches
+    if n_g == 0 or n_g % TRAIN_EPOCHS:
+        fail(f'trainer: the gather backward launched {n_g} times in '
+             f'{TRAIN_EPOCHS} steps')
+    counts['gather_bwd'] += n_g
     n_evals = TRAIN_EPOCHS // TRAIN_EVAL_EVERY + 1     # and the final one
     want = [len(c) * k for c in (calls, calls2)
             for k in (TRAIN_EPOCHS + n_evals, TRAIN_EPOCHS)]
@@ -1377,6 +1397,7 @@ def trainer_phase(torch, T, dev, counts, errs):
         'layers': n_layers, 'degree_classes': n_classes,
         'launches_k1f': n_f, 'launches_k1b': n_b,
         'launches_k2f': n_f2, 'launches_k2b': n_b2,
+        'launches_gather_bwd': n_g,
         'epochs': out['epochs_run'],
         'seconds_per_epoch_fit': out['seconds'] / out['epochs_run'],
         'epoch_ms_train_only': epoch_ms,
@@ -3486,6 +3507,73 @@ def arxiv_data(seed=0):
         val_mask=masks[1], test_mask=masks[2])
 
 
+def gather_bwd_phase(torch, T, dev, smi_line, errs):
+    """Phase 43: the tables' gather backward at arxiv's degree classes.
+    Returns the kernel line's entry (ms, plain, bound and library ms of
+    one layer's classes together); its launches are phase 7's."""
+    from fsw_gnn_tpu_torch.ops.gather_bwd import (gather_bwd,
+                                                  gather_bwd_plain)
+    data = arxiv_data()
+    g = T.from_edge_index(data.edge_index, data.num_nodes)
+    lay = T.auto_layout(g)
+    tables = lay.tables if isinstance(lay, T.MultiTable) else (lay,)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    worst = 0.0
+    for t in tables:
+        o, N, D = t.gather_order, g.num_nodes, ARXIV_HIDDEN
+        M = t.idx.size
+        grad = torch.randn(M, D, device=dev, generator=gen)
+        od = o.to(dev)
+        idx = torch.as_tensor(t.idx).reshape(-1).long().to(dev)
+        n0 = gather_bwd.launches
+        got = gather_bwd(grad, od)
+        again = gather_bwd(grad, od)
+        torch.cuda.synchronize()
+        launches = (gather_bwd.launches - n0) // 2
+        want = gather_bwd_plain(grad.cpu(), o)
+        if not (torch.equal(got.cpu(), want) and torch.equal(got, again)):
+            fail(f'gather_bwd: B = {t.bucket_size}: the kernel differs from '
+                 f'its plain version or from its own second call')
+        ref = torch.zeros(N, D, dtype=torch.float64).index_add_(
+            0, idx.cpu(), grad.cpu().double())
+        err = float((got.cpu().double() - ref).abs().max()
+                    / ref.abs().max().clamp(min=1e-30))
+        worst = max(worst, err)
+        ms = device_ms(torch, lambda: gather_bwd(grad, od), 5)[0]
+        plain = device_ms(torch, lambda: gather_bwd_plain(grad, od), 2,
+                          reps=3)[0]
+        lib = device_ms(torch, lambda: torch.zeros(N, D, device=dev)
+                        .index_put_((idx,), grad, accumulate=True), 1,
+                        reps=3)[0]
+        K = o.chunks.shape[0]
+        moved = 4 * (M * D + N * D + M + 4 * K + 2 * o.partials * D)
+        bound = 1e3 * moved / PEAK_BYTES
+        rows.append({'B': t.bucket_size, 'entries': M,
+                     'hot_row_entries': t.hot_row_entries,
+                     'split_rows': o.split_rows, 'levels': len(o.levels) - 1,
+                     'chunks': K, 'partials': o.partials,
+                     'launches': launches, 'ms': ms, 'bound_ms': bound,
+                     'of_bound': bound / ms, 'plain_ms': plain,
+                     'library_ms': lib, 'max_err_rel': err})
+        for k, v in (('ms', ms), ('plain_ms', plain), ('library_ms', lib),
+                     ('bound_ms', bound)):
+            tot[k] += v
+    errs['gather_bwd'] = worst
+    print('gather_bwd: ' + json.dumps({
+        'graph': data.name, 'D': ARXIV_HIDDEN, 'classes': rows,
+        'layer': tot, 'step_two_layers_ms': 2 * tot['ms'],
+        'step_two_layers_bound_ms': 2 * tot['bound_ms']}))
+    print(smi_line, flush=True)
+    return {'name': 'gather_bwd', 'route': 'cuda',
+            'source': 'fsw_gnn_tpu_torch/csrc/gather_bwd.cu',
+            'replaces': "PyTorch's indexing_backward_kernel (the backward "
+                        "of X[table.idx]); no Pallas kernel",
+            'max_abs_err': worst, 'ms': tot['ms'],
+            'plain_ms': tot['plain_ms'], 'bound_ms': tot['bound_ms'],
+            'bound_by': 'bytes', 'library_ms': tot['library_ms']}
+
+
 def minibatch_phase(torch, T, dev, smi_line, counts, errs):
     """Phase 29: the MinibatchTrainer at arxiv's published scale
     (`arxiv_data`): FSWGNN hidden (64,) and 40 outputs at the CLI's
@@ -5424,7 +5512,10 @@ def main():
     torch.cuda.empty_cache()
     bench_phase(torch, smi_line, counts)
 
-    # ---- 43. kernels line, 44. last line ------------------------------------
+    # ---- 43. the tables' gather backward -------------------------------------
+    gbwd = gather_bwd_phase(torch, T, dev, smi_line, errs)
+
+    # ---- 44. kernels line, 45. last line ------------------------------------
     src = 'fsw_gnn_tpu_torch/csrc/'
     pallas = 'fsw_gnn_tpu/ops/fsw_rank_pallas.py:'
     line = {'kernels': [
@@ -5473,7 +5564,8 @@ def main():
          'max_abs_err': errs['fsw_rank_cart_bwd'],
          'ms': k4['k4b_ms'], 'plain_ms': k4['k4b_plain_ms'],
          'bound_ms': k4['k4b_bound_ms'], 'bound_by': k4['k4b_bound_by'],
-         'library_ms': None}] + [
+         'library_ms': None},
+        dict(gbwd, launches=counts['gather_bwd'])] + [
              {k: v for k, v in folder[key].items()
               if k not in ('errors', 'vs_sort_route_by_B')}
              for key in ('a1', 'a1g', 'p1', 'p4', 'p6')] + [

@@ -52,6 +52,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from .graph import Graph
+from .ops.gather_bwd import gather, gather_order
 from .ops.fsw_rank import (fsw_rank_aggregate, fsw_rank_aggregate_cart,
                            fsw_rank_aggregate_proj, misfit)
 from .ops.segcumsum import segcumsum_rows, segment_boundaries
@@ -438,18 +439,32 @@ def table_weights(w, cfg: FSWConfig):
 
 
 def _gather(src, table):
-    """src[table.idx], in the span `fsw.gather`, counted: its entries, its
-    padding and, where autograd differentiates `src`, the most entries one
-    sender row takes (the table's `pad_entries` and `hot_row_entries`,
-    where the layout functions of graph.py computed them)."""
+    """src[table.idx], in the span `fsw.gather`, counted: its entries and
+    its padding (the table's `pad_entries`, where the layout functions of
+    graph.py computed it).  Where autograd differentiates `src`, the
+    backward is `ops.gather_bwd` on the table's `gather_order` (built here,
+    on idx's device, where the table has none or one over other senders or
+    entries: `gather.bwd_order_built`), and the gather counts the senders
+    whose run the order cut (`gather.bwd_split_rows`) and the longest run
+    (`gather.hot_row_entries`, where graph.py counted it)."""
+    grad = torch.is_grad_enabled() and src.requires_grad
     with span('fsw.gather'):
-        out = src[table.idx]
+        if grad:
+            order = table.gather_order
+            if (order is None or order.num_senders != src.shape[0]
+                    or order.perm.shape[0] != table.idx.numel()):
+                order = gather_order(table.idx, src.shape[0])
+                count('gather.bwd_order_built')
+            out = gather(src, table.idx, order)
+        else:
+            out = src[table.idx]
     count('gather.entries', table.idx.numel())
     if table.pad_entries is not None:
         count('gather.pad_entries', table.pad_entries)
-    if (table.hot_row_entries is not None and torch.is_grad_enabled()
-            and src.requires_grad):
-        gauge_max('gather.hot_row_entries', table.hot_row_entries)
+    if grad:
+        count('gather.bwd_split_rows', order.split_rows)
+        if table.hot_row_entries is not None:
+            gauge_max('gather.hot_row_entries', table.hot_row_entries)
     return out
 
 

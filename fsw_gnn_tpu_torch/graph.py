@@ -21,6 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .ops.gather_bwd import GatherOrder, gather_order
+
 
 def _tensor(a, device):
     """numpy array (or tensor) -> tensor on `device`; integer arrays widen
@@ -34,13 +36,16 @@ def _tensor(a, device):
 
 
 def _to(obj, device):
-    """Copy of a layout dataclass with every array field on `device`."""
+    """Copy of a layout dataclass with every array field on `device` (and
+    a table's `gather_order`, by its own `to`)."""
     device = torch.device(device)
     changes = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
         if isinstance(v, (np.ndarray, torch.Tensor)):
             changes[f.name] = _tensor(v, device)
+        elif isinstance(v, GatherOrder):
+            changes[f.name] = v.to(device)
     return dataclasses.replace(obj, **changes)
 
 
@@ -209,7 +214,11 @@ class NeighborTable:
     pad_entries (the entries that hold no edge) and hot_row_entries (the
     most entries any one sender takes, padding included) are counted once
     by `to_neighbor_table` and `to_multi_table`, for the gather's counters
-    (`embedding._gather`); None where a table was made otherwise.
+    (`embedding._gather`), and gather_order, the entries by sender cut into
+    chunks (`ops.gather_bwd.gather_order`), is built beside them for the
+    gather's backward; None where a table was made otherwise (the gather
+    then builds the order in the call).  Replace `idx` and the order goes
+    stale: build it again or set it None.
     """
     idx: np.ndarray
     weight: np.ndarray
@@ -221,6 +230,7 @@ class NeighborTable:
     uniform_w: bool = False
     pad_entries: Optional[int] = None
     hot_row_entries: Optional[int] = None
+    gather_order: Optional[GatherOrder] = None
 
     @property
     def bucket_size(self) -> int:
@@ -245,11 +255,13 @@ def _detect_uniform_w(wt: np.ndarray) -> bool:
     return bool(np.all((wt == 0) | (wt == row_max)) and row_max.min() >= 0)
 
 
-def _gather_counts(idx: np.ndarray, real: int) -> dict:
-    """A table's pad_entries and hot_row_entries from its idx and the
-    number of entries that hold an edge."""
-    hot = int(np.bincount(idx.ravel()).max()) if idx.size else 0
-    return dict(pad_entries=int(idx.size - real), hot_row_entries=hot)
+def _gather_counts(idx: np.ndarray, real: int, num_nodes: int) -> dict:
+    """A table's pad_entries, hot_row_entries and gather_order from its
+    idx, the number of entries that hold an edge and the senders."""
+    order = gather_order(idx, num_nodes)
+    hot = int(torch.diff(order.ptr).max()) if idx.size else 0
+    return dict(pad_entries=int(idx.size - real), hot_row_entries=hot,
+                gather_order=order)
 
 
 def _degrees(graph: Graph):
@@ -294,7 +306,7 @@ def to_neighbor_table(graph: Graph, bucket_size: Optional[int] = None,
         idx=idx, weight=wt, in_degrees=np.asarray(graph.in_degrees),
         edge_feat=eft, num_nodes=graph.num_nodes, num_recipients=R,
         num_edges=E_real, uniform_w=_detect_uniform_w(wt),
-        **_gather_counts(idx, E_real))
+        **_gather_counts(idx, E_real, graph.num_nodes))
 
 
 @dataclasses.dataclass
@@ -409,7 +421,7 @@ def to_multi_table(graph: Graph, min_bucket: int = 8,
             idx=idx, weight=wt, in_degrees=np.zeros(Rc, w.dtype),
             edge_feat=eft, num_nodes=graph.num_nodes, num_recipients=Rc,
             num_edges=real, uniform_w=_detect_uniform_w(wt),
-            **_gather_counts(idx, real)))
+            **_gather_counts(idx, real, graph.num_nodes)))
         row_ids.append(ids.astype(np.int32))
 
     return MultiTable(tables=tuple(tables), row_ids=tuple(row_ids),

@@ -5,12 +5,14 @@ from .fsw_rank import (fsw_rank_aggregate, fsw_rank_aggregate_bwd,
                        fsw_rank_aggregate_plain, fsw_rank_aggregate_proj,
                        fsw_rank_aggregate_proj_bwd,
                        fsw_rank_aggregate_proj_plain)
+from .gather_bwd import gather_bwd, gather_bwd_plain, gather_order
 from .segcumsum import (segcumsum, segcumsum_plain, segcumsum_rows,
                         segcumsum_rows_plain, segment_boundaries)
 
 __all__ = ['fsw_rank_aggregate', 'fsw_rank_aggregate_cart',
            'fsw_rank_aggregate_cart_plain', 'fsw_rank_aggregate_plain',
            'fsw_rank_aggregate_proj', 'fsw_rank_aggregate_proj_plain',
+           'gather_bwd', 'gather_bwd_plain', 'gather_order',
            'launch_counters', 'launch_counts', 'reset_launches',
            'segcumsum', 'segcumsum_plain', 'segcumsum_rows',
            'segcumsum_rows_plain', 'segment_boundaries']
@@ -25,7 +27,8 @@ def launch_counters():
             'fsw_rank_bwd': fsw_rank_aggregate_bwd,
             'segcumsum': segcumsum,
             'fsw_rank_cart_fwd': fsw_rank_aggregate_cart,
-            'fsw_rank_cart_bwd': fsw_rank_aggregate_cart_bwd}
+            'fsw_rank_cart_bwd': fsw_rank_aggregate_cart_bwd,
+            'gather_bwd': gather_bwd}
 
 
 def launch_counts():

@@ -31,8 +31,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..embedding import (FSWConfig, _finalize, _mm, _resolve_aggregate,
-                         _sinc_diff, bucket_quadrature, table_weights)
+from ..embedding import (FSWConfig, _finalize, _gather, _mm,
+                         _resolve_aggregate, _sinc_diff, bucket_quadrature,
+                         table_weights)
 from ..graph import MultiTable
 from .collectives import start_all_gather
 
@@ -101,7 +102,7 @@ def fsw_embed_local_overlap(X_local, graph, proj, freqs, cfg: FSWConfig,
                                  device=Xp_local.device)
         cols = []
         for k in range(n_chunks):
-            Pk = chunk_rows(k)[t.idx]                        # (R, B, chunk)
+            Pk = _gather(chunk_rows(k), t)                   # (R, B, chunk)
             if cfg.d_edge > 0:
                 if t.edge_feat is None:
                     raise ValueError('cfg.d_edge > 0 but the shard has no '

@@ -21,6 +21,7 @@ import numpy as np
 
 from ..graph import (Graph, MultiTable, NeighborTable, _detect_uniform_w,
                      degree_classes, to_multi_table)
+from ..ops.gather_bwd import gather_order
 
 
 @dataclasses.dataclass
@@ -259,7 +260,8 @@ def local_graph(shards: GraphShards, rank: int,
                 exchange: str = 'all_gather'):
     """The layout rank `rank` computes on, in numpy (`.to(device)` it):
     a MultiTable when the shards carry the bucketed layout, else a
-    NeighborTable when they carry one table a shard, else a CSR Graph.
+    NeighborTable when they carry one table a shard (each table with its
+    `gather_order` over the senders), else a CSR Graph.
     Sender ids index the all-gathered (P * R_shard) padded-global matrix,
     or with exchange='all_to_all' the received (P * a2a_rows) buffer.  The
     CSR Graph's last row pointer covers the padding edges (they point at
@@ -285,7 +287,8 @@ def local_graph(shards: GraphShards, rank: int,
                 in_degrees=np.sum(w_c[p], axis=1),
                 edge_feat=None if ef_c is None else ef_c[p],
                 num_nodes=n_senders, num_recipients=idx_c.shape[1],
-                num_edges=idx_c.shape[1] * idx_c.shape[2], uniform_w=u_c)
+                num_edges=idx_c.shape[1] * idx_c.shape[2], uniform_w=u_c,
+                gather_order=gather_order(idx_c[p], n_senders))
             for idx_c, w_c, ef_c, u_c in zip(idx_stacks, shards.mtbl_w,
                                              ef_stacks, unif))
         return MultiTable(
@@ -298,7 +301,8 @@ def local_graph(shards: GraphShards, rank: int,
             idx=idx, weight=shards.tbl_w[p],
             in_degrees=shards.in_degrees[p], num_nodes=n_senders,
             num_recipients=R_shard, num_edges=shards.shard_num_edges,
-            uniform_w=shards.tbl_uniform)
+            uniform_w=shards.tbl_uniform,
+            gather_order=gather_order(idx, n_senders))
     row_ptr = shards.row_ptr[p].copy()
     row_ptr[-1] = shards.shard_num_edges
     return Graph(

@@ -448,10 +448,12 @@ def _k1_cell(D, rho, N, B, steps, calls, dev, gen, transient):
     node: a table of round(rho N / B) rows of width B over N nodes, laid
     out as a degree class of `graph.to_multi_table` is (each row's
     in-degree drawn from B/2 + 1 .. B, unit weights, the rest padding:
-    sender 0, weight 0), S = 2 max(D, 64) - 1 slices, the route forced
-    through the functions `fsw_embed_table` calls for it."""
+    sender 0, weight 0) with its gather order built once, as the layout
+    builds it, S = 2 max(D, 64) - 1 slices, the route forced through the
+    functions `fsw_embed_table` calls for it."""
     from .. import embedding as E
     from ..graph import NeighborTable
+    from ..ops.gather_bwd import gather_order
     S = 2 * max(D, 64) - 1
     R = max(1, round(rho * N / B))
     cfg = E.FSWConfig(d_in=D, d_out=S, enable_bias=False)
@@ -461,7 +463,7 @@ def _k1_cell(D, rho, N, B, steps, calls, dev, gen, transient):
     table = NeighborTable(idx=idx, weight=real.float(),
                           in_degrees=deg[:, 0].float(), num_nodes=N,
                           num_recipients=R, num_edges=int(real.sum()),
-                          uniform_w=True)
+                          uniform_w=True, gather_order=gather_order(idx, N))
     X0 = torch.randn((N, D), generator=gen, device=dev)
     V0 = torch.randn((S, D), generator=gen, device=dev)
     X, Vt = _dyadic(X0, V0.t())

@@ -62,7 +62,14 @@ nothing, and a replay passes through no Python).  `count(name, n)` adds,
     gather.hot_row_entries
                          the most entries one sender row takes in a single
                          gather whose source autograd differentiates: the
-                         longest run of the index backward's atomics
+                         longest run that the backward's order cut into
+                         chunks (`ops.gather_bwd`)
+    gather.bwd_split_rows
+                         each differentiated gather's senders whose run
+                         its order cut (`GatherOrder.split_rows`)
+    gather.bwd_order_built
+                         differentiated gathers whose table brought no
+                         order, so that the gather built one in the call
     launch.<kernel>      the kernels' launch counters (`ops.launch_counts`)
 
 Readers: `spans()` (every recorded span, by start) and `counters()` (one

@@ -21,6 +21,7 @@ from fsw_gnn_tpu_torch import embedding as E
 from fsw_gnn_tpu_torch.ops import fsw_rank as R
 from fsw_gnn_tpu_torch.utils import autotune as AT
 from fsw_gnn_tpu_torch.utils import enable_compilation_cache
+from fsw_gnn_tpu_torch.utils import profiling as P
 
 CARD = torch.device('cuda', 0)
 V5E_MARGINS = {'dw': {32: 1.59, 64: 1.13, 128: 0.73},
@@ -219,6 +220,17 @@ def test_measure_margins_runs_on_cpu_tiny():
         margins, transient, cells), write_cache=False, device='cpu')
     assert {'k1_rho0', 'k1_d0', 'k1_fwd_rho0', 'k1_fwd_d0'} <= set(rules)
     assert rules['margins']['k1'].keys() == {'8,0.5', '8,2.0'}
+
+
+def test_k1_cells_time_no_gather_order_build():
+    """Each K1 cell's table carries its gather order, as a layout's does,
+    so the unfused route's timed backward builds none."""
+    for steps, calls in ((1, 1), (3, 2)):
+        P.reset()
+        _tiny(steps=steps, calls=calls)
+        c = P.counters()
+        assert 'gather.bwd_split_rows' in c         # the route ran
+        assert 'gather.bwd_order_built' not in c
 
 
 def test_misfit_and_oom_lose_and_kernel_failures_raise(monkeypatch):

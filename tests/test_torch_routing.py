@@ -95,12 +95,14 @@ class _Stop(Exception):
 
 
 class _StopX:
-    """Stands in for X: its shape is read for the entries per node, and
-    the first use past the routing stops the call."""
+    """Stands in for X: its shape is read for the entries per node, its
+    requires_grad by the gather to pick its backward, and the first use
+    past the routing stops the call."""
 
     def __init__(self, n, d):
         self.shape = (n, d)
         self.dtype = torch.float32
+        self.requires_grad = False
 
     def __getitem__(self, idx):
         raise _Stop
