@@ -3,7 +3,8 @@ cell's own size: the program's compared numbers over many seeds (the
 lower reading), the control's (the plain reference in TF32, the precision
 below the configuration's float32 with TF32 off, put in the program's
 place) and each planted fault's (`faults.py`) over a few seeds.  The
-benchmark's own runs never run this.
+reference is the cell's own, as a run finds it (`run.reference_steps`).
+The benchmark's own runs never run this.
 
     python3 -m portbench.calibrate --workload <cell> --seeds 1-12 \
         --control-seeds 1-3 --fault-seeds 1-3 [--out file.jsonl]
@@ -19,7 +20,8 @@ import json
 import sys
 from pathlib import Path
 
-from .run import ROOT, BUILD, load_module, load_spec, make_inputs, sync
+from .run import (ROOT, BUILD, load_module, load_spec, make_inputs,
+                  reference_steps, sync)
 
 
 def seeds(text: str) -> list:
@@ -34,8 +36,9 @@ def readings(workload: str, prog_seeds, control_seeds, fault_seeds,
              device=None, root: Path = ROOT, emit=print) -> dict:
     import torch
 
-    from . import compare, reference
+    from . import compare
     from .faults import FAULTS, planted
+    from .reference import Arith
     spec = load_spec(root, workload)
     # the readings need the checked steps only, not the window's settle
     cfg, wl = spec['cfg'], {**spec['wl'], 'settle_s': 0.0}
@@ -44,8 +47,6 @@ def readings(workload: str, prog_seeds, control_seeds, fault_seeds,
         from fsw_gnn_tpu_torch.utils import enable_compilation_cache
         enable_compilation_cache(str(root / BUILD))
     driver = load_module(root, 'drivers', wl['driver'])
-    steps = int(wl['checked_steps'])
-    blk = wl.get('reference_slice_block')
     out = {'program': [], 'control': []}
 
     def program(inputs):
@@ -61,17 +62,14 @@ def readings(workload: str, prog_seeds, control_seeds, fault_seeds,
 
     for seed in sorted(set(prog_seeds) | set(control_seeds)
                        | set(fault_seeds)):
-        inputs = make_inputs(cfg, seed, device)
-        feed = {**inputs, 'features': inputs['X']}
-        ref = reference.train_steps(cfg, feed, steps,
-                                    reference.Arith(torch.float64), blk)
+        inputs = make_inputs(cfg, seed, device, root)
+        ref = reference_steps(root, cfg, wl, inputs, Arith(torch.float64))
         sides = []
         if seed in prog_seeds:
             sides.append(('program', lambda: program(inputs)))
         if seed in control_seeds:
-            sides.append(('control', lambda: reference.train_steps(
-                cfg, feed, steps, reference.Arith(torch.float32, tf32=True),
-                blk)))
+            sides.append(('control', lambda: reference_steps(
+                root, cfg, wl, inputs, Arith(torch.float32, tf32=True))))
         if seed in fault_seeds:
             for fault in FAULTS:
                 def faulty(fault=fault):
@@ -84,7 +82,7 @@ def readings(workload: str, prog_seeds, control_seeds, fault_seeds,
             out.setdefault(side, []).append(nums)
             emit(json.dumps({'seed': seed, 'side': side, 'numbers': nums,
                              'detail': compare.detail(got, ref)}))
-        del ref, inputs, feed
+        del ref, inputs
     summary = {}
     for side, rows in out.items():
         if rows:

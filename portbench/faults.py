@@ -3,8 +3,9 @@ calibration (never in a benchmark run): each must make `correct` false.
 
   frozen_state    the optimizer's step returns the state unchanged;
   half_batch      half of the batch left out, the mean taken over the rest
-                  (the Trainer's loss over half of the train mask; a
-                  single FSWConv's output cut to its first half of rows);
+                  (the trainers' loss over the first half of the rows its
+                  mask holds: the train nodes, or a sampled batch's seeds;
+                  a single FSWConv's output cut to its first half of rows);
   altered_answer  an answer altered where it is produced: the FSW
                   embedding's row of recipient 0 moved by 1.
 The exchange between chips does not exist in a one-chip cell.
@@ -33,7 +34,7 @@ def planted(fault: str, cfg: dict):
 
     from fsw_gnn_tpu_torch import FSWConv
     from fsw_gnn_tpu_torch.modules import FSWEmbedding
-    from fsw_gnn_tpu_torch.train import trainer
+    from fsw_gnn_tpu_torch.train import minibatch, trainer
     stack = contextlib.ExitStack()
     if fault == 'frozen_state':
         for cls in (torch.optim.SGD, torch.optim.Adam):
@@ -44,12 +45,13 @@ def planted(fault: str, cfg: dict):
             ce = trainer.masked_softmax_cross_entropy
 
             def half_ce(logits, labels, mask):
+                rows = torch.nonzero(mask).flatten()
                 mask = mask.clone()
-                mask[mask.shape[0] // 2:] = 0
+                mask[rows[rows.shape[0] // 2:]] = 0
                 return ce(logits, labels, mask)
-            stack.enter_context(_patched(trainer,
-                                         'masked_softmax_cross_entropy',
-                                         half_ce))
+            for module in (trainer, minibatch):
+                stack.enter_context(_patched(
+                    module, 'masked_softmax_cross_entropy', half_ce))
         else:
             fwd = FSWConv.forward
 

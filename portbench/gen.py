@@ -10,9 +10,13 @@ the program cannot change the yardstick:
     graph of given counts with planted labels, built in O(E), and
     features around the classes' means.
 Each takes the configuration's `data` group and numpy Generators, and
-gives numpy arrays.  The initial parameters are
-drawn on the device by a torch.Generator seeded from the same seed, in one
-call per distribution (`init_params`).
+gives numpy arrays.  A generator that is not among these comes as a file of
+its own, `portbench/generators/<name>.py` with `graph(data, g)` and
+`features(data, g, graph)`, which `run.make_inputs` finds by name and hands
+to `make_data`; so does a model kind (`portbench/models/<kind>.py`,
+`leaves(model)`).  The initial parameters are drawn on the device by a
+torch.Generator seeded from the same seed, in one call per distribution
+(`init_params`).
 """
 from __future__ import annotations
 
@@ -102,12 +106,13 @@ def relabel(graph: dict, perm: np.ndarray) -> dict:
     return out
 
 
-def make_data(data: dict, seed: int) -> dict:
+def make_data(data: dict, seed: int, generator=None) -> dict:
     """The configuration's data from `seed`: the graph that
     `structure_seed` makes, its nodes renamed by a permutation drawn from
     `seed`, and features from `seed`.  Every seed then runs the same degree
-    classes (the same work) on another labelling."""
-    graph_of, features_of = GENERATORS[data['generator']]
+    classes (the same work) on another labelling.  `generator` is the
+    (graph, features) pair of a generator not in GENERATORS."""
+    graph_of, features_of = generator or GENERATORS[data['generator']]
     g = rng(seed)
     graph = graph_of(data, rng(data['structure_seed']))
     graph = relabel(graph, g.permutation(graph['num_nodes']))
@@ -153,8 +158,12 @@ def conv_leaves(prefix: str, d_in: int, d_out: int, mlp_layers: int,
     return out
 
 
+MODEL_KINDS = ('fsw_conv', 'fsw_gnn')
+
+
 def model_leaves(model: dict) -> list:
-    """Every leaf of the configuration's model."""
+    """Every leaf of the configuration's model (of a kind in
+    MODEL_KINDS)."""
     if model['kind'] == 'fsw_conv':
         return conv_leaves('', model['in_channels'], model['out_channels'],
                            model['mlp_layers'])
@@ -168,13 +177,13 @@ def model_leaves(model: dict) -> list:
     raise ValueError(f"unknown model kind {model['kind']!r}")
 
 
-def init_params(model: dict, seed: int, device, dtype=torch.float32) -> dict:
-    """{name: tensor} of every leaf, drawn on `device` from `seed`: one
+def init_params(leaves: list, seed: int, device, dtype=torch.float32) -> dict:
+    """{name: tensor} of every leaf of `leaves` ((name, shape, init), as
+    `model_leaves` gives them), drawn on `device` from `seed`: one
     normal draw for all slice vectors, one uniform draw for all Linear
     layers (the program's own distributions: rows of N(0, 1) normalized,
     U(-1/sqrt(fan_in), 1/sqrt(fan_in))); the frequencies at the 'spread'
     quantiles u / (1 - u), u = (i + 1/2) / S; the degree scale 1."""
-    leaves = model_leaves(model)
     gen = torch.Generator(device=device).manual_seed(int(seed) & SEED_MASK)
     n_norm = sum(math.prod(s) for _, s, k in leaves if k == 'slices')
     n_unif = sum(math.prod(s) for _, s, k in leaves if isinstance(k, tuple))

@@ -1,10 +1,12 @@
-"""gather_bwd_ms (ms, device trace): device ms a step of PyTorch's index
-backward, which the tables' gathers (embedding.py `X[table.idx]`) launch
-for their gradient, by kernel name.  Nothing where no such kernel ran."""
+"""gather_bwd_ms (ms, device trace): device ms a step of the tables' gather
+backward, the port's `gather_bwd_kernel` (csrc/gather_bwd.cu, through
+ops/gather_bwd.py), which the tables' gathers (embedding.py `_gather`)
+launch for their source's gradient, by kernel name.  Nothing where no
+such kernel ran."""
 
 from portbench.trace import device_s
 
-NAMES = ('indexing_backward_kernel',)
+NAMES = ('gather_bwd_kernel',)
 
 
 def read(ctx):

@@ -79,7 +79,9 @@ class Graph:
         self.num_nodes = num_nodes
         deg = np.bincount(dst, minlength=num_nodes)
         start = np.concatenate([[0], np.cumsum(deg)[:-1]])
-        self.seg_start = torch.as_tensor(start, device=device)
+        # each edge's recipient's first edge (a node with no in-edges, as
+        # a sampled batch's outer nodes, starts past the last edge)
+        self.edge_start = torch.as_tensor(start[dst], device=device)
 
 
 def _slice_block(Xp_blk, f_blk, g: Graph, wn, pad_e):
@@ -92,7 +94,7 @@ def _slice_block(Xp_blk, f_blk, g: Graph, wn, pad_e):
     ws = wn[perm]
     cs = torch.cumsum(ws, dim=1)
     before = torch.cat([torch.zeros_like(cs[:, :1]), cs[:, :-1]], dim=1)
-    c = cs - before[:, g.seg_start][:, g.dst]   # restart at each recipient
+    c = cs - before[:, g.edge_start]            # restart at each recipient
     c = c + pad_e * (ps > 0)
     f = f_blk[:, None]
     terms = ps * 2.0 * ws * torch.sinc(f * ws) * torch.cos(
@@ -203,30 +205,39 @@ class Optimizer:
 
 def train_steps(cfg: dict, inputs: dict, n_steps: int, ar: Arith,
                 slice_block=None) -> dict:
-    """`n_steps` training steps of the configuration from the benchmark's
-    inputs (edge_index, features, labels, train_mask, init leaves,
-    trainable names), on the inputs' device.  Returns the losses, the first
-    step's forward output, the first step's gradient of every trainable
-    leaf and every leaf's change after the last step, as float64
-    tensors."""
+    """`n_steps` full-graph training steps of the configuration from the
+    benchmark's inputs (edge_index, features, labels, train_mask, init
+    leaves, trainable names), on the inputs' device (`steps_on`)."""
+    dev = inputs['features'].device
+    g = Graph(inputs['edge_index'], inputs['num_nodes'], dev)
+    X = inputs['features'].to(ar.dtype)
+    data = {k: torch.as_tensor(inputs[k], device=dev)
+            for k in ('labels', 'train_mask') if k in inputs}
+    return steps_on(cfg, inputs, [(g, X, data)] * n_steps, ar, slice_block)
+
+
+def steps_on(cfg: dict, inputs: dict, batches, ar: Arith,
+             slice_block=None) -> dict:
+    """One training step of the configuration on each (graph, features,
+    data) of `batches` in turn, from the inputs' initial leaves, training
+    the inputs' trainable names.  `data` holds what the loss reads
+    (`labels`, `train_mask`, one entry a row of the features).  Returns
+    the losses, the first step's forward output, the first step's
+    gradient of every trainable leaf and every leaf's change after the
+    last step, as float64 tensors."""
     # products in the stated precision (the control rounds its own)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dt = ar.dtype
-    dev = inputs['features'].device
-    g = Graph(inputs['edge_index'], inputs['num_nodes'], dev)
-    X = inputs['features'].to(dt)
-    data = {k: torch.as_tensor(inputs[k], device=dev)
-            for k in ('labels', 'train_mask') if k in inputs}
     p0 = {k: v.to(dt) for k, v in inputs['params'].items()}
     params = {k: v.clone() for k, v in p0.items()}
     names = [k for k in params if k in inputs['trainable']]
     opt = Optimizer(cfg['train'], {k: params[k] for k in names})
     losses, first_grad, first_out = [], None, None
-    for _ in range(n_steps):
+    for g, X, data in batches:
         leaves = {k: (v.detach().requires_grad_(k in names))
                   for k, v in params.items()}
-        out = forward(cfg['model'], leaves, X, g, ar, slice_block)
+        out = forward(cfg['model'], leaves, X.to(dt), g, ar, slice_block)
         if first_out is None:
             first_out = out.detach().double()
         loss = loss_of(cfg['train'], out, data)

@@ -9,18 +9,25 @@ configuration `portbench/configs/<config>.json` (model, data, training),
 the workload `portbench/workloads/<cell>.json` (driver, layout, window
 calls, trace part, the limits of the comparison), the driver
 `portbench/drivers/<driver>.py` and one reader a metric,
-`portbench/metrics/<metric>.py`.
+`portbench/metrics/<metric>.py` (a metric split by cells,
+`<quantity>.<part>`, is read by `<quantity>.py` where it has no file of its
+own).  A configuration or workload may bring
+its own parts as files too: a data generator that `gen.py` does not have
+(`portbench/generators/<generator>.py`), a model kind
+(`portbench/models/<kind>.py`) and a reference
+(`portbench/references/<reference>.py`, named by the workload).
 
 A run: the inputs and initial leaves from the seed (`gen.py`), the
 driver's set-up (the program's model and optimizer, the warm-up and the
 checked first steps), then the measured window of `--seconds` (calls of the
 driver until the time is up, ended by a synchronise), with `--trace 1` a
-profiled part of it, then the plain reference (`reference.py`) over the
-same first steps once the program's state is freed, and the comparison
-(`compare.py`).  The last line of standard output is the JSON result; the
-numbers compared, each beside its limit, are the last lines of standard
-error and the result's last key.  Exits 2 without a result where the card
-is missing, and 3 where the window's process holds JAX or the JAX package.
+profiled part of it, then the plain reference (`reference.py`, or the
+workload's own) over the same first steps once the program's state is
+freed, and the comparison (`compare.py`).  The last line of standard
+output is the JSON result; the numbers compared, each beside its limit,
+are the last lines of standard error and the result's last key.  Exits 2
+without a result where the card is missing, and 3 where the window's
+process holds JAX or the JAX package.
 """
 from __future__ import annotations
 
@@ -106,14 +113,36 @@ def load_module(root: Path, folder: str, name: str):
     return mod
 
 
-def make_inputs(cfg: dict, seed: int, device) -> dict:
-    """The seed's inputs and initial leaves, on the host and the device."""
+def metric_reader(root: Path, name: str):
+    """portbench/metrics/<name>.py; for `<quantity>.<part>` without a file
+    of its own, `<quantity>.py`: one quantity split by the cells whose
+    end-to-end metrics differ."""
+    if not (root / 'portbench' / 'metrics' / f'{_check_name(name)}.py'
+            ).exists():
+        name = name.split('.', 1)[0]
+    return load_module(root, 'metrics', name)
+
+
+def make_inputs(cfg: dict, seed: int, device, root: Path = ROOT) -> dict:
+    """The seed's inputs and initial leaves, on the host and the device.
+    A generator that gen.GENERATORS lacks is
+    portbench/generators/<generator>.py (`graph`, `features`), a model
+    kind that gen.MODEL_KINDS lacks portbench/models/<kind>.py
+    (`leaves`)."""
     import torch
 
     from . import gen
-    inputs = gen.make_data(cfg['data'], seed)
+    data, model = cfg['data'], cfg['model']
+    generator = None
+    if data['generator'] not in gen.GENERATORS:
+        mod = load_module(root, 'generators', data['generator'])
+        generator = (mod.graph, mod.features)
+    inputs = gen.make_data(data, seed, generator)
+    inputs['seed'] = int(seed)
     inputs['X'] = torch.as_tensor(inputs['features'], device=device)
-    inputs['params'] = gen.init_params(cfg['model'], seed, device)
+    leaves = (gen.model_leaves(model) if model['kind'] in gen.MODEL_KINDS
+              else load_module(root, 'models', model['kind']).leaves(model))
+    inputs['params'] = gen.init_params(leaves, seed, device)
     inputs['trainable'] = {k for k in inputs['params'] if gen.trainable(k)}
     return inputs
 
@@ -138,17 +167,20 @@ def window(cell, seconds: float, device, trace_part=None) -> dict:
     """Calls of the cell until `seconds` have passed, at most two calls
     ahead of the device, ended by a synchronise.  With `trace_part`
     ({'skip_calls', 'calls'}), those calls are profiled: the device drains
-    first and again at their end, inside the traced range."""
+    first and again at their end, inside the traced range.  The steps are
+    numbered from the window's first; the traced ones start at
+    `traced_from`."""
     import torch
 
     from . import trace as tr
     cuda = device.type == 'cuda'
-    pending, steps, calls, traced = [], 0, 0, None
+    pending, steps, calls, traced, traced_from = [], 0, 0, None, None
     sync(device)
     t0 = time.perf_counter()
     while True:
         if trace_part and calls == int(trace_part['skip_calls']):
             sync(device)
+            traced_from = steps
             prof = tr.profiler()
             prof.start()
             n_traced = 0
@@ -174,7 +206,7 @@ def window(cell, seconds: float, device, trace_part=None) -> dict:
     sync(device)
     t1 = time.perf_counter()
     return {'seconds': t1 - t0, 'steps': steps, 'calls': calls,
-            'traced': traced}
+            'traced': traced, 'traced_from': traced_from}
 
 
 def device_info(device, chips: int) -> dict:
@@ -187,17 +219,29 @@ def device_info(device, chips: int) -> dict:
             'memory_peak_bytes': int(torch.cuda.max_memory_allocated(device))}
 
 
-def reference_numbers(spec: dict, inputs: dict, prog: dict, device) -> dict:
-    """The reference's first steps in float64 on `device`, and the
-    compared numbers."""
+def reference_steps(root: Path, cfg: dict, wl: dict, inputs: dict, ar):
+    """The plain reference's first `checked_steps` training steps in the
+    arithmetic `ar`, on the inputs' device: `train_steps(cfg, inputs,
+    n_steps, ar, wl)` of portbench/references/<reference>.py where the
+    workload names one, else reference.py's full-graph steps."""
+    from . import reference
+    feed = {**inputs, 'features': inputs['X']}
+    steps = int(wl['checked_steps'])
+    if 'reference' in wl:
+        return load_module(root, 'references', wl['reference']).train_steps(
+            cfg, feed, steps, ar, wl)
+    return reference.train_steps(cfg, feed, steps, ar,
+                                 slice_block=wl.get('reference_slice_block'))
+
+
+def reference_numbers(spec: dict, inputs: dict, prog: dict) -> dict:
+    """The reference's first steps in float64, and the compared
+    numbers."""
     import torch
 
     from . import compare, reference
-    wl = spec['wl']
-    ref = reference.train_steps(
-        spec['cfg'], {**inputs, 'features': inputs['X']},
-        int(wl['checked_steps']), reference.Arith(torch.float64),
-        slice_block=wl.get('reference_slice_block'))
+    ref = reference_steps(spec['root'], spec['cfg'], spec['wl'], inputs,
+                          reference.Arith(torch.float64))
     return compare.numbers(prog, ref)
 
 
@@ -223,7 +267,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(device)
     phases = {'start': time.time() - started}
-    inputs = make_inputs(cfg, seed, device)
+    inputs = make_inputs(cfg, seed, device, root)
     sync(device)
     phases['inputs'] = time.time() - started
     driver = load_module(root, 'drivers', wl['driver'])
@@ -235,6 +279,15 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
           + json.dumps(phases), file=sys.stderr)
     win = window(cell, seconds, device, wl['trace'] if trace else None)
     dev_info = device_info(device, chips)
+    print(f"window: {win['steps']} steps in {win['seconds']!r} s",
+          file=sys.stderr)
+    # a cell that counts its steps' own work: summed after the window
+    if hasattr(cell, 'tally'):
+        win['work'] = cell.tally(0, win['steps'])
+        if trace:
+            first = win['traced_from']
+            win['traced_work'] = cell.tally(first, first + win['traced'][1])
+        print('window work: ' + json.dumps(win['work']), file=sys.stderr)
     prog = {'losses': [float(v) for v in cell.first['losses']],
             'out': cell.first['out'], 'grad': cell.first['grad'],
             'change': cell.first['change']}
@@ -243,7 +296,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     del cell
     if device.type == 'cuda':
         torch.cuda.empty_cache()
-    values = reference_numbers(spec, inputs, prog, device)
+    values = reference_numbers(spec, inputs, prog)
     values['nonfinite'] = float(nonfinite)
     lim = dict(wl['limits'])
     lim['nonfinite'] = 0.0
@@ -265,7 +318,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         dev_info['busy_s'] = ctx['trace']['busy_s']
         dev_info['window_s'] = ctx['trace']['window_s']
     for m in spec['per_layer'] if trace else spec['end_to_end']:
-        value = load_module(root, 'metrics', m['name']).read(ctx)
+        value = metric_reader(root, m['name']).read(ctx)
         if value is not None:
             metrics[m['name']] = {'value': value, 'unit': m['unit']}
     out = {'correct': correct, 'attempted': win['steps'],

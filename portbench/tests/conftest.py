@@ -19,6 +19,12 @@ TINY = {
                               'split': [150, 50, 100]},
                      'model': {'in_channels': 12, 'hidden_dims': [8, 8],
                                'num_classes': 5}},
+    'fswgnn-arxiv-sampled': {'data': {'num_nodes': 300, 'num_edges': 1500,
+                                      'features': 12, 'classes': 5,
+                                      'split': [150, 50, 100]},
+                             'model': {'in_channels': 12, 'hidden_dims': [8],
+                                       'num_classes': 5},
+                             'train': {'batch_size': 32, 'fanouts': [3, 3]}},
 }
 
 

@@ -9,12 +9,12 @@ from portbench import compare, reference, run
 from portbench.faults import FAULTS, planted
 
 CPU = torch.device('cpu')
-CELLS = ['conv64-multi-train', 'arxiv-full-train']
+CELLS = ['conv64-multi-train', 'arxiv-full-train', 'arxiv-minibatch-train']
 
 
 def first_steps(root, workload, seed, fault=None):
     spec = run.load_spec(root, workload)
-    inputs = run.make_inputs(spec['cfg'], seed, CPU)
+    inputs = run.make_inputs(spec['cfg'], seed, CPU, root)
     driver = run.load_module(root, 'drivers', spec['wl']['driver'])
     if fault is None:
         cell = driver.Cell(spec['cfg'], spec['wl'], inputs, CPU)
@@ -28,9 +28,8 @@ def first_steps(root, workload, seed, fault=None):
 
 
 def reference_of(spec, inputs, arith):
-    return reference.train_steps(spec['cfg'],
-                                 {**inputs, 'features': inputs['X']},
-                                 int(spec['wl']['checked_steps']), arith)
+    return run.reference_steps(spec['root'], spec['cfg'], spec['wl'],
+                               inputs, arith)
 
 
 @pytest.mark.parametrize('workload', CELLS)
@@ -55,7 +54,7 @@ def test_the_control_fails(tiny_root, workload):
     """The reference in TF32 (float32, products' operands rounded to TF32)
     put in the program's place."""
     spec = run.load_spec(tiny_root, workload)
-    inputs = run.make_inputs(spec['cfg'], 13, CPU)
+    inputs = run.make_inputs(spec['cfg'], 13, CPU, tiny_root)
     ref = reference_of(spec, inputs, reference.Arith())
     control = reference_of(spec, inputs,
                            reference.Arith(torch.float32, tf32=True))

@@ -26,8 +26,10 @@ def card():
     return torch.device('cuda', 0)
 
 
-@pytest.mark.parametrize('workload', ['conv64-multi-train',
-                                      'arxiv-full-train'])
+CELLS = ['conv64-multi-train', 'arxiv-full-train', 'arxiv-minibatch-train']
+
+
+@pytest.mark.parametrize('workload', CELLS)
 def test_tiny_cell_on_the_card(tiny_root, card, workload):
     buf = io.StringIO()
     with redirect_stdout(buf):
@@ -41,16 +43,14 @@ def test_tiny_cell_on_the_card(tiny_root, card, workload):
     assert out['breakdown']['device_ops']
 
 
-@pytest.mark.parametrize('workload', ['conv64-multi-train',
-                                      'arxiv-full-train'])
+@pytest.mark.parametrize('workload', CELLS)
 def test_control_and_fault_on_the_card(tiny_root, card, workload):
     spec = run.load_spec(tiny_root, workload)
-    inputs = run.make_inputs(spec['cfg'], 23, card)
-    feed = {**inputs, 'features': inputs['X']}
-    steps = int(spec['wl']['checked_steps'])
-    ref = reference.train_steps(spec['cfg'], feed, steps, reference.Arith())
-    control = reference.train_steps(
-        spec['cfg'], feed, steps, reference.Arith(torch.float32, tf32=True))
+    inputs = run.make_inputs(spec['cfg'], 23, card, tiny_root)
+    ref = run.reference_steps(tiny_root, spec['cfg'], spec['wl'], inputs,
+                              reference.Arith())
+    control = run.reference_steps(tiny_root, spec['cfg'], spec['wl'], inputs,
+                                  reference.Arith(torch.float32, tf32=True))
     limits = spec['wl']['limits']
     assert not compare.judge(compare.numbers(control, ref), limits)
     driver = run.load_module(tiny_root, 'drivers', spec['wl']['driver'])

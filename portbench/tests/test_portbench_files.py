@@ -18,6 +18,15 @@ CELLS = [w['name'] for w in BENCH['workloads']]
 METRICS = BENCH['end_to_end'] + BENCH['per_layer']
 
 
+def keys_of(tree) -> set:
+    """Every key of a JSON object, at any depth."""
+    if isinstance(tree, dict):
+        return set(tree).union(*(keys_of(v) for v in tree.values()))
+    if isinstance(tree, list):
+        return set().union(*(keys_of(v) for v in tree))
+    return set()
+
+
 def line(text, limit=200):
     return (isinstance(text, str) and 1 <= len(text) <= limit
             and '\n' not in text and '\t' not in text)
@@ -43,7 +52,13 @@ def test_config_entry(entry):
     assert entry['file'].startswith('portbench/configs/')
     cfg = json.loads((REPO / entry['file']).read_text())
     assert cfg['source'] == entry['source']
-    assert cfg['reduced'] == entry['reduced'] == []
+    # a configuration cut to one chip lists its cut keys in both places,
+    # each a key its file names
+    assert cfg['reduced'] == entry['reduced']
+    assert len(entry['reduced']) <= 16
+    assert all(NAME.fullmatch(k) for k in entry['reduced'])
+    assert set(entry['reduced']) <= keys_of(
+        {g: cfg[g] for g in ('model', 'data', 'train')})
     assert {'model', 'data', 'train'} <= set(cfg)
     assert any(w['config'] == entry['name'] for w in BENCH['workloads'])
 
@@ -57,6 +72,9 @@ def test_cell_entry(cell):
     spec = run.load_spec(REPO, cell['name'])
     wl = spec['wl']
     assert (REPO / 'portbench' / 'drivers' / f"{wl['driver']}.py").exists()
+    if 'reference' in wl:
+        assert (REPO / 'portbench' / 'references'
+                / f"{wl['reference']}.py").exists()
     assert set(wl['limits']) == {'loss', 'out', 'grad', 'change'}
     assert all(0 < v < 1 for v in wl['limits'].values())
     names = {m['name'] for m in spec['end_to_end']}
@@ -90,7 +108,7 @@ def test_metric_entry(metric):
         assert line(metric['layer'])
         assert metric['moves'] in {m['name'] for m in BENCH['end_to_end']}
     assert set(metric.get('workloads', CELLS)) <= set(CELLS)
-    reader = run.load_module(REPO, 'metrics', metric['name'])
+    reader = run.metric_reader(REPO, metric['name'])
     assert callable(reader.read)
 
 

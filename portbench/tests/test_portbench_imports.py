@@ -30,10 +30,25 @@ def test_sources_import_nothing_forbidden():
 
 
 def test_reference_imports_nothing_of_the_program():
-    for name in ('reference.py', 'gen.py', 'compare.py', 'workmodel.py'):
+    plain = {'__future__', 'math', 'numpy', 'torch', 'statistics'}
+    for name in ('reference.py', 'gen.py', 'compare.py', 'workmodel.py',
+                 'sampler.py'):
         tops = imported_tops(REPO / 'portbench' / name)
-        assert tops <= {'__future__', 'math', 'numpy', 'torch',
-                        'statistics'}, (name, tops)
+        assert tops <= plain, (name, tops)
+    # a cell's own reference, generator or model kind: plain modules and
+    # the plain files above
+    yardstick = {'portbench.' + n for n in ('reference', 'gen', 'compare',
+                                             'workmodel', 'sampler')}
+    for path in [p for folder in ('references', 'generators', 'models')
+                 for p in (REPO / 'portbench' / folder).glob('*.py')]:
+        tops = imported_tops(path)
+        assert tops <= plain | {'itertools', 'portbench'}, (path, tops)
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                    node.module.startswith('portbench'):
+                names = ({node.module} if node.module != 'portbench' else
+                         {f'portbench.{a.name}' for a in node.names})
+                assert names <= yardstick, (path, names)
 
 
 def test_whole_top_level_names(monkeypatch):
